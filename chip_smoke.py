@@ -1,0 +1,487 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives the port's serving slice (qwen2-0.5b, multi-tenant LoRA) on one
+card, through the entry points a user calls, with seeded random weights.
+Phases (any failure raises; nothing is caught):
+
+1. Print the card's name and power limit; build the CUDA kernels from the
+   sources in this checkout (one nvcc per source, all at once).
+2. Hold each kernel to its plain PyTorch version at the main path's
+   shapes, in bf16 and in f32 (TF32 off), and time kernel, plain version
+   and a library call on the same inputs.
+3. Parity at full width and reduced depth (2 layers, f32): the same
+   weights on the card (kernels) and on the CPU (plain versions), prefill
+   logits and 8 multi-tenant decode steps.
+4. The served run at full depth and width in bf16: a 4 x 128 prefill
+   through ``make_prefill_step``, then ``ServeEngine(max_batch=4)`` with
+   lanes at ranks 8/16/32/64 in a 64-wide slot, ``generate`` with one
+   retire/admit mid-stream. Launch counts are reset just before and read
+   just after each of the two, and must match the model's layer count.
+5. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+
+Exits non-zero without a CUDA device or outside a checkout of the repo.
+Details go to chiprun_out/chip_smoke.json.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
+from repro_torch.configs import qwen2_0_5b  # noqa: E402
+from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.lora_matmul import ops as lm_ops  # noqa: E402
+from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref  # noqa: E402
+from repro_torch.launch.adapter_cache import PagedAdapter  # noqa: E402
+from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E402
+                                      make_decode_step)
+from repro_torch.models import transformer as T  # noqa: E402
+
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+# H100 SXM data sheet, dense: HBM rate, bf16 tensor-core peak, f32 peak
+# outside the tensor cores (at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# kernel vs plain version on the same inputs; see each kernel's notes
+TOL = {("lora_matmul", torch.bfloat16): 1e-1,   # one vs two bf16 roundings
+       ("lora_matmul", torch.float32): 1e-4,    # f32 summation order only
+       ("flash_attention", torch.bfloat16): 2e-2,   # one bf16 rounding, |o|<4
+       ("flash_attention", torch.float32): 2e-5}    # f32 summation order
+# full width, 2 layers, f32, card vs CPU: summation order through the
+# stack and the 151936-wide tied head, with TF32 off
+E2E_TOL = 1e-3
+SLOT = 64
+RANKS = (8, 16, 32, 64)
+# > the 50 MB L2, so each timed call starts cold; and ~0.3 ms of device
+# work, during which the host enqueues the timed call, so the events
+# bracket device time rather than the host's dispatch of several launches
+FLUSH_BYTES = 1 << 30
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def timed_ms(fn, reps=25, warmup=3) -> float:
+    """Median device time of one call, with L2 flushed before each."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops_by_dtype: dict):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_FLOPS[dt] for dt, n in ops_by_dtype.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def maxabs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def nontrivial(ads, seed):
+    """Adapters with b drawn off its zero init, so they change outputs."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fix(node):
+        if "a" in node and "b" in node:
+            b = 0.02 * torch.randn(node["b"].shape, generator=g)
+            return {"a": node["a"], "b": b.to(node["b"].device)}
+        return {k: fix(v) for k, v in node.items()}
+    return {"segments": [fix(s) for s in ads["segments"]]}
+
+
+def reset_counts():
+    lm_ops.launches = 0
+    fa_ops.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def lora_cases(cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    for linear, K, N in (("o", d, d), ("up/gate", d, f), ("down", f, d)):
+        for mode, L, M in (("prefill", 1, 512), ("decode", len(RANKS), 1)):
+            yield linear, mode, L, M, K, N
+
+
+def check_lora(cfg, dtype):
+    rows = []
+    for linear, mode, L, M, K, N in lora_cases(cfg):
+        g = torch.Generator(device="cuda").manual_seed(K * 7 + N + L)
+        x = torch.randn((L, M, K), generator=g, device="cuda").to(dtype)
+        w = (torch.randn((K, N), generator=g, device="cuda")
+             / K ** 0.5).to(dtype)
+        a = torch.randn((L, K, SLOT), generator=g, device="cuda") / K ** 0.5
+        b = 0.1 * torch.randn((L, SLOT, N), generator=g, device="cuda")
+        if mode == "decode":     # one tenant per lane, mixed ranks
+            ranks = torch.tensor(RANKS, device="cuda")
+        else:
+            ranks = torch.tensor([SLOT], device="cuda")
+        scale = (16.0 / ranks).float()
+        mask = rank_arange_mask(ranks, SLOT)
+        args = (x, w, a, b, scale, mask)
+        got = lm_ops.lora_matmul(*args)
+        torch.cuda.synchronize()
+        want = lora_matmul_ref(*args)
+        err = maxabs(got, want)
+        tol = TOL[("lora_matmul", dtype)]
+        if not (err < tol and torch.isfinite(got).all()):
+            fail(f"lora_matmul {linear}/{mode}/{dtype}: max abs {err} "
+                 f">= {tol}")
+        es = x.element_size()
+        nbytes = (es * (L * M * K + K * N + L * M * N)
+                  + 4 * (L * K * SLOT + L * SLOT * N + L + L * SLOT))
+        # x·W in the model dtype; t = x·A and (t⊙m)·B in f32
+        ops = {torch.float32: 2.0 * L * M * SLOT * (K + N)}
+        ops[dtype] = ops.get(dtype, 0.0) + 2.0 * L * M * K * N
+        b_ms, b_by = bound(nbytes, ops)
+
+        def library():
+            t = (x.float() @ a) * mask[:, None, :]
+            return x @ w + (scale[:, None, None] * (t @ b)).to(dtype)
+        rows.append({
+            "name": "lora_matmul", "linear": linear, "mode": mode,
+            "dtype": str(dtype).replace("torch.", ""),
+            "shape": f"L={L} M={M} K={K} N={N} r={SLOT}",
+            "max_abs_err": err, "tol": tol,
+            "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
+            "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
+            "library_ms": timed_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def check_flash(cfg, dtype):
+    rows = []
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B = 4
+    for S in (128, 100):
+        g = torch.Generator(device="cuda").manual_seed(S)
+        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
+        got = fa_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = fa_ops._plain(q, k, v, True, None, D ** -0.5)
+        err = maxabs(got, want)
+        tol = TOL[("flash_attention", dtype)]
+        if not (err < tol and torch.isfinite(got).all()):
+            fail(f"flash_attention S={S}/{dtype}: max abs {err} >= {tol}")
+        es = q.element_size()
+        nbytes = es * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+        pairs = S * (S + 1) / 2                  # causal: visible (q, k)
+        b_ms, b_by = bound(nbytes, {dtype: 4.0 * B * H * D * pairs})
+        # the library yardstick: SDPA in its own (B, H, S, D) layout
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        rows.append({
+            "name": "flash_attention", "dtype": str(dtype).replace("torch.",
+                                                                   ""),
+            "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D}",
+            "max_abs_err": err, "tol": tol,
+            "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
+            "plain_ms": timed_ms(
+                lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
+            "library_ms": timed_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: full width, reduced depth, card vs CPU
+# ---------------------------------------------------------------------------
+
+def engine_with_tenants(params, cfg, lora, dtype, device, seed0):
+    eng = ServeEngine(params, cfg, lora,
+                      ServeSpec(max_batch=len(RANKS), cache_len=128,
+                                max_rank=SLOT), dtype=dtype, device=device)
+    for lane, rank in enumerate(RANKS):
+        eng.assign(lane, paged(cfg, lora, rank, seed0 + lane, device))
+    return eng
+
+
+def paged(cfg, lora, rank, seed, device):
+    # drawn on the CPU (CPU and CUDA generators give different streams),
+    # so the card and CPU engines of phase 3 serve the same tenants
+    ads = nontrivial(T.init_adapters(cfg, lora, seed=seed, rank=rank,
+                                     device="cpu"), seed)
+    return PagedAdapter(task=0, rsu=-1, version=0, rank=rank, slot_rank=SLOT,
+                        scale=lora.alpha / rank,
+                        adapters=to(pad_adapter_tree(ads, SLOT), device))
+
+
+def parity(cfg_full, lora):
+    cfg = cfg_full.with_overrides(num_layers=2)
+    params_cpu = T.init_params(cfg, seed=1, dtype=torch.float32, device="cpu")
+    params_gpu = to(params_cpu, "cuda")
+    ads_cpu = nontrivial(T.init_adapters(cfg, lora, seed=2, rank=SLOT,
+                                         device="cpu"), 2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(3))
+    want = make_prefill_step(cfg, lora, device="cpu")(params_cpu, ads_cpu,
+                                                      {"tokens": tokens})
+    got = make_prefill_step(cfg, lora, device="cuda")(
+        params_gpu, to(ads_cpu, "cuda"), {"tokens": tokens})
+    prefill_err = maxabs(got.cpu(), want)
+    if not prefill_err <= E2E_TOL:
+        fail(f"prefill card vs CPU: max abs {prefill_err} > {E2E_TOL}")
+
+    eng_cpu = engine_with_tenants(params_cpu, cfg, lora, torch.float32,
+                                  "cpu", seed0=10)
+    eng_gpu = engine_with_tenants(params_gpu, cfg, lora, torch.float32,
+                                  "cuda", seed0=10)
+    toks = np.array([1, 2, 3, 4])
+    decode_err = 0.0
+    for step in range(8):
+        got = eng_gpu.step(toks).cpu()
+        want = eng_cpu.step(toks)
+        err = maxabs(got, want)
+        decode_err = max(decode_err, err)
+        if not err <= E2E_TOL:
+            fail(f"decode step {step} card vs CPU: max abs {err}")
+        toks = want.argmax(-1).numpy()
+    # the single-sequence decode factory on the card, same weights
+    decode = make_decode_step(cfg, lora, device="cuda")
+    caches = T.init_caches(cfg, 2, 8, dtype=torch.float32, device="cuda")
+    logits, _ = decode(params_gpu, None, tokens[:, :1], caches, 0)
+    if not torch.isfinite(logits).all():
+        fail("decode factory logits not finite")
+    return {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, f32", "tol": E2E_TOL,
+            "prefill_max_abs_err": prefill_err,
+            "decode_max_abs_err": decode_err, "decode_steps": 8}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the served run at full depth
+# ---------------------------------------------------------------------------
+
+def served(cfg, lora):
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    prefill = make_prefill_step(cfg, lora, device="cuda")
+    ads = nontrivial(T.init_adapters(cfg, lora, seed=5, rank=SLOT,
+                                     device="cuda"), 5)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128),
+                           generator=torch.Generator().manual_seed(6))
+    prefill(params, ads, {"tokens": tokens})         # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = prefill(params, ads, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = {"lora_matmul": lm_ops.launches,
+                      "flash_attention": fa_ops.launches}
+    if not torch.isfinite(logits).all():
+        fail("prefill logits not finite")
+    want = {"lora_matmul": 4 * cfg.num_layers,
+            "flash_attention": cfg.num_layers}
+    if prefill_counts != want:
+        fail(f"prefill launches {prefill_counts}, want {want}")
+
+    eng = engine_with_tenants(params, cfg, lora, torch.bfloat16, "cuda",
+                              seed0=20)
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                (len(RANKS), 16))
+    eng.step(prompts[:, 0])                           # warm-up
+    for lane in range(eng.max_batch):
+        eng.reset_lane(lane)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    gen1 = eng.generate(prompts, 32)
+    eng.retire(3)
+    eng.admit(paged(cfg, lora, 32, 30, "cuda"), lane=3)
+    gen2 = eng.generate(prompts, 32)
+    last = eng.step(gen2[:, -1])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    steps = 2 * (16 + 32 - 1) + 1
+    decode_counts = {"lora_matmul": lm_ops.launches,
+                     "flash_attention": fa_ops.launches}
+    if not torch.isfinite(last).all():
+        fail("decode logits not finite")
+    want = {"lora_matmul": 4 * cfg.num_layers * steps, "flash_attention": 0}
+    if decode_counts != want:
+        fail(f"decode launches {decode_counts}, want {want}")
+    if gen1.shape != (4, 32) or gen2.shape != (4, 32):
+        fail("generate returned the wrong shape")
+    # after the counted runs: where the device time goes
+    traces = {
+        "prefill": device_profile(
+            lambda: prefill(params, ads, {"tokens": tokens})),
+        "decode_4_steps": device_profile(
+            lambda: [eng.step(gen2[:, -1]) for _ in range(4)])}
+    return {
+        "config": f"{cfg.name}, {cfg.num_layers} layers, full width, bf16",
+        "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
+                    "launches": prefill_counts},
+        "decode": {"lanes": len(RANKS), "ranks": list(RANKS), "slot": SLOT,
+                   "steps": steps, "seconds": decode_s,
+                   "lane_tokens_per_s": len(RANKS) * steps / decode_s,
+                   "ms_per_step": decode_s / steps * 1e3,
+                   "launches": decode_counts,
+                   "launches_per_step": {
+                       k: v / steps for k, v in decode_counts.items()}},
+        "launches": {k: prefill_counts[k] + decode_counts[k]
+                     for k in prefill_counts},
+        "profile": traces,
+    }
+
+
+def device_profile(fn, top=8):
+    """Device time by kernel over one fn() (torch.profiler, CUDA activity
+    only), and the share of the wall time the device was busy. The
+    profiler's own overhead lengthens the wall time a little."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernels": len(rows),
+            "top": [{"kernel": k[:100], "ms": ms, "count": n}
+                    for k, ms, n in rows[:top]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi()
+    print(f"[1] card: {card}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    secs = _build.build()
+    print(f"[1] built {sorted(secs)} in {time.perf_counter() - t0:.2f}s "
+          f"wall ({', '.join(f'{k} {v:.2f}s' for k, v in secs.items())})")
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1] ptxas {name}: {line.strip()}")
+
+    cfg = qwen2_0_5b.qwen2_0_5b()
+    lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += check_lora(cfg, dtype) + check_flash(cfg, dtype)
+    for r in rows:
+        print(f"[2] {r['name']} {r.get('linear', '')} {r.get('mode', '')} "
+              f"{r['dtype']} {r['shape']}: err {r['max_abs_err']:.3g} "
+              f"(tol {r['tol']}), ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}"
+              f", library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+
+    par = parity(cfg, lora)
+    print(f"[3] {par['config']}: prefill max abs {par['prefill_max_abs_err']:.3g}"
+          f", decode max abs {par['decode_max_abs_err']:.3g} over "
+          f"{par['decode_steps']} steps (tol {E2E_TOL})", flush=True)
+
+    run = served(cfg, lora)
+    p, d = run["prefill"], run["decode"]
+    print(f"[4] {run['config']}: prefill 4x128 {p['ms']:.2f} ms, launches "
+          f"{p['launches']}; decode {d['steps']} steps x {d['lanes']} lanes "
+          f"{d['lane_tokens_per_s']:.1f} tok/s ({d['ms_per_step']:.2f} ms/"
+          f"step), launches {d['launches']}", flush=True)
+    for name, tr in run["profile"].items():
+        busy = tr["busy_share"]
+        print(f"[4] profile {name}: wall {tr['wall_ms']:.2f} ms, device "
+              f"{tr['device_ms']:.2f} ms (busy {busy:.3f}), top: "
+              + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms x{t['count']}"
+                          for t in tr["top"][:4]), flush=True)
+
+    # the kernels line: one entry per kernel at the prefill main-path
+    # shape in bf16 (lora_matmul: the up/gate linear), with every shape
+    # measured under "cases"
+    entries = []
+    for name, pick in (("lora_matmul", lambda r: r.get("linear") == "up/gate"
+                        and r["mode"] == "prefill"),
+                       ("flash_attention", lambda r: "S=128" in r["shape"])):
+        mine = [r for r in rows if r["name"] == name]
+        head = next(r for r in mine if r["dtype"] == "bfloat16" and pick(r))
+        src = _build.source_of(name).relative_to(HERE)
+        replaces = {"lora_matmul":
+                    "src/repro/kernels/lora_matmul/kernel.py:79",
+                    "flash_attention":
+                    "src/repro/kernels/flash_attention/kernel.py:102"}[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": str(src),
+            "replaces": replaces, "launches": run["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine
+                               if r["dtype"] == "bfloat16"),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "cases": mine})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
+        json.dump({"card": card, "torch": torch.__version__,
+                   "build_seconds": secs, "kernels": entries,
+                   "parity": par, "served": run}, fh, indent=1)
+    print(smi())
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k != "cases"} for e in entries]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

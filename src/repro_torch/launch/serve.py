@@ -1,0 +1,297 @@
+"""Serving tier of the port: prefill/decode step factories and the dense
+multi-tenant :class:`ServeEngine`.
+
+Port of ``repro/launch/serve.py``. The factories take a ``device`` where
+the reference takes a mesh, and return plain callables (PyTorch runs
+eagerly; there is no jit builder). On a card, prefill runs the
+``flash_attention`` and ``lora_matmul`` kernels and decode runs
+``lora_matmul``; on the CPU the same code takes their plain versions.
+
+:class:`ServeEngine` decodes ``ServeSpec.max_batch`` lanes in one step.
+The reference gets its lanes by ``vmap`` of a single-sequence decode;
+here the lane axis is written out: adapters are stored lane-batched
+(leaves (L, B, ...)), each lane has its own scale, position, ring slot
+and RoPE angle, and every LoRA linear of a step is one kernel launch for
+all lanes. ``assign``/``evict``/``admit``/``retire``/``reset_lane`` are
+in-place copies into one lane, so sibling lanes are never disturbed.
+
+Paged KV (``ServeSpec.block_size > 0``) is not ported: the engine raises.
+
+CLI (reduced config):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens 32
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.config import LoRAConfig, ModelConfig, ServeSpec
+from repro_torch.interop import tree_map
+from repro_torch.launch.adapter_cache import PagedAdapter
+from repro_torch.models import transformer as T
+from repro_torch.models.runmode import resolve_device
+
+
+def make_prefill_step(cfg: ModelConfig, lora: LoRAConfig, *,
+                      device="cuda", sliding_window=None):
+    """prefill(params, adapters, batch) -> logits (B, S, V)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def prefill(params, adapters, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        logits, _ = T.forward(params, adapters, cfg, lora,
+                              {"tokens": tokens},
+                              sliding_window=sliding_window)
+        return logits
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, lora: LoRAConfig, *,
+                     device="cuda", sliding_window=None):
+    """decode(params, adapters, token, caches, position, scale=None) ->
+    (logits (B, 1, V), caches). ``scale`` (scalar or per-lane (B,)) lets
+    one step serve adapters of any rank; None uses ``lora.scale``."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def decode(params, adapters, token, caches, position, scale=None):
+        token = torch.as_tensor(token, device=dev).long()
+        return T.decode_step(params, adapters, cfg, lora, token, caches,
+                             position, sliding_window=sliding_window,
+                             scale=scale)
+
+    return decode
+
+
+def _zip_apply(full, one, fn) -> None:
+    """fn(full_leaf, one_leaf) over two trees of the same structure."""
+    if isinstance(full, dict):
+        for k in full:
+            _zip_apply(full[k], one[k], fn)
+    elif isinstance(full, (list, tuple)):
+        for f, o in zip(full, one):
+            _zip_apply(f, o, fn)
+    else:
+        fn(full, one)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant serving engine
+# ---------------------------------------------------------------------------
+
+class ServeEngine:
+    """Batched multi-tenant decode over rank-padded adapter slots.
+
+    Each of the ``spec.max_batch`` lanes serves one tenant: a
+    :class:`PagedAdapter` (any rank ≤ the slot width) plus its own cache
+    slice and position counter. Unassigned lanes hold zero adapters at
+    zero scale — exact base-model decode.
+
+    Adapter leaves are stored (n_layers, max_batch, ...), so each layer's
+    lane batch is one contiguous operand of the ``lora_matmul`` kernel.
+    Decode sends the per-lane scales and an all-ones rank mask as kernel
+    operands (the slots' zero tails already make padding exact).
+    """
+
+    def __init__(self, params, cfg: ModelConfig, lora: LoRAConfig,
+                 spec: Optional[ServeSpec] = None, *,
+                 dtype=torch.float32, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.lora = lora
+        self.spec = spec or ServeSpec()
+        if self.spec.paged:
+            raise NotImplementedError(
+                "paged KV (ServeSpec.block_size > 0) is not ported yet")
+        self.params = params
+        self.slot_rank = self.spec.resolve_max_rank(lora)
+        self.dtype = dtype
+        B = self.spec.max_batch
+        self._slot_lora = dataclasses.replace(lora, rank=self.slot_rank,
+                                              max_rank=self.slot_rank)
+        zero = tree_map(torch.zeros_like, T.init_adapters(
+            cfg, self._slot_lora, device=self.device))
+        self._zero_adapter = zero
+        self._adapters = tree_map(lambda x: torch.zeros(
+            x.shape[:1] + (B,) + x.shape[1:], dtype=x.dtype,
+            device=x.device), zero)
+        self._scales = torch.zeros(B, dtype=torch.float32, device=self.device)
+        self._mask = torch.ones((B, self.slot_rank), dtype=torch.float32,
+                                device=self.device)
+        self._caches = T.init_caches(cfg, B, self.spec.cache_len,
+                                     dtype=dtype, device=self.device)
+        self._positions = np.zeros(B, np.int64)
+        self.assigned: Dict[int, Optional[PagedAdapter]] = \
+            {i: None for i in range(B)}
+        self.swaps = 0
+        self.admits = 0
+        self.retires = 0
+        self._admit_order: list = []     # lanes, oldest admission first
+
+    # -- tenancy --------------------------------------------------------
+    @property
+    def max_batch(self) -> int:
+        return self.spec.max_batch
+
+    def _write_lane(self, lane: int, tree) -> None:
+        def put(full, one):
+            full[:, lane].copy_(one)
+        _zip_apply(self._adapters, tree, put)
+
+    def assign(self, lane: int, paged: PagedAdapter, *,
+               reset: bool = True) -> None:
+        """Hot-swap ``paged`` into ``lane``: an in-place copy into that
+        lane's slot; no shape changes, nothing is rebuilt."""
+        if paged.slot_rank != self.slot_rank:
+            raise ValueError(
+                f"adapter paged for slot width {paged.slot_rank}, engine "
+                f"slot width is {self.slot_rank}")
+        self._write_lane(lane, paged.adapters)
+        self._scales[lane] = paged.scale
+        self.assigned[lane] = paged
+        self.swaps += 1
+        if lane in self._admit_order:
+            self._admit_order.remove(lane)
+        self._admit_order.append(lane)
+        if reset:
+            self.reset_lane(lane)
+
+    def evict(self, lane: int, *, reset: bool = True) -> None:
+        """Return ``lane`` to base-model decode (zero adapter and scale)."""
+        self._write_lane(lane, self._zero_adapter)
+        self._scales[lane] = 0.0
+        self.assigned[lane] = None
+        if lane in self._admit_order:
+            self._admit_order.remove(lane)
+        if reset:
+            self.reset_lane(lane)
+
+    def admit(self, paged: PagedAdapter, *,
+              lane: Optional[int] = None) -> int:
+        """Admit a tenant mid-stream: a free lane first; when full,
+        ``spec.admission="evict_oldest"`` retires the longest-admitted
+        tenant and ``"strict"`` raises. Returns the lane."""
+        if lane is None:
+            free = [i for i in range(self.max_batch)
+                    if self.assigned[i] is None]
+            if free:
+                lane = free[0]
+            elif self.spec.admission == "evict_oldest":
+                lane = self.retire(self._admit_order[0])
+            else:
+                raise RuntimeError(
+                    f"no free lane for tenant {paged.key} (all "
+                    f"{self.max_batch} lanes occupied; ServeSpec."
+                    "admission='strict' refuses to evict)")
+        self.assign(lane, paged, reset=True)
+        self.admits += 1
+        return lane
+
+    def retire(self, lane: int) -> int:
+        """Retire ``lane``'s tenant: back to base-model decode with a
+        reset stream. Returns the freed lane."""
+        self.evict(lane, reset=True)
+        self.retires += 1
+        return lane
+
+    def reset_lane(self, lane: int) -> None:
+        """Fresh cache and position 0 for ``lane`` (a new request)."""
+        for c in self._caches["segments"]:
+            c["k"][:, lane].zero_()
+            c["v"][:, lane].zero_()
+            c["pos"][:, lane].fill_(-1)
+        self._positions[lane] = 0
+
+    # -- decode ---------------------------------------------------------
+    @torch.no_grad()
+    def step(self, tokens: Sequence[int]) -> torch.Tensor:
+        """Decode one token on every lane. tokens: (max_batch,) ints.
+        Returns per-lane next-token logits, shape (max_batch, vocab)."""
+        B = self.max_batch
+        toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(B, 1),
+                               device=self.device)
+        pos = torch.as_tensor(self._positions, device=self.device)
+        logits, _ = T.decode_step(
+            self.params, self._adapters, self.cfg, self._slot_lora, toks,
+            self._caches, pos, sliding_window=self.spec.sliding_window,
+            scale=(self._scales, self._mask))
+        self._positions += 1
+        return logits[:, 0]
+
+    def generate(self, prompts: np.ndarray, num_tokens: int) -> np.ndarray:
+        """Greedy-decode ``num_tokens`` per lane after teacher-forcing the
+        prompts. prompts: (max_batch, P) ints. Returns (max_batch,
+        num_tokens) generated ids."""
+        prompts = np.asarray(prompts)
+        if prompts.shape[0] != self.max_batch:
+            raise ValueError(f"prompts for {prompts.shape[0]} lanes, engine "
+                             f"has {self.max_batch}")
+        tok = prompts[:, 0]
+        out = []
+        for i in range(prompts.shape[1] + num_tokens - 1):
+            logits = self.step(tok)
+            if i + 1 < prompts.shape[1]:
+                tok = prompts[:, i + 1]
+            else:
+                tok = torch.argmax(logits, dim=-1).cpu().numpy()
+                out.append(tok)
+        return np.stack(out, axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Demo CLI: batched request serving with the reduced config
+# ---------------------------------------------------------------------------
+
+def main():
+    import argparse
+    import importlib
+    import time
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--arch", default="qwen2-0.5b")
+    parser.add_argument("--batch", type=int, default=4)
+    parser.add_argument("--prompt-len", type=int, default=16)
+    parser.add_argument("--tokens", type=int, default=32)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+
+    mod = importlib.import_module(
+        "repro_torch.configs." + args.arch.replace("-", "_").replace(".", "_"))
+    cfg = mod.reduced()
+    lora = LoRAConfig(rank=4)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32,
+                           device=args.device)
+
+    B = args.batch
+    clen = args.prompt_len + args.tokens
+    caches = T.init_caches(cfg, B, clen, dtype=torch.float32,
+                           device=args.device)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (B, args.prompt_len))
+    decode = make_decode_step(cfg, lora, device=args.device)
+
+    # prompt through the decode step, then greedy generation
+    t0 = time.perf_counter()
+    tok = prompt[:, :1]
+    outs = []
+    for pos in range(clen - 1):
+        logits, caches = decode(params, None, tok, caches, pos)
+        if pos + 1 < args.prompt_len:
+            tok = prompt[:, pos + 1:pos + 2]
+        else:
+            tok = torch.argmax(logits, dim=-1).cpu().numpy()
+            outs.append(tok[:, 0])
+    dt = time.perf_counter() - t0
+    gen = np.stack(outs, 1)
+    print(f"served {B} requests x {gen.shape[1]} tokens in {dt:.2f}s "
+          f"({B * gen.shape[1] / dt:.1f} tok/s on {args.device})")
+    print("sample:", gen[0][:16])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,178 @@
+"""GQA attention with LoRA hooks and a ring-buffer KV cache.
+
+Port of the GQA half of ``repro/models/attention.py`` (MLA is not ported).
+Routes (:func:`attention_path`), in precedence order:
+
+  'decode' — one query token against the cache: one grouped product, no
+             GQA head repeat (plain tensor code, as in the reference)
+  'flash'  — the causal, aligned full-sequence case (prefill): the
+             ``flash_attention`` kernel on a card, its plain version on
+             the CPU
+  'direct' — other short sequences: materialized (Sq, Sk) scores
+  'blocked'— the reference's blocked online-softmax jnp route; not ported,
+             so :func:`attend` raises
+
+Decode lanes carry their own positions: q_positions is (B, Sq), and each
+lane writes its new keys at its own ring slot ``position % Sc`` and
+rotates them by its own angle. The cache is updated in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.lora import apply_lora_linear
+from repro_torch.models import runmode
+from repro_torch.models.common import apply_rope, fan_in_init
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype=torch.float32, layers: Optional[int] = None) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    L = () if layers is None else (layers,)
+
+    def lin(di, do, bias):
+        p = {"w": fan_in_init(gen, L + (di, do), dtype)}
+        if bias:
+            p["b"] = torch.zeros(L + (do,), dtype=dtype, device=gen.device)
+        return p
+
+    return {
+        "q": lin(d, nq * hd, cfg.qkv_bias),
+        "k": lin(d, nkv * hd, cfg.qkv_bias),
+        "v": lin(d, nkv * hd, cfg.qkv_bias),
+        "o": lin(nq * hd, d, False),
+    }
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _direct_attend(q, k, v, *, causal, q_positions, kv_positions,
+                   sliding_window, sm_scale, cap=0.0):
+    """Unblocked attention: one grouped score product, masked softmax,
+    one value product. Empty ring slots carry position -1."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    hd_v = v.shape[-1]
+    rep = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, rep, hd).float()
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qg, k.float()) * sm_scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    kvp = kv_positions[:, None, :]
+    qp = q_positions[:, :, None]
+    mask = kvp >= 0
+    if causal:
+        mask = mask & (kvp <= qp)
+    if sliding_window is not None:
+        mask = mask & (kvp > qp - sliding_window)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhrk,bkhd->bqhrd", p, v.float())
+    return out.reshape(B, Sq, H, hd_v).to(q.dtype)
+
+
+def attention_path(*, causal: bool, Sq: int, Sk: int, cap: float = 0.0,
+                   hd_k: Optional[int] = None,
+                   hd_v: Optional[int] = None) -> str:
+    """Which route :func:`attend` takes (see the module docstring)."""
+    if Sq == 1 and causal and runmode.FAST_DECODE:
+        return "decode"
+    if causal and Sq == Sk and cap == 0.0 and (hd_k is None or hd_k == hd_v):
+        return "flash"
+    if Sq > 1 and max(Sq, Sk) <= runmode.DIRECT_ATTN_MAX_SEQ:
+        return "direct"
+    return "blocked"
+
+
+def attend(q, k, v, *, causal: bool, q_positions, kv_positions=None,
+           sliding_window: Optional[int] = None, sm_scale=None, cap=0.0):
+    """Generic attention. q: (B,Sq,H,hd), k/v: (B,Sk,Hkv,hd).
+
+    q_positions: (B, Sq) absolute positions of queries.
+    kv_positions: (B, Sk) absolute positions of keys (default arange).
+    The flash route takes positions as aranges with q aligned to the kv
+    end, as the reference's kernel route does.
+    """
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if kv_positions is None:
+        kv_positions = torch.arange(Sk, device=q.device)[None].expand(B, Sk)
+    path = attention_path(causal=causal, Sq=Sq, Sk=Sk, cap=cap,
+                          hd_k=k.shape[-1], hd_v=v.shape[-1])
+    if path == "flash":
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=True,
+                               sliding_window=sliding_window,
+                               sm_scale=sm_scale)
+    if path in ("decode", "direct"):
+        return _direct_attend(q, k, v, causal=causal,
+                              q_positions=q_positions,
+                              kv_positions=kv_positions,
+                              sliding_window=sliding_window,
+                              sm_scale=sm_scale, cap=cap)
+    raise NotImplementedError(
+        f"attention with Sq={Sq}, Sk={Sk} needs the blocked online-softmax "
+        "route, which the port has not taken over yet")
+
+
+def apply_attention(p, adapters, x, cfg: ModelConfig, lora_scale,
+                    positions, cache=None, cache_index=None,
+                    sliding_window=None):
+    """Self-attention with optional LoRA adapters and KV cache.
+
+    positions: (B, S). cache: dict(k=(B,Sc,Hkv,hd), v=..., pos=(B,Sc)),
+    written IN PLACE at slots ``(cache_index[b] + s) % Sc``; cache_index
+    is (B,), one ring slot per lane. Returns (out, cache_or_None).
+    """
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    ad = adapters or {}
+    q = apply_lora_linear(p["q"], ad.get("q"), x, lora_scale)
+    k = apply_lora_linear(p["k"], ad.get("k"), x, lora_scale)
+    v = apply_lora_linear(p["v"], ad.get("v"), x, lora_scale)
+    q = apply_rope(_split_heads(q, nq, hd), positions, cfg.rope_theta)
+    k = apply_rope(_split_heads(k, nkv, hd), positions, cfg.rope_theta)
+    v = _split_heads(v, nkv, hd)
+
+    if cache is not None:
+        Sc = cache["k"].shape[1]
+        idx = (cache_index[:, None]
+               + torch.arange(S, device=x.device)[None]) % Sc      # (B, S)
+        lanes = torch.arange(B, device=x.device)[:, None]
+        cache["k"][lanes, idx] = k.to(cache["k"].dtype)
+        cache["v"][lanes, idx] = v.to(cache["v"].dtype)
+        cache["pos"][lanes, idx] = positions.to(cache["pos"].dtype)
+        out = attend(q, cache["k"], cache["v"], causal=True,
+                     q_positions=positions, kv_positions=cache["pos"],
+                     sliding_window=sliding_window)
+    else:
+        out = attend(q, k, v, causal=True, q_positions=positions,
+                     sliding_window=sliding_window)
+    out = out.reshape(B, S, nq * hd)
+    out = apply_lora_linear(p["o"], ad.get("o"), out, lora_scale)
+    return out, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               dtype=torch.bfloat16, device="cpu"):
+    hd = cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, length, cfg.num_kv_heads, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, length, cfg.num_kv_heads, hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }

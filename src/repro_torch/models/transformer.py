@@ -1,0 +1,255 @@
+"""Decoder model of the port, ``attn`` segments only.
+
+Port of ``repro/models/transformer.py`` for dense GQA decoders. The tree
+layout is the reference's: consecutive blocks of one kind form a segment
+whose parameters are stacked on a leading layer axis, under the same key
+names, so weights carry across one to one (:mod:`repro_torch.interop`).
+The reference's ``lax.scan`` over layers is a Python loop here.
+
+Public API:
+    init_params(cfg, *, seed, dtype, device)          -> params tree
+    init_adapters(cfg, lora, *, seed, rank, device)   -> LoRA adapter tree
+    forward(params, adapters, cfg, lora, batch)       -> (logits, aux)
+    decode_step(params, adapters, cfg, lora, token, caches, position)
+    init_caches(cfg, batch, cache_len, dtype, device)
+
+Block kinds other than ``attn`` (MLA, MoE, Mamba2, RWKV6, zamba2's shared
+attention) raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import BLOCK_ATTN, LoRAConfig, ModelConfig
+from repro_torch.core import lora as lora_lib
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import (apply_norm, dtype_of, init_norm,
+                                       is_glu, normal_init, softcap)
+from repro_torch.models.runmode import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Segments
+# ---------------------------------------------------------------------------
+
+def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """[(kind, n_layers), ...] — consecutive runs of the same block kind."""
+    segs: List[Tuple[str, int]] = []
+    for kind in cfg.blocks():
+        if segs and segs[-1][0] == kind:
+            segs[-1] = (kind, segs[-1][1] + 1)
+        else:
+            segs.append((kind, 1))
+    return segs
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense 'attn' blocks only, not "
+            f"{kinds}")
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer i of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def _stack_norm(kind, dim, dtype, layers, device):
+    return {k: v.expand((layers,) + v.shape).clone()
+            for k, v in init_norm(kind, dim, dtype, device).items()}
+
+
+def _init_block(gen, cfg: ModelConfig, dtype, layers: int) -> Dict:
+    return {
+        "norm1": _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device),
+        "attn": attn_lib.init_attention(gen, cfg, dtype, layers=layers),
+        "norm2": _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device),
+        "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                dtype, layers=layers),
+    }
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
+                device="cuda") -> Dict:
+    """Seeded random weights in the reference's tree layout."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or dtype_of(cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dtype),
+        "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+        "segments": [_init_block(gen, cfg, dtype, n)
+                     for _, n in segments_of(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": normal_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype=dtype)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters
+# ---------------------------------------------------------------------------
+
+def _lora_targets(cfg: ModelConfig, lora: LoRAConfig):
+    """(path, d_in, d_out) of the LoRA-targeted linears of an attn block."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    t = []
+    if lora.target_attn:
+        t += [(("attn", "q"), d, nq * hd), (("attn", "k"), d, nkv * hd),
+              (("attn", "v"), d, nkv * hd), (("attn", "o"), nq * hd, d)]
+    if lora.target_mlp:
+        t += [(("mlp", "up"), d, cfg.d_ff), (("mlp", "down"), cfg.d_ff, d)]
+        if is_glu(cfg.activation):
+            t.append((("mlp", "gate"), d, cfg.d_ff))
+    return t
+
+
+def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
+                  dtype=torch.float32, rank: Optional[int] = None,
+                  device="cuda") -> Dict:
+    """Adapter tree mirroring the (stacked) param structure."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    rank = rank or lora.rank
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: Dict[str, Any] = {"segments": []}
+    for _, n in segments_of(cfg):
+        seg_ad: Dict[str, Any] = {}
+        for path, din, dout in _lora_targets(cfg, lora):
+            node = seg_ad.setdefault(path[0], {})
+            node[path[1]] = lora_lib.init_adapter(gen, din, dout, rank,
+                                                  dtype, layers=n)
+        out["segments"].append(seg_ad)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _block_apply(p, ad, x, cfg: ModelConfig, scale, positions, cache=None,
+                 cache_index=None, sliding_window=None):
+    """One attn block. Returns (x, cache)."""
+    ad = ad or {}
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    o, nc = attn_lib.apply_attention(p["attn"], ad.get("attn"), h, cfg, scale,
+                                     positions, cache=cache,
+                                     cache_index=cache_index,
+                                     sliding_window=sliding_window)
+    x = x + o
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    o = mlp_lib.apply_mlp(p["mlp"], ad.get("mlp"), h, cfg.activation, scale)
+    return x + o, nc
+
+
+def _run_layers(params, adapters, x, cfg, scale, positions, window,
+                caches=None, cache_index=None):
+    _check_ported(cfg)
+    seg_ads = (adapters or {}).get("segments",
+                                   [None] * len(params["segments"]))
+    for s, (_, n) in enumerate(segments_of(cfg)):
+        seg_p, seg_ad = params["segments"][s], seg_ads[s]
+        seg_c = None if caches is None else caches["segments"][s]
+        for i in range(n):
+            x, _ = _block_apply(
+                _layer(seg_p, i), None if seg_ad is None else _layer(seg_ad, i),
+                x, cfg, scale, positions,
+                cache=None if seg_c is None else _layer(seg_c, i),
+                cache_index=cache_index, sliding_window=window)
+    return apply_norm(params["final_norm"], x, cfg.norm)
+
+
+def forward_hidden(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
+                   batch: Dict, *, sliding_window=None, scale=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward: final-norm hidden states (B, S, d) and aux (0).
+
+    scale: optional override of lora.scale — a scalar, or a
+    ``(scale, rank_mask)`` pair (see :func:`core.lora.split_scale`)."""
+    scale = lora.scale if scale is None else scale
+    tokens = batch["tokens"]
+    x = F.embedding(tokens, params["embed"])
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    window = sliding_window or cfg.sliding_window
+    x = _run_layers(params, adapters, x, cfg, scale, positions, window)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
+            batch: Dict, *, sliding_window=None, scale=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward (prefill).
+
+    batch: {"tokens": (B, S) int64 on the params' device}.
+    Returns (logits (B, S, V), aux_loss)."""
+    x, aux = forward_hidden(params, adapters, cfg, lora, batch,
+                            sliding_window=sliding_window, scale=scale)
+    return _lm_head(params, cfg, x), aux
+
+
+def _lm_head(params, cfg, x):
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]["w"]
+    return softcap(logits, cfg.logits_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, device="cuda") -> Dict:
+    """Per-segment cache stacks with a leading layer axis:
+    k/v (L, B, Sc, Hkv, hd), pos (L, B, Sc) int32 (-1 = empty)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    caches: Dict[str, Any] = {"segments": []}
+    for _, n in segments_of(cfg):
+        c = attn_lib.init_cache(cfg, batch, cache_len, dtype, dev)
+        caches["segments"].append(
+            {k: v.expand((n,) + v.shape).clone() for k, v in c.items()})
+    return caches
+
+
+def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
+                token: torch.Tensor, caches, position, *,
+                sliding_window=None, scale=None
+                ) -> Tuple[torch.Tensor, Any]:
+    """One-token decode. token: (B, 1); position: int or (B,) — the
+    absolute position of each lane's new token. Each lane writes its ring
+    slot ``position[b] % cache_len`` and attends with its own position,
+    so lanes at different points of their streams share one step.
+
+    ``scale`` (scalar, (B,) per-lane tensor, or ``(scale, rank_mask)``)
+    overrides ``lora.scale``; with lane-batched adapters (leaves
+    (L, B, ...)) each lane runs its own adapter. Caches are updated in
+    place and returned. Returns (logits (B, 1, V), caches).
+    """
+    scale = lora.scale if scale is None else scale
+    x = F.embedding(token, params["embed"])
+    B = x.shape[0]
+    pos = torch.as_tensor(position, device=x.device).reshape(-1)
+    positions = pos.expand(B).reshape(B, 1).long()
+    window = sliding_window or cfg.sliding_window
+    Sc = caches["segments"][0]["k"].shape[2]
+    x = _run_layers(params, adapters, x, cfg, scale, positions, window,
+                    caches=caches, cache_index=positions[:, 0] % Sc)
+    return _lm_head(params, cfg, x), caches

@@ -1,0 +1,160 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA card and skips without one. The file
+imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider \\
+        tests/test_torch_cuda.py
+
+f32 comparisons run with TF32 off. Tolerances: lora_matmul f32 1e-4 and
+bf16 1e-1 (the kernel adds the adapter to its f32 accumulator before the
+one cast, the plain version casts x·W first); flash attention f32 2e-5
+and bf16 2e-2 (one bf16 rounding of outputs of magnitude < 4).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config import LoRAConfig, ServeSpec
+from repro_torch.configs import qwen2_0_5b
+from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.lora_matmul import ops as lm_ops
+from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref
+from repro_torch.launch.adapter_cache import PagedAdapter
+from repro_torch.launch.serve import ServeEngine, make_prefill_step
+from repro_torch.models import transformer as T
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _lm_operands(seed, L, M, K, N, r, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((L, M, K), generator=g) / K ** 0.25
+    w = torch.randn((K, N), generator=g) / K ** 0.5
+    a = torch.randn((L, K, r), generator=g) / K ** 0.5
+    b = torch.randn((L, r, N), generator=g)
+    scale = torch.linspace(0.5, 2.0, L)
+    mask = rank_arange_mask(torch.arange(L) % r + 1, r)
+    return (x.to(device, dtype), w.to(device, dtype), a.to(device),
+            b.to(device), scale.to(device), mask.to(device))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-1)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 100, 70, 50, 8), (4, 1, 96, 200, 16),
+                                   (1, 64, 128, 64, 64), (3, 2, 33, 17, 2)])
+def test_lora_matmul_kernel_matches_plain(cuda_device, shape, dtype, tol):
+    args = _lm_operands(11, *shape, dtype, cuda_device)
+    before = lm_ops.launches
+    got = lm_ops.lora_matmul(*args)
+    torch.cuda.synchronize()
+    assert lm_ops.launches == before + 1
+    want = lora_matmul_ref(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_lora_matmul_kernel_zero_b_is_the_base_product(cuda_device):
+    x, w, a, b, scale, mask = _lm_operands(12, 2, 40, 64, 48, 8,
+                                           torch.float32, cuda_device)
+    got = lm_ops.lora_matmul(x, w, a, torch.zeros_like(b), scale, mask)
+    # the kernel's own f32 accumulation order, against cuBLAS's
+    assert float((got - x @ w).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,D,window", [(24, 64, None), (100, 64, None),
+                                        (100, 64, 16), (128, 64, None),
+                                        (40, 32, None), (70, 128, 8)])
+def test_flash_kernel_matches_plain(cuda_device, S, D, window, dtype, tol):
+    g = torch.Generator().manual_seed(S + D)
+    q = torch.randn((2, S, 4, D), generator=g).to(cuda_device, dtype)
+    k = torch.randn((2, S, 2, D), generator=g).to(cuda_device, dtype)
+    v = torch.randn((2, S, 2, D), generator=g).to(cuda_device, dtype)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, sliding_window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops._plain(q, k, v, True, window, D ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_wrappers_refuse_noncontiguous_cuda_tensors(cuda_device):
+    x, w, a, b, scale, mask = _lm_operands(13, 1, 8, 16, 8, 4,
+                                           torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        lm_ops.lora_matmul(x, w.t().contiguous().t(), a, b, scale, mask)
+    q = torch.zeros((1, 8, 4, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 8, 64), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k)
+
+
+def test_reduced_model_on_card_matches_cpu(cuda_device):
+    """qwen2-0.5b reduced, f32: prefill and three-lane decode through the
+    kernels on the card == the plain versions on the CPU (1e-4), with 2
+    flash launches per prefill and 8 lora_matmul launches per step."""
+    cfg = qwen2_0_5b.reduced()
+    lora = LoRAConfig(rank=4, max_rank=8)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ads = _shifted(T.init_adapters(cfg, lora, seed=1, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    want = make_prefill_step(cfg, lora, device="cpu")(params, ads,
+                                                      {"tokens": tokens})
+    lm0, fa0 = lm_ops.launches, fa_ops.launches
+    got = make_prefill_step(cfg, lora, device=cuda_device)(
+        _to(params, cuda_device), _to(ads, cuda_device), {"tokens": tokens})
+    assert fa_ops.launches - fa0 == cfg.num_layers
+    assert lm_ops.launches - lm0 == 4 * cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+    engines = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(_to(params, dev), cfg, lora,
+                          ServeSpec(max_batch=3, cache_len=8, max_rank=8),
+                          device=dev)
+        for lane, rank in enumerate((2, 8)):
+            sub = _shifted(T.init_adapters(cfg, lora, seed=10 + lane,
+                                           rank=rank, device="cpu"))
+            eng.assign(lane, PagedAdapter(0, -1, 0, rank, 8, 16.0 / rank,
+                                          _to(pad_adapter_tree(sub, 8), dev)))
+        engines[str(dev)] = eng
+    toks = np.array([1, 2, 3])
+    for step in range(10):
+        lm0 = lm_ops.launches
+        got = engines[str(cuda_device)].step(toks).cpu()
+        assert lm_ops.launches - lm0 == 4 * cfg.num_layers
+        want = engines["cpu"].step(toks)
+        assert float((got - want).abs().max()) <= 1e-4, step
+        toks = want.argmax(-1).numpy()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _shifted(ads):
+    """Adapters with b shifted off its zero init, so they matter."""
+    return {"segments": [{k: {n: {"a": v["a"], "b": v["b"] + 0.01}
+                              for n, v in blk.items()}
+                          for k, blk in seg.items()}
+                         for seg in ads["segments"]]}
