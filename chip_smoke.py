@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving slice (qwen2-0.5b, multi-tenant LoRA) on one
-card, through the entry points a user calls, with seeded random weights.
-Phases (any failure raises; nothing is caught):
+Drives the port's two serving paths on one card, through the entry
+points a user calls, with seeded random weights: multi-tenant LoRA
+serving of qwen2-0.5b (attn blocks: ``lora_matmul`` and
+``flash_attention``) and of rwkv6-7b (rwkv6 blocks: ``lora_matmul`` and
+``wkv6``), both at their published widths. Phases (any failure raises;
+nothing is caught):
 
 1. Print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, all at once).
-2. Hold each kernel to its plain PyTorch version at the main path's
+2. Hold each kernel to its plain PyTorch version at the main paths'
    shapes, in bf16 and in f32 (TF32 off), and time kernel, plain version
-   and a library call on the same inputs.
-3. Parity at full width and reduced depth (2 layers, f32): the same
-   weights on the card (kernels) and on the CPU (plain versions), prefill
-   logits and 8 multi-tenant decode steps.
-4. The served run at full depth and width in bf16: a 4 x 128 prefill
-   through ``make_prefill_step``, then ``ServeEngine(max_batch=4)`` with
-   lanes at ranks 8/16/32/64 in a 64-wide slot, ``generate`` with one
-   retire/admit mid-stream. Launch counts are reset just before and read
-   just after each of the two, and must match the model's layer count.
+   and a library call on the same inputs (wkv6 has no library call; at
+   a per-step log-decay of -2, where the plain chunked version
+   overflows, it is held to the per-step oracle).
+3. Parity at full width and reduced depth (2 layers, f32), per model:
+   the same weights on the card (kernels) and on the CPU (plain
+   versions), prefill logits and 8 multi-tenant decode steps (rwkv6-7b:
+   with a retire/admit after step 4).
+4. The served run per model at full depth and width in bf16: a 4 x 128
+   prefill through ``make_prefill_step``, then ``ServeEngine(max_batch=4)``
+   with lanes at ranks 8/16/32/64 in a 64-wide slot, ``generate`` with
+   one retire/admit mid-stream. Launch counts are reset just before and
+   read just after each of the two, and must match the model's layer
+   count; then a torch.profiler window over a prefill and 4 steps.
 5. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -39,12 +46,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
-from repro_torch.configs import qwen2_0_5b  # noqa: E402
+from repro_torch.configs import qwen2_0_5b, rwkv6_7b  # noqa: E402
 from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.lora_matmul import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch.adapter_cache import PagedAdapter  # noqa: E402
 from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E402
                                       make_decode_step)
@@ -59,7 +68,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {("lora_matmul", torch.bfloat16): 1e-1,   # one vs two bf16 roundings
        ("lora_matmul", torch.float32): 1e-4,    # f32 summation order only
        ("flash_attention", torch.bfloat16): 2e-2,   # one bf16 rounding, |o|<4
-       ("flash_attention", torch.float32): 2e-5}    # f32 summation order
+       ("flash_attention", torch.float32): 2e-5,    # f32 summation order
+       # wkv6: RELATIVE to max |reference| (the reference suite's), the
+       # kernel's 16-row chunks against the plain version's 128
+       ("wkv6", torch.bfloat16): 1e-2,   # one bf16 rounding of y
+       ("wkv6", torch.float32): 1e-5}
 # full width, 2 layers, f32, card vs CPU: summation order through the
 # stack and the 151936-wide tied head, with TF32 off
 E2E_TOL = 1e-3
@@ -132,9 +145,31 @@ def nontrivial(ads, seed):
     return {"segments": [fix(s) for s in ads["segments"]]}
 
 
+KERNELS = {"lora_matmul": lm_ops, "flash_attention": fa_ops,
+           "wkv6": wkv_ops}
+REPLACES = {"lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:79",
+            "flash_attention":
+            "src/repro/kernels/flash_attention/kernel.py:102",
+            "wkv6": "src/repro/kernels/wkv6/kernel.py:87"}
+
+
 def reset_counts():
-    lm_ops.launches = 0
-    fa_ops.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def counts():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def per_layer(cfg):
+    """Kernel launches per layer of one prefill and of one decode step."""
+    if cfg.rwkv is not None:   # w_r/w_k/w_v/w_o/ck/cv, and the wkv
+        return ({"lora_matmul": 6, "flash_attention": 0, "wkv6": 1},
+                {"lora_matmul": 6, "flash_attention": 0, "wkv6": 0})
+    # o/up/gate/down (q/k/v are biased: plain), and attention
+    return ({"lora_matmul": 4, "flash_attention": 1, "wkv6": 0},
+            {"lora_matmul": 4, "flash_attention": 0, "wkv6": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +178,11 @@ def reset_counts():
 
 def lora_cases(cfg):
     d, f = cfg.d_model, cfg.d_ff
-    for linear, K, N in (("o", d, d), ("up/gate", d, f), ("down", f, d)):
+    if cfg.rwkv is not None:
+        linears = (("w_r/w_k/w_v/w_o", d, d), ("ck", d, f), ("cv", f, d))
+    else:
+        linears = (("o", d, d), ("up/gate", d, f), ("down", f, d))
+    for linear, K, N in linears:
         for mode, L, M in (("prefill", 1, 512), ("decode", len(RANKS), 1)):
             yield linear, mode, L, M, K, N
 
@@ -184,7 +223,8 @@ def check_lora(cfg, dtype):
             t = (x.float() @ a) * mask[:, None, :]
             return x @ w + (scale[:, None, None] * (t @ b)).to(dtype)
         rows.append({
-            "name": "lora_matmul", "linear": linear, "mode": mode,
+            "name": "lora_matmul", "model": cfg.name, "linear": linear,
+            "mode": mode,
             "dtype": str(dtype).replace("torch.", ""),
             "shape": f"L={L} M={M} K={K} N={N} r={SLOT}",
             "max_abs_err": err, "tol": tol,
@@ -222,14 +262,84 @@ def check_flash(cfg, dtype):
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         rows.append({
-            "name": "flash_attention", "dtype": str(dtype).replace("torch.",
-                                                                   ""),
+            "name": "flash_attention", "model": cfg.name,
+            "dtype": str(dtype).replace("torch.", ""),
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D}",
             "max_abs_err": err, "tol": tol,
             "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
             "plain_ms": timed_ms(
                 lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
             "library_ms": timed_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def wkv_cases():
+    """(label, B, S, dtype, decay): the served prefill shape (the model
+    hands the kernel f32), ragged lengths, bf16 inputs, strong decay."""
+    yield "model shape", 4, 128, torch.float32, None
+    yield "ragged", 4, 100, torch.float32, None
+    yield "ragged, 3 chunks", 4, 300, torch.float32, None
+    yield "bf16 inputs", 4, 128, torch.bfloat16, None
+    yield "logw = -2", 4, 128, torch.float32, -2.0
+
+
+def wkv_bound(B, S, H, K, es):
+    """Bound of the TPU kernel's work: S padded to chunks of c = min(128,
+    S); per chunk and head 4·c²·K (scores, A·v) + 4·c·K² (inter-chunk,
+    state update) f32 flops. Bytes: r/k/v/logw read and y written once
+    in the input dtype, u read and the state written once in f32."""
+    c = min(wkv_ops.CHUNK, S)
+    nc = -(-S // c)
+    flops = B * H * nc * (4.0 * c * c * K + 4.0 * c * K * K)
+    nbytes = es * 5 * B * S * H * K + 4 * (H * K + B * H * K * K)
+    return bound(nbytes, {torch.float32: flops})
+
+
+def rel_err(got, want) -> float:
+    return maxabs(got, want) / (float(want.float().abs().max()) + 1e-6)
+
+
+def check_wkv(cfg):
+    rows = []
+    H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    for label, B, S, dtype, decay in wkv_cases():
+        g = torch.Generator(device="cuda").manual_seed(S + int(K))
+        r, k, v = (torch.randn((B, S, H, K), generator=g, device="cuda"
+                               ).to(dtype) for _ in range(3))
+        if decay is None:     # the init decays' range, -e^(-6) .. -e^(-1)
+            logw = -torch.exp(torch.rand((B, S, H, K), generator=g,
+                                         device="cuda") * 5.0 - 6.0)
+        else:
+            logw = torch.full((B, S, H, K), decay, device="cuda")
+        logw = logw.to(dtype)
+        u = 0.1 * torch.randn((H, K), generator=g, device="cuda")
+        args = (r, k, v, logw, u)
+        y, s = wkv_ops.wkv6(*args)
+        torch.cuda.synchronize()
+
+        def plain():
+            return wkv_ops._plain(*args, wkv_ops.CHUNK)
+        if decay is None:
+            yw, sw = plain()
+            yardstick = "wkv6_chunked"
+        else:   # the chunked form overflows here; the per-step oracle
+            yw, sw = wkv6_ref(*args)
+            yardstick = "wkv6_ref"
+        err, rel = maxabs(y, yw), rel_err(y, yw)
+        s_rel = rel_err(s, sw)
+        tol = TOL[("wkv6", dtype)]
+        if not (rel < tol and s_rel < TOL[("wkv6", torch.float32)]
+                and torch.isfinite(y).all() and torch.isfinite(s).all()):
+            fail(f"wkv6 {label}: y rel {rel}, state rel {s_rel} (tol {tol})")
+        b_ms, b_by = wkv_bound(B, S, H, K, r.element_size())
+        rows.append({
+            "name": "wkv6", "model": cfg.name, "case": label,
+            "dtype": str(dtype).replace("torch.", ""),
+            "shape": f"B={B} S={S} H={H} K={K}", "yardstick": yardstick,
+            "max_abs_err": err, "rel_err": rel, "state_rel_err": s_rel,
+            "tol": tol, "ms": timed_ms(lambda: wkv_ops.wkv6(*args)),
+            "plain_ms": timed_ms(plain), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
@@ -257,13 +367,15 @@ def paged(cfg, lora, rank, seed, device):
                         adapters=to(pad_adapter_tree(ads, SLOT), device))
 
 
-def parity(cfg_full, lora):
-    cfg = cfg_full.with_overrides(num_layers=2)
+def parity(cfg_full, lora, seq):
+    cfg = cfg_full.with_overrides(num_layers=2,
+                                  block_pattern=cfg_full.blocks()[:2]
+                                  if cfg_full.block_pattern else None)
     params_cpu = T.init_params(cfg, seed=1, dtype=torch.float32, device="cpu")
     params_gpu = to(params_cpu, "cuda")
     ads_cpu = nontrivial(T.init_adapters(cfg, lora, seed=2, rank=SLOT,
                                          device="cpu"), 2)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq),
                            generator=torch.Generator().manual_seed(3))
     want = make_prefill_step(cfg, lora, device="cpu")(params_cpu, ads_cpu,
                                                       {"tokens": tokens})
@@ -271,7 +383,8 @@ def parity(cfg_full, lora):
         params_gpu, to(ads_cpu, "cuda"), {"tokens": tokens})
     prefill_err = maxabs(got.cpu(), want)
     if not prefill_err <= E2E_TOL:
-        fail(f"prefill card vs CPU: max abs {prefill_err} > {E2E_TOL}")
+        fail(f"{cfg.name} prefill card vs CPU: max abs {prefill_err} > "
+             f"{E2E_TOL}")
 
     eng_cpu = engine_with_tenants(params_cpu, cfg, lora, torch.float32,
                                   "cpu", seed0=10)
@@ -285,15 +398,20 @@ def parity(cfg_full, lora):
         err = maxabs(got, want)
         decode_err = max(decode_err, err)
         if not err <= E2E_TOL:
-            fail(f"decode step {step} card vs CPU: max abs {err}")
+            fail(f"{cfg.name} decode step {step} card vs CPU: max abs {err}")
         toks = want.argmax(-1).numpy()
+        if step == 3 and cfg.rwkv is not None:   # a fresh recurrent state
+            for eng, dev in ((eng_cpu, "cpu"), (eng_gpu, "cuda")):
+                eng.retire(3)
+                eng.admit(paged(cfg, lora, 32, 40, dev), lane=3)
     # the single-sequence decode factory on the card, same weights
     decode = make_decode_step(cfg, lora, device="cuda")
     caches = T.init_caches(cfg, 2, 8, dtype=torch.float32, device="cuda")
     logits, _ = decode(params_gpu, None, tokens[:, :1], caches, 0)
     if not torch.isfinite(logits).all():
         fail("decode factory logits not finite")
-    return {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, f32", "tol": E2E_TOL,
+    return {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, "
+            f"f32, prefill 2x{seq}", "tol": E2E_TOL,
             "prefill_max_abs_err": prefill_err,
             "decode_max_abs_err": decode_err, "decode_steps": 8}
 
@@ -316,14 +434,13 @@ def served(cfg, lora):
     logits = prefill(params, ads, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_counts = {"lora_matmul": lm_ops.launches,
-                      "flash_attention": fa_ops.launches}
+    prefill_counts = counts()
     if not torch.isfinite(logits).all():
-        fail("prefill logits not finite")
-    want = {"lora_matmul": 4 * cfg.num_layers,
-            "flash_attention": cfg.num_layers}
+        fail(f"{cfg.name} prefill logits not finite")
+    in_prefill, in_step = per_layer(cfg)
+    want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
     if prefill_counts != want:
-        fail(f"prefill launches {prefill_counts}, want {want}")
+        fail(f"{cfg.name} prefill launches {prefill_counts}, want {want}")
 
     eng = engine_with_tenants(params, cfg, lora, torch.bfloat16, "cuda",
                               seed0=20)
@@ -343,13 +460,12 @@ def served(cfg, lora):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     steps = 2 * (16 + 32 - 1) + 1
-    decode_counts = {"lora_matmul": lm_ops.launches,
-                     "flash_attention": fa_ops.launches}
+    decode_counts = counts()
     if not torch.isfinite(last).all():
-        fail("decode logits not finite")
-    want = {"lora_matmul": 4 * cfg.num_layers * steps, "flash_attention": 0}
+        fail(f"{cfg.name} decode logits not finite")
+    want = {k: n * cfg.num_layers * steps for k, n in in_step.items()}
     if decode_counts != want:
-        fail(f"decode launches {decode_counts}, want {want}")
+        fail(f"{cfg.name} decode launches {decode_counts}, want {want}")
     if gen1.shape != (4, 32) or gen2.shape != (4, 32):
         fail("generate returned the wrong shape")
     # after the counted runs: where the device time goes
@@ -359,6 +475,7 @@ def served(cfg, lora):
         "decode_4_steps": device_profile(
             lambda: [eng.step(gen2[:, -1]) for _ in range(4)])}
     return {
+        "model": cfg.name,
         "config": f"{cfg.name}, {cfg.num_layers} layers, full width, bf16",
         "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
                     "launches": prefill_counts},
@@ -416,55 +533,72 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
 
-    cfg = qwen2_0_5b.qwen2_0_5b()
+    qwen, rwkv = qwen2_0_5b.qwen2_0_5b(), rwkv6_7b.rwkv6_7b()
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
     rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        rows += check_lora(cfg, dtype) + check_flash(cfg, dtype)
+    for cfg in (qwen, rwkv):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows += check_lora(cfg, dtype)
+            if cfg.rwkv is None:
+                rows += check_flash(cfg, dtype)
+    rows += check_wkv(rwkv)
     for r in rows:
-        print(f"[2] {r['name']} {r.get('linear', '')} {r.get('mode', '')} "
-              f"{r['dtype']} {r['shape']}: err {r['max_abs_err']:.3g} "
-              f"(tol {r['tol']}), ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}"
-              f", library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
+        rel = f", rel {r['rel_err']:.3g}" if "rel_err" in r else ""
+        print(f"[2] {r['name']} {r['model']} {r.get('linear', '')} "
+              f"{r.get('mode', r.get('case', ''))} {r['dtype']} {r['shape']}"
+              f": err {r['max_abs_err']:.3g}{rel} (tol {r['tol']}), ms "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
-    par = parity(cfg, lora)
-    print(f"[3] {par['config']}: prefill max abs {par['prefill_max_abs_err']:.3g}"
-          f", decode max abs {par['decode_max_abs_err']:.3g} over "
-          f"{par['decode_steps']} steps (tol {E2E_TOL})", flush=True)
+    pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100)]
+    for par in pars:
+        print(f"[3] {par['config']}: prefill max abs "
+              f"{par['prefill_max_abs_err']:.3g}, decode max abs "
+              f"{par['decode_max_abs_err']:.3g} over {par['decode_steps']} "
+              f"steps (tol {E2E_TOL})", flush=True)
 
-    run = served(cfg, lora)
-    p, d = run["prefill"], run["decode"]
-    print(f"[4] {run['config']}: prefill 4x128 {p['ms']:.2f} ms, launches "
-          f"{p['launches']}; decode {d['steps']} steps x {d['lanes']} lanes "
-          f"{d['lane_tokens_per_s']:.1f} tok/s ({d['ms_per_step']:.2f} ms/"
-          f"step), launches {d['launches']}", flush=True)
-    for name, tr in run["profile"].items():
-        busy = tr["busy_share"]
-        print(f"[4] profile {name}: wall {tr['wall_ms']:.2f} ms, device "
-              f"{tr['device_ms']:.2f} ms (busy {busy:.3f}), top: "
-              + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms x{t['count']}"
-                          for t in tr["top"][:4]), flush=True)
+    # each path is driven with the counts set to 0 just before it and
+    # read just after (inside served)
+    runs = [served(qwen, lora), served(rwkv, lora)]
+    for run in runs:
+        p, d = run["prefill"], run["decode"]
+        print(f"[4] {run['config']}: prefill 4x128 {p['ms']:.2f} ms, "
+              f"launches {p['launches']}; decode {d['steps']} steps x "
+              f"{d['lanes']} lanes {d['lane_tokens_per_s']:.1f} tok/s "
+              f"({d['ms_per_step']:.2f} ms/step), launches per step "
+              f"{d['launches_per_step']}", flush=True)
+        for name, tr in run["profile"].items():
+            print(f"[4] {run['model']} profile {name}: wall "
+                  f"{tr['wall_ms']:.2f} ms, device {tr['device_ms']:.2f} ms "
+                  f"(busy {tr['busy_share']:.3f}), top: "
+                  + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms "
+                              f"x{t['count']}" for t in tr["top"][:4]),
+                  flush=True)
 
-    # the kernels line: one entry per kernel at the prefill main-path
-    # shape in bf16 (lora_matmul: the up/gate linear), with every shape
-    # measured under "cases"
+    # the kernels line: one entry per kernel at a main-path shape
+    # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
+    # in bf16; wkv6: rwkv6-7b's prefill shape, f32 as the model calls
+    # it), with every shape measured under "cases"
     entries = []
-    for name, pick in (("lora_matmul", lambda r: r.get("linear") == "up/gate"
+    for name, pick in (("lora_matmul", lambda r: r["dtype"] == "bfloat16"
+                        and r.get("linear") == "up/gate"
                         and r["mode"] == "prefill"),
-                       ("flash_attention", lambda r: "S=128" in r["shape"])):
+                       ("flash_attention", lambda r: r["dtype"] == "bfloat16"
+                        and "S=128" in r["shape"]),
+                       ("wkv6", lambda r: r["case"] == "model shape")):
         mine = [r for r in rows if r["name"] == name]
-        head = next(r for r in mine if r["dtype"] == "bfloat16" and pick(r))
-        src = _build.source_of(name).relative_to(HERE)
-        replaces = {"lora_matmul":
-                    "src/repro/kernels/lora_matmul/kernel.py:79",
-                    "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:102"}[name]
+        head = next(r for r in mine if pick(r))
+        by_path = {run["model"]: run["launches"][name] for run in runs}
         entries.append({
-            "name": name, "route": "cuda", "source": str(src),
-            "replaces": replaces, "launches": run["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine
-                               if r["dtype"] == "bfloat16"),
+            "name": name, "route": "cuda",
+            "source": str(_build.source_of(name).relative_to(HERE)),
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": (head["max_abs_err"] if name == "wkv6" else
+                            max(r["max_abs_err"] for r in mine
+                                if r["dtype"] == "bfloat16")),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
@@ -473,7 +607,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_seconds": secs, "kernels": entries,
-                   "parity": par, "served": run}, fh, indent=1)
+                   "parity": pars, "served": runs}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

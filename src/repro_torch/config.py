@@ -1,13 +1,13 @@
 """Configuration for the PyTorch port: the serving slice's own copies.
 
 The port imports nothing from ``repro``, so it keeps its own copies of
-the pieces of ``repro/config.py`` the serving slice reads: the block-kind
-constants, :class:`ModelConfig`, :class:`LoRAConfig`, :class:`ServeSpec`
-and the ``--arch`` registry. Each keeps the reference's names, defaults
-and validation for the fields it has; fields only the unported parts read
-(MoE/MLA/SSM/RWKV sub-configs, modality frontends, candidate ranks,
-buffer donation, adapter-cache and block-pool sizes) are left out until a
-slice needs them.
+the pieces of ``repro/config.py`` the serving slices read: the block-kind
+constants, :class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
+:class:`ServeSpec` and the ``--arch`` registry. Each keeps the reference's
+names, defaults and validation for the fields it has; fields only the
+unported parts read (MoE/MLA/SSM sub-configs, modality frontends,
+candidate ranks, buffer donation, adapter-cache and block-pool sizes) are
+left out until a slice needs them.
 """
 from __future__ import annotations
 
@@ -15,12 +15,20 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-# Block kinds understood by models/transformer.py (only BLOCK_ATTN is ported)
+# Block kinds understood by models/transformer.py (BLOCK_ATTN and
+# BLOCK_RWKV6 are ported)
 BLOCK_ATTN = "attn"          # full (GQA/MQA) attention + MLP
 BLOCK_MLA = "mla"            # DeepSeek-style multi-head latent attention + MLP/MoE
 BLOCK_MAMBA2 = "mamba2"      # Mamba2 (SSD) block
 BLOCK_RWKV6 = "rwkv6"        # RWKV6 time-mix + channel-mix
 BLOCK_SHARED_ATTN = "shared_attn"  # Zamba2 shared transformer block
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64     # rank of the data-dependent decay MLP (w_lora)
+    gate_lora: int = 128
 
 
 @dataclass(frozen=True)
@@ -41,6 +49,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     logits_softcap: float = 0.0
     block_pattern: Optional[Tuple[str, ...]] = None   # None -> all BLOCK_ATTN
+    rwkv: Optional[RWKVConfig] = None
     sliding_window: Optional[int] = None
     source: str = ""
     dtype: str = "bfloat16"

@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / ".build"
-NAMES = ("lora_matmul", "flash_attention")
+NAMES = ("lora_matmul", "flash_attention", "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

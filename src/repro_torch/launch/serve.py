@@ -4,8 +4,10 @@ multi-tenant :class:`ServeEngine`.
 Port of ``repro/launch/serve.py``. The factories take a ``device`` where
 the reference takes a mesh, and return plain callables (PyTorch runs
 eagerly; there is no jit builder). On a card, prefill runs the
-``flash_attention`` and ``lora_matmul`` kernels and decode runs
-``lora_matmul``; on the CPU the same code takes their plain versions.
+``lora_matmul`` kernel and, by block kind, ``flash_attention`` (attn) or
+``wkv6`` (rwkv6); decode runs ``lora_matmul``. On the CPU the same code
+takes their plain versions. Prefill returns logits only, as the
+reference's does; the engine teacher-forces prompts through decode steps.
 
 :class:`ServeEngine` decodes ``ServeSpec.max_batch`` lanes in one step.
 The reference gets its lanes by ``vmap`` of a single-sequence decode;
@@ -19,6 +21,7 @@ Paged KV (``ServeSpec.block_size > 0``) is not ported: the engine raises.
 
 CLI (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 """
 from __future__ import annotations
 
@@ -125,6 +128,8 @@ class ServeEngine:
                                 device=self.device)
         self._caches = T.init_caches(cfg, B, self.spec.cache_len,
                                      dtype=dtype, device=self.device)
+        self._cache0 = T.init_caches(cfg, 1, self.spec.cache_len,
+                                     dtype=dtype, device=self.device)
         self._positions = np.zeros(B, np.int64)
         self.assigned: Dict[int, Optional[PagedAdapter]] = \
             {i: None for i in range(B)}
@@ -200,11 +205,11 @@ class ServeEngine:
         return lane
 
     def reset_lane(self, lane: int) -> None:
-        """Fresh cache and position 0 for ``lane`` (a new request)."""
-        for c in self._caches["segments"]:
-            c["k"][:, lane].zero_()
-            c["v"][:, lane].zero_()
-            c["pos"][:, lane].fill_(-1)
+        """Fresh cache (every leaf back to its init value: empty KV
+        slots, zero recurrent state) and position 0 for ``lane``."""
+        def put(full, one):
+            full[:, lane].copy_(one[:, 0])
+        _zip_apply(self._caches, self._cache0, put)
         self._positions[lane] = 0
 
     # -- decode ---------------------------------------------------------

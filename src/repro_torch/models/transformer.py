@@ -1,10 +1,11 @@
-"""Decoder model of the port, ``attn`` segments only.
+"""Decoder model of the port: ``attn`` and ``rwkv6`` segments.
 
-Port of ``repro/models/transformer.py`` for dense GQA decoders. The tree
-layout is the reference's: consecutive blocks of one kind form a segment
-whose parameters are stacked on a leading layer axis, under the same key
-names, so weights carry across one to one (:mod:`repro_torch.interop`).
-The reference's ``lax.scan`` over layers is a Python loop here.
+Port of ``repro/models/transformer.py`` for dense GQA decoders and RWKV6
+stacks. The tree layout is the reference's: consecutive blocks of one
+kind form a segment whose parameters are stacked on a leading layer axis,
+under the same key names, so weights carry across one to one
+(:mod:`repro_torch.interop`). The reference's ``lax.scan`` over layers is
+a Python loop here.
 
 Public API:
     init_params(cfg, *, seed, dtype, device)          -> params tree
@@ -13,8 +14,8 @@ Public API:
     decode_step(params, adapters, cfg, lora, token, caches, position)
     init_caches(cfg, batch, cache_len, dtype, device)
 
-Block kinds other than ``attn`` (MLA, MoE, Mamba2, RWKV6, zamba2's shared
-attention) raise ``NotImplementedError``.
+Block kinds other than ``attn`` and ``rwkv6`` (MLA, MoE, Mamba2, zamba2's
+shared attention) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,10 +24,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import BLOCK_ATTN, LoRAConfig, ModelConfig
+from repro_torch.config import (BLOCK_ATTN, BLOCK_RWKV6, LoRAConfig,
+                                ModelConfig)
 from repro_torch.core import lora as lora_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import (apply_norm, dtype_of, init_norm,
                                        is_glu, normal_init, softcap)
 from repro_torch.models.runmode import resolve_device
@@ -48,11 +51,11 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN})
+    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN, BLOCK_RWKV6})
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense 'attn' blocks only, not "
-            f"{kinds}")
+            f"{cfg.name}: the port runs 'attn' and 'rwkv6' blocks only, "
+            f"not {kinds}")
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -71,7 +74,16 @@ def _stack_norm(kind, dim, dtype, layers, device):
             for k, v in init_norm(kind, dim, dtype, device).items()}
 
 
-def _init_block(gen, cfg: ModelConfig, dtype, layers: int) -> Dict:
+def _init_block(gen, kind: str, cfg: ModelConfig, dtype, layers: int
+                ) -> Dict:
+    if kind == BLOCK_RWKV6:
+        return {
+            "norm1": _stack_norm("layernorm", cfg.d_model, dtype, layers,
+                                 gen.device),
+            "norm2": _stack_norm("layernorm", cfg.d_model, dtype, layers,
+                                 gen.device),
+            "rwkv": rwkv_lib.init_rwkv6(gen, cfg, dtype, layers=layers),
+        }
     return {
         "norm1": _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device),
         "attn": attn_lib.init_attention(gen, cfg, dtype, layers=layers),
@@ -91,8 +103,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
     params: Dict[str, Any] = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), dtype=dtype),
         "final_norm": init_norm(cfg.norm, cfg.d_model, dtype, dev),
-        "segments": [_init_block(gen, cfg, dtype, n)
-                     for _, n in segments_of(cfg)],
+        "segments": [_init_block(gen, kind, cfg, dtype, n)
+                     for kind, n in segments_of(cfg)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal_init(
@@ -104,11 +116,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
 # LoRA adapters
 # ---------------------------------------------------------------------------
 
-def _lora_targets(cfg: ModelConfig, lora: LoRAConfig):
-    """(path, d_in, d_out) of the LoRA-targeted linears of an attn block."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+def _lora_targets(kind: str, cfg: ModelConfig, lora: LoRAConfig):
+    """(path, d_in, d_out) of the LoRA-targeted linears of a block."""
+    d = cfg.d_model
     t = []
+    if kind == BLOCK_RWKV6:
+        t += [(("rwkv", "w_r"), d, d), (("rwkv", "w_k"), d, d),
+              (("rwkv", "w_v"), d, d), (("rwkv", "w_o"), d, d)]
+        if lora.target_mlp:
+            t += [(("rwkv", "ck"), d, cfg.d_ff), (("rwkv", "cv"), cfg.d_ff, d)]
+        return t
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
     if lora.target_attn:
         t += [(("attn", "q"), d, nq * hd), (("attn", "k"), d, nkv * hd),
               (("attn", "v"), d, nkv * hd), (("attn", "o"), nq * hd, d)]
@@ -128,9 +147,9 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
     rank = rank or lora.rank
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: Dict[str, Any] = {"segments": []}
-    for _, n in segments_of(cfg):
+    for kind, n in segments_of(cfg):
         seg_ad: Dict[str, Any] = {}
-        for path, din, dout in _lora_targets(cfg, lora):
+        for path, din, dout in _lora_targets(kind, cfg, lora):
             node = seg_ad.setdefault(path[0], {})
             node[path[1]] = lora_lib.init_adapter(gen, din, dout, rank,
                                                   dtype, layers=n)
@@ -142,10 +161,23 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _block_apply(p, ad, x, cfg: ModelConfig, scale, positions, cache=None,
-                 cache_index=None, sliding_window=None):
-    """One attn block. Returns (x, cache)."""
+def _block_apply(kind, p, ad, x, cfg: ModelConfig, scale, positions,
+                 cache=None, cache_index=None, sliding_window=None):
+    """One block. Returns (x, cache); a cache is updated in place."""
     ad = ad or {}
+    if kind == BLOCK_RWKV6:
+        h = apply_norm(p["norm1"], x, "layernorm")
+        o, ns = rwkv_lib.apply_rwkv6_timemix(p["rwkv"], ad.get("rwkv"), h,
+                                             cfg, scale, state=cache)
+        x = x + o
+        h = apply_norm(p["norm2"], x, "layernorm")
+        o, new_last = rwkv_lib.apply_rwkv6_channelmix(
+            p["rwkv"], ad.get("rwkv"), h, cfg, scale, state=cache)
+        if cache is not None:
+            cache["wkv"].copy_(ns["wkv"])
+            cache["last"].copy_(ns["last"])
+            cache["last_cm"].copy_(new_last)
+        return x + o, cache
     h = apply_norm(p["norm1"], x, cfg.norm)
     o, nc = attn_lib.apply_attention(p["attn"], ad.get("attn"), h, cfg, scale,
                                      positions, cache=cache,
@@ -157,17 +189,26 @@ def _block_apply(p, ad, x, cfg: ModelConfig, scale, positions, cache=None,
     return x + o, nc
 
 
+def _cache_len(kind, seg_cache) -> int:
+    if kind == BLOCK_ATTN:
+        return seg_cache["k"].shape[2]       # (L, B, Sc, ...)
+    return 1  # recurrent state has no positional ring buffer
+
+
 def _run_layers(params, adapters, x, cfg, scale, positions, window,
-                caches=None, cache_index=None):
+                caches=None):
     _check_ported(cfg)
     seg_ads = (adapters or {}).get("segments",
                                    [None] * len(params["segments"]))
-    for s, (_, n) in enumerate(segments_of(cfg)):
+    for s, (kind, n) in enumerate(segments_of(cfg)):
         seg_p, seg_ad = params["segments"][s], seg_ads[s]
         seg_c = None if caches is None else caches["segments"][s]
+        cache_index = (None if seg_c is None
+                       else positions[:, 0] % _cache_len(kind, seg_c))
         for i in range(n):
             x, _ = _block_apply(
-                _layer(seg_p, i), None if seg_ad is None else _layer(seg_ad, i),
+                kind, _layer(seg_p, i),
+                None if seg_ad is None else _layer(seg_ad, i),
                 x, cfg, scale, positions,
                 cache=None if seg_c is None else _layer(seg_c, i),
                 cache_index=cache_index, sliding_window=window)
@@ -217,13 +258,17 @@ def _lm_head(params, cfg, x):
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict:
-    """Per-segment cache stacks with a leading layer axis:
-    k/v (L, B, Sc, Hkv, hd), pos (L, B, Sc) int32 (-1 = empty)."""
+    """Per-segment cache stacks with a leading layer axis: attn k/v
+    (L, B, Sc, Hkv, hd) and pos (L, B, Sc) int32 (-1 = empty); rwkv6
+    wkv (L, B, H, K, K) f32 and last/last_cm (L, B, d)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     caches: Dict[str, Any] = {"segments": []}
-    for _, n in segments_of(cfg):
-        c = attn_lib.init_cache(cfg, batch, cache_len, dtype, dev)
+    for kind, n in segments_of(cfg):
+        if kind == BLOCK_RWKV6:
+            c = rwkv_lib.init_rwkv6_state(cfg, batch, dtype, dev)
+        else:
+            c = attn_lib.init_cache(cfg, batch, cache_len, dtype, dev)
         caches["segments"].append(
             {k: v.expand((n,) + v.shape).clone() for k, v in c.items()})
     return caches
@@ -234,9 +279,10 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
                 sliding_window=None, scale=None
                 ) -> Tuple[torch.Tensor, Any]:
     """One-token decode. token: (B, 1); position: int or (B,) — the
-    absolute position of each lane's new token. Each lane writes its ring
-    slot ``position[b] % cache_len`` and attends with its own position,
-    so lanes at different points of their streams share one step.
+    absolute position of each lane's new token. On attn segments each
+    lane writes its ring slot ``position[b] % cache_len`` and attends
+    with its own position, so lanes at different points of their streams
+    share one step; rwkv6 segments step each lane's recurrent state.
 
     ``scale`` (scalar, (B,) per-lane tensor, or ``(scale, rank_mask)``)
     overrides ``lora.scale``; with lane-batched adapters (leaves
@@ -249,7 +295,6 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     pos = torch.as_tensor(position, device=x.device).reshape(-1)
     positions = pos.expand(B).reshape(B, 1).long()
     window = sliding_window or cfg.sliding_window
-    Sc = caches["segments"][0]["k"].shape[2]
     x = _run_layers(params, adapters, x, cfg, scale, positions, window,
-                    caches=caches, cache_index=positions[:, 0] % Sc)
+                    caches=caches)
     return _lm_head(params, cfg, x), caches

@@ -9,18 +9,22 @@ imports no JAX, so it also runs where only PyTorch is installed:
 f32 comparisons run with TF32 off. Tolerances: lora_matmul f32 1e-4 and
 bf16 1e-1 (the kernel adds the adapter to its f32 accumulator before the
 one cast, the plain version casts x·W first); flash attention f32 2e-5
-and bf16 2e-2 (one bf16 rounding of outputs of magnitude < 4).
+and bf16 2e-2 (one bf16 rounding of outputs of magnitude < 4); wkv6
+relative to max |ref| 1e-5 in f32 and 1e-2 in bf16 (the reference
+suite's).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.config import LoRAConfig, ServeSpec
-from repro_torch.configs import qwen2_0_5b
+from repro_torch.configs import qwen2_0_5b, rwkv6_7b
 from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.lora_matmul import ops as lm_ops
 from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.launch.adapter_cache import PagedAdapter
 from repro_torch.launch.serve import ServeEngine, make_prefill_step
 from repro_torch.models import transformer as T
@@ -93,6 +97,59 @@ def test_flash_kernel_matches_plain(cuda_device, S, D, window, dtype, tol):
     assert float((got.float() - want.float()).abs().max()) < tol
 
 
+def _wkv_operands(seed, B, S, H, K, dtype, device, decay=None):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, K), generator=g) for _ in range(3))
+    if decay is None:
+        logw = -torch.exp(torch.randn((B, S, H, K), generator=g) * 0.5 - 1.0)
+    else:
+        logw = torch.full((B, S, H, K), float(decay))
+    u = 0.3 * torch.randn((H, K), generator=g)
+    return ([t.to(device, dtype) for t in (r, k, v, logw)]
+            + [u.to(device)])
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() + 1e-6))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K", [(4, 128, 64, 64), (2, 100, 4, 64),
+                                     (1, 300, 2, 64), (2, 50, 2, 16),
+                                     (1, 96, 4, 32), (3, 17, 2, 64)])
+def test_wkv6_kernel_matches_plain(cuda_device, B, S, H, K, dtype, tol):
+    """Against the plain chunked version (chunk min(128, S), padded) and
+    the per-step oracle, both on the kernel's (rounded) inputs."""
+    args = _wkv_operands(B * S + K, B, S, H, K, dtype, cuda_device)
+    before = wkv_ops.launches
+    y, s = wkv_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    yp, sp = wkv_ops._plain(*args, wkv_ops.CHUNK)
+    assert _rel(y, yp) < tol and _rel(s, sp) < 1e-5
+    yr, sr = wkv6_ref(*args)
+    assert _rel(y, yr) < tol and _rel(s, sr) < 1e-5
+
+
+@pytest.mark.parametrize("decay", [-0.8, -2.0, -5.0])
+def test_wkv6_kernel_stays_finite_at_strong_decay(cuda_device, decay):
+    """Per-step log-decays where the chunk-128 form overflows: the
+    kernel's 16-row chunks stay finite and match the per-step oracle."""
+    args = _wkv_operands(5, 2, 128, 4, 64, torch.float32, cuda_device,
+                         decay=decay)
+    y, s = wkv_ops.wkv6(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yr, sr = wkv6_ref(*args)
+    assert _rel(y, yr) < 1e-5 and _rel(s, sr) < 1e-5
+    yp, _ = wkv_ops._plain(*args, wkv_ops.CHUNK)
+    assert not torch.isfinite(yp).all()
+
+
 def test_wrappers_refuse_noncontiguous_cuda_tensors(cuda_device):
     x, w, a, b, scale, mask = _lm_operands(13, 1, 8, 16, 8, 4,
                                            torch.float32, cuda_device)
@@ -102,6 +159,10 @@ def test_wrappers_refuse_noncontiguous_cuda_tensors(cuda_device):
     k = torch.zeros((1, 2, 8, 64), device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, k, k)
+    r = torch.zeros((1, 4, 8, 64), device=cuda_device).transpose(1, 2)
+    u = torch.zeros((4, 64), device=cuda_device)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv6(r, r, r, r, u)
 
 
 def test_reduced_model_on_card_matches_cpu(cuda_device):
@@ -158,3 +219,48 @@ def _shifted(ads):
                               for n, v in blk.items()}
                           for k, blk in seg.items()}
                          for seg in ads["segments"]]}
+
+
+def test_reduced_rwkv6_on_card_matches_cpu(cuda_device):
+    """rwkv6-7b reduced, f32: prefill (S = 100, ragged) and three-lane
+    decode through the kernels on the card == the plain versions on the
+    CPU (1e-4), with 2 wkv6 and 12 lora_matmul launches per prefill and
+    12 lora_matmul (0 wkv6) per step."""
+    cfg = rwkv6_7b.reduced()
+    lora = LoRAConfig(rank=4, max_rank=8)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ads = _shifted(T.init_adapters(cfg, lora, seed=1, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100),
+                           generator=torch.Generator().manual_seed(0))
+    want = make_prefill_step(cfg, lora, device="cpu")(params, ads,
+                                                      {"tokens": tokens})
+    lm0, wk0 = lm_ops.launches, wkv_ops.launches
+    got = make_prefill_step(cfg, lora, device=cuda_device)(
+        _to(params, cuda_device), _to(ads, cuda_device), {"tokens": tokens})
+    assert wkv_ops.launches - wk0 == cfg.num_layers
+    assert lm_ops.launches - lm0 == 6 * cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+    engines = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(_to(params, dev), cfg, lora,
+                          ServeSpec(max_batch=3, cache_len=8, max_rank=8),
+                          device=dev)
+        for lane, rank in enumerate((2, 8)):
+            sub = _shifted(T.init_adapters(cfg, lora, seed=10 + lane,
+                                           rank=rank, device="cpu"))
+            eng.assign(lane, PagedAdapter(0, -1, 0, rank, 8, 16.0 / rank,
+                                          _to(pad_adapter_tree(sub, 8), dev)))
+        engines[str(dev)] = eng
+    toks = np.array([1, 2, 3])
+    for step in range(10):
+        lm0, wk0 = lm_ops.launches, wkv_ops.launches
+        got = engines[str(cuda_device)].step(toks).cpu()
+        assert lm_ops.launches - lm0 == 6 * cfg.num_layers
+        assert wkv_ops.launches == wk0
+        want = engines["cpu"].step(toks)
+        assert float((got - want).abs().max()) <= 1e-4, step
+        toks = want.argmax(-1).numpy()
+        if step == 4:
+            for eng in engines.values():
+                eng.retire(1)

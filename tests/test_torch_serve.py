@@ -101,7 +101,7 @@ def test_lora_and_serve_spec_copies_match_reference():
     with pytest.raises(ValueError):
         ServeSpec(admission="lifo")
     assert get_arch("qwen2-0.5b") == qwen2_0_5b.qwen2_0_5b()
-    assert list_archs() == ["qwen2-0.5b"]
+    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b"]
 
 
 def test_interop_round_trip_is_exact(weights):
@@ -423,7 +423,7 @@ def test_serve_engine_refuses_paged_kv(weights):
                     device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["mamba2", "mla", "rwkv6"])
+@pytest.mark.parametrize("kind", ["mamba2", "mla"])
 def test_transformer_refuses_unported_block_kinds(kind):
     cfg = CFG.with_overrides(block_pattern=(kind, "attn"))
     with pytest.raises(NotImplementedError):
