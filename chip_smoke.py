@@ -15,7 +15,7 @@ nothing is caught):
 2. Hold each kernel to its plain PyTorch version at the main paths'
    shapes, in bf16 and in f32 (TF32 off), and time kernel, plain version
    and a library call on the same inputs (wkv6 has no library call; at
-   a per-step log-decay of -2, where the plain chunked version
+   per-step log-decays of -2 and -20, where the plain chunked version
    overflows, it is held to the per-step oracle).
 3. Parity at full width and reduced depth (2 layers, f32), per model:
    the same weights on the card (kernels) and on the CPU (plain
@@ -282,18 +282,31 @@ def wkv_cases():
     yield "ragged, 3 chunks", 4, 300, torch.float32, None
     yield "bf16 inputs", 4, 128, torch.bfloat16, None
     yield "logw = -2", 4, 128, torch.float32, -2.0
+    yield "logw = -20", 4, 128, torch.float32, -20.0
+
+
+def wkv_bytes(B, S, H, K, es):
+    """r/k/v/logw read and y written once in the input dtype, u read and
+    the state written once in f32."""
+    return es * 5 * B * S * H * K + 4 * (H * K + B * H * K * K)
 
 
 def wkv_bound(B, S, H, K, es):
-    """Bound of the TPU kernel's work: S padded to chunks of c = min(128,
-    S); per chunk and head 4·c²·K (scores, A·v) + 4·c·K² (inter-chunk,
-    state update) f32 flops. Bytes: r/k/v/logw read and y written once
-    in the input dtype, u read and the state written once in f32."""
+    """Bound of the work the function needs: per step and head about
+    5·K² f32 flops (k·vᵀ, r·S and the decayed state update; the kernel's
+    chunked form at its 16 rows does 4·Q²·K + 4·Q·K² per chunk, the
+    same count at K = 64)."""
+    return bound(wkv_bytes(B, S, H, K, es),
+                 {torch.float32: 5.0 * B * H * S * K * K})
+
+
+def wkv_tpu_work_ms(B, S, H, K, es):
+    """A yardstick, not the bound: the TPU kernel's own work at its chunk
+    of c = min(128, S), 4·c²·K + 4·c·K² flops per chunk and head, against
+    the same bytes (ms)."""
     c = min(wkv_ops.CHUNK, S)
-    nc = -(-S // c)
-    flops = B * H * nc * (4.0 * c * c * K + 4.0 * c * K * K)
-    nbytes = es * 5 * B * S * H * K + 4 * (H * K + B * H * K * K)
-    return bound(nbytes, {torch.float32: flops})
+    flops = B * H * -(-S // c) * (4.0 * c * c * K + 4.0 * c * K * K)
+    return bound(wkv_bytes(B, S, H, K, es), {torch.float32: flops})[0]
 
 
 def rel_err(got, want) -> float:
@@ -340,7 +353,9 @@ def check_wkv(cfg):
             "max_abs_err": err, "rel_err": rel, "state_rel_err": s_rel,
             "tol": tol, "ms": timed_ms(lambda: wkv_ops.wkv6(*args)),
             "plain_ms": timed_ms(plain), "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by})
+            "bound_ms": b_ms, "bound_by": b_by,
+            "tpu_chunk128_work_ms": wkv_tpu_work_ms(B, S, H, K,
+                                                    r.element_size())})
     return rows
 
 
@@ -546,6 +561,9 @@ def main() -> int:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         rel = f", rel {r['rel_err']:.3g}" if "rel_err" in r else ""
+        if "tpu_chunk128_work_ms" in r:
+            rel += (f", TPU chunk-128 work "
+                    f"{r['tpu_chunk128_work_ms']:.4f} ms")
         print(f"[2] {r['name']} {r['model']} {r.get('linear', '')} "
               f"{r.get('mode', r.get('case', ''))} {r['dtype']} {r['shape']}"
               f": err {r['max_abs_err']:.3g}{rel} (tol {r['tol']}), ms "

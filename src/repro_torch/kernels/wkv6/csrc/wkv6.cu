@@ -22,20 +22,22 @@
 // The TPU kernel splits e^{cum_excl − cum} into r ⊙ e^{cum_excl} times
 // k ⊙ e^{−cum} at a chunk of 128, and e^{−cum} overflows f32 once a
 // channel's decay summed over the chunk passes about −88 (per-step
-// log-decays below about −0.7). Here the chunk is Q = 16 rows and the
-// split is taken about the middle of each channel's chunk decay m = cum_Q/2:
-// r ⊙ e^{cum_excl − m} and k ⊙ e^{m − cum}, each within e^{±|cum_Q|/2}.
-// Both stay finite for per-step log-decays down to about −2·88/Q = −11.
-// Every other exponent (e^{cum_excl}, e^{cum_Q − cum}, e^{cum_Q}) is ≤ 0.
-// The result does not depend on the chunk length, up to rounding.
+// log-decays below about −0.7); any split of it overflows at some decay.
+// Here each score takes the exponent per channel, e^{cum_excl_ic − cum_jc},
+// which is ≤ 0 for j < i because logw ≤ 0, so no factor can overflow at
+// any decay. So is every other exponent (e^{cum_excl}, e^{cum_Q − cum},
+// e^{cum_Q}). The chunk is Q = 16 rows, which keeps that per-score
+// exponential to Q²/2·K per chunk. The result does not depend on the chunk
+// length, up to rounding.
 //
 // What bounds it on an H100: at the served shape (B 4, H 64, K 64, S 128,
-// f32) the TPU kernel's work at its chunk of 128 is 4·Q²·K + 4·Q·K² flops
-// per chunk and head, 1.6 GFLOP in all (24 us at 67 TFLOP/s f32), and it
-// moves 46 MB (14 us at 3.35 TB/s): operations bound it. This design does
-// less arithmetic (the Q² terms shrink with Q = 16) but runs the chunks of
-// a head one after another, so with one block per head its time is the
-// latency of S/Q dependent chunk steps rather than either bound.
+// f32) the function needs about 5·K² flops per step and head (the
+// per-step form; this chunked form at Q = 16 does 4·Q²·K + 4·Q·K² per
+// chunk, the same 2.6 MFLOP per head), 0.67 GFLOP in all (10 us at
+// 67 TFLOP/s f32), and it moves 46 MB (14 us at 3.35 TB/s): bytes bound
+// it. This design runs the chunks of a head one after another, so with one
+// block per head its time is the latency of S/Q dependent chunk steps
+// rather than either bound.
 //
 // Design (a simple, right first version; f32 FMA, no tensor cores):
 // grid (H, B), one block of 256 threads per (b, h) — 256 blocks at the
@@ -44,9 +46,10 @@
 // chunk grid axis is a loop inside the block. Per chunk:
 //   A. load the r, k, v, logw tiles (Q x K, coalesced along K);
 //   B. one thread per channel takes the cumsum of logw along the chunk;
-//   C. one warp per row forms the decayed r and k tiles and, by a warp
-//      sum, the row's diagonal bonus;
-//   D. one thread per (i, j) forms the causal score A_ij;
+//   C. one warp per row forms the decayed r tile and transposed k tile
+//      and, by a warp sum, the row's diagonal bonus;
+//   D. one thread per (i, j) forms the causal score A_ij, taking the
+//      decay e^{cum_excl_ic − cum_jc} channel by channel;
 //   E. thread (row group, column) accumulates y = A·v + rdec·S for its
 //      rows, reading A and rdec as float4 broadcasts;
 //   F. the same threads decay and update their state rows in place.
@@ -87,12 +90,13 @@ struct Smem {
   static constexpr int KP = K + 1;
   static constexpr int ST = 0;                        // state, K x K
   static constexpr int RQ = ST + K * K;               // r ⊙ e^{cum_excl}, Q x K
-  static constexpr int RI = RQ + Q * K;               // raw r, then r ⊙ e^{cum_excl − m}, Q x KP
-  static constexpr int KI = RI + ((Q * KP + 3) / 4) * 4;   // raw k, then k ⊙ e^{m − cum}, Q x KP
-  static constexpr int KT = KI + ((Q * KP + 3) / 4) * 4;   // (k ⊙ e^{cum_Q − cum})ᵀ, K x QP
+  static constexpr int QKP = ((Q * KP + 3) / 4) * 4;  // a Q x KP tile
+  static constexpr int RI = RQ + Q * K;               // r, Q x KP
+  static constexpr int KI = RI + QKP;                 // k, Q x KP
+  static constexpr int KT = KI + QKP;                 // (k ⊙ e^{cum_Q − cum})ᵀ, K x QP
   static constexpr int VS = KT + K * QP;              // v, Q x K
-  static constexpr int CS = VS + Q * K;               // logw, then its cumsum, Q x K
-  static constexpr int AT = CS + Q * K;               // scores, Q x Q
+  static constexpr int CS = VS + Q * K;               // logw, then its cumsum, Q x KP
+  static constexpr int AT = CS + QKP;                 // scores, Q x Q
   static constexpr int DG = AT + Q * Q;               // diagonal bonus, Q
   static constexpr int US = DG + Q;                   // u, K
   static constexpr int DC = US + K;                   // e^{cum_Q}, K
@@ -147,7 +151,7 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       ri[t * KP + c] = in ? to_f32(r[off]) : 0.f;
       ki[t * KP + c] = in ? to_f32(k[off]) : 0.f;
       vs[t * K + c] = in ? to_f32(v[off]) : 0.f;
-      cs[t * K + c] = in ? to_f32(w[off]) : 0.f;
+      cs[t * KP + c] = in ? to_f32(w[off]) : 0.f;
     }
     __syncthreads();
     // B. inclusive cumsum of logw along the chunk, one thread per channel
@@ -155,8 +159,8 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       float acc = 0.f;
 #pragma unroll
       for (int t = 0; t < Q; ++t) {
-        acc += cs[t * K + c];
-        cs[t * K + c] = acc;
+        acc += cs[t * KP + c];
+        cs[t * KP + c] = acc;
       }
     }
     __syncthreads();
@@ -164,16 +168,13 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     for (int t = warp; t < Q; t += NWARPS) {
       float part = 0.f;
       for (int c = lane; c < K; c += 32) {
-        const float cq = cs[(Q - 1) * K + c];
-        const float m = 0.5f * cq;
-        const float cu = cs[t * K + c];
-        const float ce = t > 0 ? cs[(t - 1) * K + c] : 0.f;
+        const float cq = cs[(Q - 1) * KP + c];
+        const float cu = cs[t * KP + c];
+        const float ce = t > 0 ? cs[(t - 1) * KP + c] : 0.f;
         const float rr = ri[t * KP + c];
         const float kk = ki[t * KP + c];
         part = fmaf(rr * us[c], kk, part);
         rq[t * K + c] = rr * expf(ce);
-        ri[t * KP + c] = rr * expf(ce - m);
-        ki[t * KP + c] = kk * expf(m - cu);
         kt[c * QP + t] = kk * expf(cq - cu);
         if (t == Q - 1) dc[c] = expf(cq);
       }
@@ -181,13 +182,17 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       if (lane == 0) dg[t] = part;
     }
     __syncthreads();
-    // D. strictly causal scores, the diagonal bonus on the diagonal
+    // D. strictly causal scores, the diagonal bonus on the diagonal; for
+    // j < i, cum_excl_i = cum_{i-1} ≤ cum_j, so every exponent is ≤ 0
     for (int e = tid; e < Q * Q; e += NT) {
       const int i = e / Q, j = e % Q;
       float s = 0.f;
       if (j < i) {
-#pragma unroll 16
-        for (int c = 0; c < K; ++c) s = fmaf(ri[i * KP + c], ki[j * KP + c], s);
+        const float* ce = cs + (i - 1) * KP;
+        const float* cj = cs + j * KP;
+#pragma unroll 8
+        for (int c = 0; c < K; ++c)
+          s = fmaf(ri[i * KP + c] * ki[j * KP + c], expf(ce[c] - cj[c]), s);
       } else if (j == i) {
         s = dg[i];
       }
@@ -262,7 +267,7 @@ template <typename T, int K>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, void* y, void* state, int B, int S, int H,
            cudaStream_t stream) {
-  constexpr size_t smem = Smem<K>::BYTES;   // 43.7 KB at K = 64
+  constexpr size_t smem = Smem<K>::BYTES;   // 43.8 KB at K = 64
   static_assert(smem <= 48 * 1024, "needs the opt-in above 48 KB");
   dim3 grid(H, B);
   wkv6_kernel<T, K><<<grid, NT, smem, stream>>>(

@@ -1,18 +1,17 @@
 """Wrapper for the WKV6 kernel (``csrc/wkv6.cu``).
 
-``wkv6(r, k, v, logw, u, chunk=128)`` takes the models' layout, r, k, v
-and logw (B, S, H, K) in f32 or bf16 and u (H, K), and returns y
-(B, S, H, K) in r's dtype and the final state (B, H, K, K) in f32, from a
-zero state.
+``wkv6(r, k, v, logw, u)`` takes the models' layout, r, k, v and logw
+(B, S, H, K) in f32 or bf16 and u (H, K), and returns y (B, S, H, K) in
+r's dtype and the final state (B, H, K, K) in f32, from a zero state.
 
 On a CUDA tensor the kernel launches (or the call raises). It reads the
-(B, S, H, K) tensors in place and runs its own 16-row chunks, so
-``chunk`` does not change what it computes. On a CPU tensor the plain
-version runs as the reference's Pallas wrapper (``repro/kernels/wkv6/
-ops.py``) runs its kernel: in f32, S padded to a multiple of
-``c = min(chunk, S)`` with k = 0, v = 0, r = 0 and logw = 0 steps (which
-neither write nor decay the state), then :func:`.ref.wkv6_chunked` at
-chunk c. There is no fallback from one to the other.
+(B, S, H, K) tensors in place and runs its own 16-row chunks. On a CPU
+tensor the plain version runs as the reference's Pallas wrapper
+(``repro/kernels/wkv6/ops.py``) runs its kernel: in f32, S padded to a
+multiple of ``c = min(CHUNK, S)`` with k = 0, v = 0, r = 0 and logw = 0
+steps (which neither write nor decay the state), then
+:func:`.ref.wkv6_chunked` at chunk c. There is no fallback from one to
+the other.
 
 ``launches`` counts kernel launches, and nothing else.
 
@@ -49,7 +48,7 @@ def _kernel_lib():
     return _lib
 
 
-def _check(r, k, v, logw, u, chunk):
+def _check(r, k, v, logw, u):
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(
             "wkv6 wants r, k, v, logw of one shape (B,S,H,K); got "
@@ -59,9 +58,8 @@ def _check(r, k, v, logw, u, chunk):
     if u.shape != (H, K):
         raise ValueError(f"wkv6 wants u (H,K) = {(H, K)}, got "
                          f"{tuple(u.shape)}")
-    if S < 1 or chunk < 1:
-        raise ValueError(f"wkv6 needs S >= 1 and chunk >= 1, got S={S}, "
-                         f"chunk={chunk}")
+    if S < 1:
+        raise ValueError(f"wkv6 needs S >= 1, got S={S}")
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype
                                      for t in (k, v, logw)):
         raise TypeError("r, k, v, logw must share float32 or bfloat16, got "
@@ -70,7 +68,7 @@ def _check(r, k, v, logw, u, chunk):
         raise ValueError("wkv6 operands on several devices")
 
 
-def _plain(r, k, v, logw, u, chunk):
+def _plain(r, k, v, logw, u, chunk=CHUNK):
     S = r.shape[1]
     c = min(chunk, S)
     pad = (-S) % c
@@ -104,9 +102,9 @@ def _launch(r, k, v, logw, u):
     return y, state
 
 
-def _forward(r, k, v, logw, u, chunk):
+def _forward(r, k, v, logw, u):
     if r.device.type == "cpu":
-        return _plain(r, k, v, logw, u, chunk)
+        return _plain(r, k, v, logw, u)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     return _launch(r, k, v, logw, u)
@@ -114,32 +112,31 @@ def _forward(r, k, v, logw, u, chunk):
 
 class _WKV6(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, r, k, v, logw, u, chunk):
+    def forward(ctx, r, k, v, logw, u):
         ctx.save_for_backward(r, k, v, logw, u)
-        ctx.chunk = chunk
-        return _forward(r, k, v, logw, u, chunk)
+        return _forward(r, k, v, logw, u)
 
     @staticmethod
     def backward(ctx, gy, gstate):
         inputs = [t.detach().requires_grad_(need) for t, need
-                  in zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            outs = _plain(*inputs, ctx.chunk)
+            outs = _plain(*inputs)
         pairs = [(o, g) for o, g in zip(outs, (gy, gstate)) if g is not None]
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
                                          [g for _, g in pairs],
                                          allow_unused=True))
         return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None,)
+                     for t in inputs)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, u: torch.Tensor, *, chunk: int = CHUNK):
+         logw: torch.Tensor, u: torch.Tensor):
     """r,k,v,logw (B, S, H, K); u (H, K) → (y (B,S,H,K) in r.dtype,
     final state (B,H,K,K) f32)."""
-    _check(r, k, v, logw, u, chunk)
+    _check(r, k, v, logw, u)
     operands = (r, k, v, logw, u)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        return _WKV6.apply(*operands, chunk)
-    return _forward(*operands, chunk)
+        return _WKV6.apply(*operands)
+    return _forward(*operands)

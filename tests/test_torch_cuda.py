@@ -135,7 +135,7 @@ def test_wkv6_kernel_matches_plain(cuda_device, B, S, H, K, dtype, tol):
     assert _rel(y, yr) < tol and _rel(s, sr) < 1e-5
 
 
-@pytest.mark.parametrize("decay", [-0.8, -2.0, -5.0])
+@pytest.mark.parametrize("decay", [-0.8, -2.0, -5.0, -20.0])
 def test_wkv6_kernel_stays_finite_at_strong_decay(cuda_device, decay):
     """Per-step log-decays where the chunk-128 form overflows: the
     kernel's 16-row chunks stay finite and match the per-step oracle."""

@@ -239,21 +239,23 @@ WKV_CASES = [
                          ids=lambda c: "x".join(map(str, c[:5]))
                          + ("_bf16" if c[5] == torch.bfloat16 else ""))
 def test_wkv6_plain_matches_both_oracles(case):
-    """The port's wrapper on the CPU (padded, chunked plain version) ==
-    the reference's per-step oracle and the port's own, on the same
-    (bf16-rounded where bf16) inputs."""
+    """The port's wrapper on the CPU (padded, chunked plain version at
+    its chunk and at the case's) == the reference's per-step oracle and
+    the port's own, on the same (bf16-rounded where bf16) inputs."""
     B, S, H, K, chunk, dtype = case
     r, k, v, logw, u = _t(*_wkv_inputs(S + K, B, S, H, K))
     r, k, v, logw = (t.to(dtype) for t in (r, k, v, logw))
     before = wkv_ops.launches
-    y, s = wkv_ops.wkv6(r, k, v, logw, u, chunk=chunk)
+    y, s = wkv_ops.wkv6(r, k, v, logw, u)
     assert wkv_ops.launches == before
     assert y.dtype == dtype and s.dtype == torch.float32
+    yc, sc = wkv_ops._plain(r, k, v, logw, u, chunk)
     as_np = [t.float().numpy() for t in (r, k, v, logw)]
     yj, sj = jax_wkv6_ref(*as_np, u.numpy())
     yp, sp = wkv6_ref(r, k, v, logw, u)
     rtol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert _rel(y.float(), yj) < rtol and _rel(s, sj) < rtol
+    assert _rel(yc.float(), yj) < rtol and _rel(sc, sj) < rtol
     assert _rel(yp, yj) < 1e-5 and _rel(sp, sj) < 1e-5
 
 
@@ -261,7 +263,7 @@ def test_wkv6_plain_matches_pallas_kernel_interpret():
     """The wrapper's padding against the reference's Pallas wrapper in
     interpret mode, ragged S = 50 at chunk 16."""
     args = _wkv_inputs(7, 1, 50, 2, 16)
-    y, s = wkv_ops.wkv6(*_t(*args), chunk=16)
+    y, s = wkv_ops._plain(*_t(*args), 16)
     yj, sj = jax_wkv6(*args, chunk=16, interpret=True)
     assert _rel(y, yj) < 1e-5 and _rel(s, sj) < 1e-5
 
@@ -275,9 +277,9 @@ def test_wkv6_strong_decay_oracle_and_chunk_overflow():
     yj, sj = jax_wkv6_ref(*args)
     y, s = wkv6_ref(*_t(*args))
     assert _rel(y, yj) < 1e-5 and _rel(s, sj) < 1e-5
-    y128, _ = wkv_ops.wkv6(*_t(*args), chunk=128)
+    y128, _ = wkv_ops.wkv6(*_t(*args))
     assert not torch.isfinite(y128).all()
-    y16, s16 = wkv_ops.wkv6(*_t(*args), chunk=16)
+    y16, s16 = wkv_ops._plain(*_t(*args), 16)
     assert _rel(y16, yj) < 1e-5 and _rel(s16, sj) < 1e-5
 
 
@@ -291,7 +293,7 @@ def test_wkv6_wrapper_checks_and_gradients():
         wkv_ops.wkv6(r, k.double(), v, logw, u)
     # backward differentiates the plain version
     leaves = [t.clone().requires_grad_() for t in (r, k, v)]
-    y, s = wkv_ops.wkv6(*leaves, logw, u, chunk=8)
+    y, s = wkv_ops.wkv6(*leaves, logw, u)
     (y.sum() + s.sum()).backward()
     leaves2 = [t.clone().requires_grad_() for t in (r, k, v)]
     y2, s2 = wkv6_ref(*leaves2, logw, u)
