@@ -11,12 +11,18 @@ serving of qwen2-0.5b (attn blocks: ``lora_matmul`` and
 nothing is caught):
 
 1. Print the card's name and power limit; build the CUDA kernels from the
-   sources in this checkout (one nvcc per source, all at once).
+   sources in this checkout (one nvcc per source, all at once) and print
+   ptxas's registers, shared memory and spills per kernel.
 2. Hold each kernel to its plain PyTorch version at the main paths'
    shapes, in bf16 and in f32 (TF32 off), and time kernel, plain version
    and a library call on the same inputs (wkv6 has no library call; at
    per-step log-decays of -2 and -20, where the plain chunked version
-   overflows, it is held to the per-step oracle).
+   overflows, it is held to the per-step oracle). ``lora_matmul`` records
+   the kernel each case took (wgmma, splitk or simt), its time alone (t =
+   x·A given), and adds a 2-lane x 100-row case per model; every decode
+   case runs twice and must give the same bits; at the square shapes in
+   bf16 a rank-8 adapter zero-padded to the 64 slot must give the bits of
+   the truncated one.
 3. Parity at full width and reduced depth (2 layers, f32), per model:
    the same weights on the card (kernels) and on the CPU (plain
    versions), prefill logits and 8 multi-tenant decode steps (rwkv6-7b:
@@ -26,7 +32,9 @@ nothing is caught):
    with lanes at ranks 8/16/32/64 in a 64-wide slot, ``generate`` with
    one retire/admit mid-stream. Launch counts are reset just before and
    read just after each of the two, and must match the model's layer
-   count; then a torch.profiler window over a prefill and 4 steps.
+   count; every ``lora_matmul`` launch of the prefill must be a wgmma one
+   and every one of the decode a split-K one. Then a torch.profiler
+   window over a prefill and 4 steps.
 5. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -34,6 +42,7 @@ Details go to chiprun_out/chip_smoke.json.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -90,6 +99,48 @@ def smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# lora_matmul.cu's kernels by the variant name ops.variant gives them
+LORA_VARIANT_OF = {"wgmma_kernel": "wgmma", "splitk_kernel": "splitk",
+                   "lora_mm_kernel": "simt"}
+
+
+def kernel_name(mangled: str) -> str:
+    """The *_kernel name inside a mangled template name: the one
+    length-prefixed name that ends in "kernel" and opens a template."""
+    for i in range(1, len(mangled)):
+        for k in (1, 2):
+            digits = mangled[max(0, i - k):i]
+            if not digits.isdigit():
+                continue
+            name = mangled[i:i + int(digits)]
+            if name.endswith("kernel") and mangled[i + len(name):][:1] == "I":
+                return name
+    return mangled
+
+
+def ptxas_summary(log: str):
+    """(kernel, "registers, shared memory, spills") per entry function in
+    nvcc's -Xptxas -v output; a kernel is named by its template, e.g.
+    wgmma_kernel<128,128> or splitk_kernel<bf16,4>."""
+    kernel, info = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            if kernel:
+                yield kernel, "; ".join(info)
+            mangled = m.group(1)
+            targs = (["bf16"] if "I13__nv_bfloat16" in mangled else
+                     ["f32"] if re.search(r"_kernelIf", mangled) else [])
+            targs += re.findall(r"Li(\d+)E", mangled)
+            kernel = kernel_name(mangled) + (
+                f"<{','.join(targs)}>" if targs else "")
+            info = []
+        elif kernel and ("registers" in line or "spill" in line):
+            info.append(line.split(":", 1)[-1].strip())
+    if kernel:
+        yield kernel, "; ".join(info)
 
 
 def fail(msg: str) -> None:
@@ -156,6 +207,12 @@ REPLACES = {"lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:79",
 def reset_counts():
     for mod in KERNELS.values():
         mod.launches = 0
+    for k in lm_ops.launches_by_variant:
+        lm_ops.launches_by_variant[k] = 0
+
+
+def variant_counts():
+    return dict(lm_ops.launches_by_variant)
 
 
 def counts():
@@ -177,6 +234,8 @@ def per_layer(cfg):
 # ---------------------------------------------------------------------------
 
 def lora_cases(cfg):
+    """Every served (linear, mode) shape, and a row tile that straddles
+    two lanes with a ragged edge (2 lanes x 100 rows)."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.rwkv is not None:
         linears = (("w_r/w_k/w_v/w_o", d, d), ("ck", d, f), ("cv", f, d))
@@ -185,6 +244,44 @@ def lora_cases(cfg):
     for linear, K, N in linears:
         for mode, L, M in (("prefill", 1, 512), ("decode", len(RANKS), 1)):
             yield linear, mode, L, M, K, N
+    yield linears[0][0], "2 lanes x 100", 2, 100, d, d
+
+
+def launched_variant(fn):
+    """fn() once; the lora_matmul kernel variant it launched."""
+    before = variant_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    grew = [k for k, n in variant_counts().items() if n != before[k]]
+    if len(grew) != 1 or lm_ops.launches_by_variant[grew[0]] != \
+            before[grew[0]] + 1:
+        fail(f"lora_matmul call launched {grew}, want one kernel")
+    return out, grew[0]
+
+
+def rank_pin(x, w, scale, dtype):
+    """The reference's pin (tests/test_kernels.py:145-162) on the card: a
+    rank-8 adapter zero-padded to the 64 slot under the rank mask gives
+    the same bits as the truncated rank-8 adapter. Both launches get the
+    same t columns (cuBLAS's x·A may sum in another order at r 8)."""
+    L, _, K = x.shape
+    N = w.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(K + N + 8)
+    a8 = torch.randn((L, K, 8), generator=g, device="cuda") / K ** 0.5
+    b8 = 0.1 * torch.randn((L, 8, N), generator=g, device="cuda")
+    a64 = torch.cat([a8, torch.zeros((L, K, SLOT - 8), device="cuda")], -1)
+    b64 = torch.cat([b8, torch.zeros((L, SLOT - 8, N), device="cuda")], 1)
+    t64 = x.float() @ a64
+    mask64 = rank_arange_mask(torch.full((L,), 8, device="cuda"), SLOT)
+    y_pad, kind = launched_variant(
+        lambda: lm_ops._launch(x, w, t64, b64, scale, mask64))
+    y_trunc, _ = launched_variant(lambda: lm_ops._launch(
+        x, w, t64[..., :8].contiguous(), b8, scale,
+        torch.ones((L, 8), device="cuda")))
+    if not torch.equal(y_pad, y_trunc):
+        fail(f"lora_matmul {kind} {dtype}: padded rank-8 adapter differs "
+             f"from the truncated one")
+    return kind
 
 
 def check_lora(cfg, dtype):
@@ -196,21 +293,27 @@ def check_lora(cfg, dtype):
              / K ** 0.5).to(dtype)
         a = torch.randn((L, K, SLOT), generator=g, device="cuda") / K ** 0.5
         b = 0.1 * torch.randn((L, SLOT, N), generator=g, device="cuda")
-        if mode == "decode":     # one tenant per lane, mixed ranks
-            ranks = torch.tensor(RANKS, device="cuda")
+        if L > 1:      # one tenant per lane, mixed ranks
+            ranks = torch.tensor(RANKS[:L], device="cuda")
         else:
             ranks = torch.tensor([SLOT], device="cuda")
         scale = (16.0 / ranks).float()
         mask = rank_arange_mask(ranks, SLOT)
         args = (x, w, a, b, scale, mask)
-        got = lm_ops.lora_matmul(*args)
-        torch.cuda.synchronize()
+        got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
         want = lora_matmul_ref(*args)
         err = maxabs(got, want)
         tol = TOL[("lora_matmul", dtype)]
         if not (err < tol and torch.isfinite(got).all()):
             fail(f"lora_matmul {linear}/{mode}/{dtype}: max abs {err} "
                  f">= {tol}")
+        if mode == "decode":     # split-K's fixed summation order
+            again, _ = launched_variant(lambda: lm_ops.lora_matmul(*args))
+            if not torch.equal(got, again):
+                fail(f"lora_matmul {linear}/{mode}/{dtype}: two calls "
+                     f"differ")
+        pinned = (rank_pin(x, w, scale, dtype)
+                  if dtype == torch.bfloat16 and K == N else None)
         es = x.element_size()
         nbytes = (es * (L * M * K + K * N + L * M * N)
                   + 4 * (L * K * SLOT + L * SLOT * N + L + L * SLOT))
@@ -218,17 +321,26 @@ def check_lora(cfg, dtype):
         ops = {torch.float32: 2.0 * L * M * SLOT * (K + N)}
         ops[dtype] = ops.get(dtype, 0.0) + 2.0 * L * M * K * N
         b_ms, b_by = bound(nbytes, ops)
+        t = x.float() @ a      # the kernel alone, on the wrapper's t
 
         def library():
             t = (x.float() @ a) * mask[:, None, :]
             return x @ w + (scale[:, None, None] * (t @ b)).to(dtype)
+        kernel_ms = timed_ms(lambda: lm_ops._launch(x, w, t, b, scale, mask))
         rows.append({
             "name": "lora_matmul", "model": cfg.name, "linear": linear,
-            "mode": mode,
+            "mode": mode, "variant": kind,
             "dtype": str(dtype).replace("torch.", ""),
             "shape": f"L={L} M={M} K={K} N={N} r={SLOT}",
             "max_abs_err": err, "tol": tol,
+            "deterministic": True if mode == "decode" else None,
+            "rank_pin": pinned,
             "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
+            "kernel_ms": kernel_ms,
+            # the kernel's x·W rate and its bytes' rate (W, x, y, t, B)
+            "kernel_tflops": 2.0 * L * M * K * N / kernel_ms / 1e9,
+            "kernel_gbs": (nbytes - 4 * L * K * SLOT + 4 * L * M * SLOT)
+            / kernel_ms / 1e6,
             "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
             "library_ms": timed_ms(library),
             "bound_ms": b_ms, "bound_by": b_by})
@@ -450,12 +562,18 @@ def served(cfg, lora):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = counts()
+    prefill_variants = variant_counts()
     if not torch.isfinite(logits).all():
         fail(f"{cfg.name} prefill logits not finite")
     in_prefill, in_step = per_layer(cfg)
     want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
     if prefill_counts != want:
         fail(f"{cfg.name} prefill launches {prefill_counts}, want {want}")
+    # every bf16 lora_matmul of the served prefill on the tensor cores
+    want = {"wgmma": want["lora_matmul"], "splitk": 0, "simt": 0}
+    if prefill_variants != want:
+        fail(f"{cfg.name} prefill lora_matmul variants {prefill_variants}, "
+             f"want {want}")
 
     eng = engine_with_tenants(params, cfg, lora, torch.bfloat16, "cuda",
                               seed0=20)
@@ -476,11 +594,17 @@ def served(cfg, lora):
     decode_s = time.perf_counter() - t0
     steps = 2 * (16 + 32 - 1) + 1
     decode_counts = counts()
+    decode_variants = variant_counts()
     if not torch.isfinite(last).all():
         fail(f"{cfg.name} decode logits not finite")
     want = {k: n * cfg.num_layers * steps for k, n in in_step.items()}
     if decode_counts != want:
         fail(f"{cfg.name} decode launches {decode_counts}, want {want}")
+    # and every one of the served decode on the weight-streaming kernel
+    want = {"wgmma": 0, "splitk": want["lora_matmul"], "simt": 0}
+    if decode_variants != want:
+        fail(f"{cfg.name} decode lora_matmul variants {decode_variants}, "
+             f"want {want}")
     if gen1.shape != (4, 32) or gen2.shape != (4, 32):
         fail("generate returned the wrong shape")
     # after the counted runs: where the device time goes
@@ -493,16 +617,20 @@ def served(cfg, lora):
         "model": cfg.name,
         "config": f"{cfg.name}, {cfg.num_layers} layers, full width, bf16",
         "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
-                    "launches": prefill_counts},
+                    "launches": prefill_counts,
+                    "lora_matmul_variants": prefill_variants},
         "decode": {"lanes": len(RANKS), "ranks": list(RANKS), "slot": SLOT,
                    "steps": steps, "seconds": decode_s,
                    "lane_tokens_per_s": len(RANKS) * steps / decode_s,
                    "ms_per_step": decode_s / steps * 1e3,
                    "launches": decode_counts,
+                   "lora_matmul_variants": decode_variants,
                    "launches_per_step": {
                        k: v / steps for k, v in decode_counts.items()}},
         "launches": {k: prefill_counts[k] + decode_counts[k]
                      for k in prefill_counts},
+        "lora_matmul_variants": {k: prefill_variants[k] + decode_variants[k]
+                                 for k in prefill_variants},
         "profile": traces,
     }
 
@@ -544,9 +672,10 @@ def main() -> int:
     print(f"[1] built {sorted(secs)} in {time.perf_counter() - t0:.2f}s "
           f"wall ({', '.join(f'{k} {v:.2f}s' for k, v in secs.items())})")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1] ptxas {name}: {line.strip()}")
+        for kernel, info in ptxas_summary(log):
+            kind = LORA_VARIANT_OF.get(kernel.split("<")[0])
+            print(f"[1] ptxas {name} {kernel}"
+                  f"{f' ({kind} variant)' if kind else ''}: {info}")
 
     qwen, rwkv = qwen2_0_5b.qwen2_0_5b(), rwkv6_7b.rwkv6_7b()
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
@@ -564,6 +693,14 @@ def main() -> int:
         if "tpu_chunk128_work_ms" in r:
             rel += (f", TPU chunk-128 work "
                     f"{r['tpu_chunk128_work_ms']:.4f} ms")
+        if "variant" in r:
+            rel += (f", {r['variant']}: kernel alone {r['kernel_ms']:.4f} ms"
+                    f" ({r['kernel_tflops']:.1f} TFLOP/s, "
+                    f"{r['kernel_gbs']:.0f} GB/s)")
+            if r["rank_pin"]:
+                rel += ", rank pin equal"
+            if r["deterministic"]:
+                rel += ", two calls equal"
         print(f"[2] {r['name']} {r['model']} {r.get('linear', '')} "
               f"{r.get('mode', r.get('case', ''))} {r['dtype']} {r['shape']}"
               f": err {r['max_abs_err']:.3g}{rel} (tol {r['tol']}), ms "
@@ -583,10 +720,12 @@ def main() -> int:
     for run in runs:
         p, d = run["prefill"], run["decode"]
         print(f"[4] {run['config']}: prefill 4x128 {p['ms']:.2f} ms, "
-              f"launches {p['launches']}; decode {d['steps']} steps x "
+              f"launches {p['launches']}, lora_matmul by variant "
+              f"{p['lora_matmul_variants']}; decode {d['steps']} steps x "
               f"{d['lanes']} lanes {d['lane_tokens_per_s']:.1f} tok/s "
               f"({d['ms_per_step']:.2f} ms/step), launches per step "
-              f"{d['launches_per_step']}", flush=True)
+              f"{d['launches_per_step']}, lora_matmul by variant "
+              f"{d['lora_matmul_variants']}", flush=True)
         for name, tr in run["profile"].items():
             print(f"[4] {run['model']} profile {name}: wall "
                   f"{tr['wall_ms']:.2f} ms, device {tr['device_ms']:.2f} ms "
@@ -609,6 +748,12 @@ def main() -> int:
         mine = [r for r in rows if r["name"] == name]
         head = next(r for r in mine if pick(r))
         by_path = {run["model"]: run["launches"][name] for run in runs}
+        extra = {}
+        if name == "lora_matmul":
+            extra["launches_by_variant"] = {
+                k: sum(run["lora_matmul_variants"][k] for run in runs)
+                for k in lm_ops.launches_by_variant}
+            extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
         entries.append({
             "name": name, "route": "cuda",
             "source": str(_build.source_of(name).relative_to(HERE)),
@@ -620,7 +765,7 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
-            "cases": mine})
+            **extra, "cases": mine})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__,

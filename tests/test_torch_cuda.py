@@ -78,6 +78,120 @@ def test_lora_matmul_kernel_zero_b_is_the_base_product(cuda_device):
     assert float((got - x @ w).abs().max()) < 1e-4
 
 
+# (variant, L, M, K, N, dtype): each kernel of lora_matmul.cu at the shapes
+# that select it; "misaligned" views x one element past a 16-byte boundary
+LM_VARIANT_CASES = [
+    ("wgmma", 1, 64, 896, 896, torch.bfloat16),
+    ("wgmma", 1, 100, 4864, 896, torch.bfloat16),
+    ("wgmma", 1, 512, 896, 4864, torch.bfloat16),
+    ("wgmma", 1, 512, 4864, 896, torch.bfloat16),
+    ("wgmma", 2, 100, 896, 4864, torch.bfloat16),
+    ("splitk", 1, 1, 14336, 4096, torch.bfloat16),
+    ("splitk", 4, 1, 14336, 4096, torch.bfloat16),
+    ("splitk", 1, 16, 14336, 896, torch.bfloat16),
+    ("splitk", 4, 1, 14336, 4096, torch.float32),
+    ("splitk", 2, 8, 4864, 896, torch.float32),
+    ("simt", 1, 100, 70, 50, torch.bfloat16),
+    ("simt", 3, 2, 33, 17, torch.float32),
+    ("simt", 1, 512, 896, 896, torch.float32),
+    ("misaligned", 1, 100, 896, 896, torch.bfloat16),
+]
+LM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+
+
+def _case_id(case):
+    kind, L, M, K, N, dtype = case
+    return f"{kind}-{L}x{M}-{K}to{N}-{str(dtype)[6:]}"
+
+
+def _lm_case_operands(seed, L, M, K, N, r, dtype, device, misaligned=False):
+    args = _lm_operands(seed, L, M, K, N, r, dtype, device)
+    if misaligned:
+        buf = torch.empty(L * M * K + 1, dtype=dtype, device=device)
+        x = buf[1:].view(L, M, K)
+        x.copy_(args[0])
+        args = (x,) + tuple(args[1:])
+    return args
+
+
+def _count_variant(kind, fn):
+    before = dict(lm_ops.launches_by_variant)
+    out = fn()
+    torch.cuda.synchronize()
+    grew = {k: lm_ops.launches_by_variant[k] - before[k] for k in before}
+    assert grew == {k: int(k == kind) for k in before}, grew
+    return out
+
+
+@pytest.mark.parametrize("case", LM_VARIANT_CASES, ids=_case_id)
+def test_lora_matmul_variant_matches_plain(cuda_device, case):
+    kind, L, M, K, N, dtype = case
+    args = _lm_case_operands(K + N + M, L, M, K, N, 64, dtype, cuda_device,
+                             misaligned=kind == "misaligned")
+    kind = "simt" if kind == "misaligned" else kind
+    got = _count_variant(kind, lambda: lm_ops.lora_matmul(*args))
+    want = lora_matmul_ref(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) < LM_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", LM_VARIANT_CASES[1::3], ids=_case_id)
+def test_lora_matmul_zero_b_is_the_base_product_per_variant(cuda_device,
+                                                            case):
+    """B = 0: the kernel's output is x·W accumulated in f32 and cast once
+    (against the f32 product: its f32 summation order, one rounding)."""
+    kind, L, M, K, N, dtype = case
+    x, w, a, b, scale, mask = _lm_case_operands(
+        7, L, M, K, N, 16, dtype, cuda_device,
+        misaligned=kind == "misaligned")
+    kind = "simt" if kind == "misaligned" else kind
+    got = _count_variant(kind, lambda: lm_ops.lora_matmul(
+        x, w, a, torch.zeros_like(b), scale, mask))
+    base = x.float() @ w.float()
+    if dtype == torch.float32:
+        assert float((got - base).abs().max()) < 1e-4
+    else:
+        torch.testing.assert_close(got.float(), base, rtol=2 ** -8,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("case", LM_VARIANT_CASES, ids=_case_id)
+def test_lora_matmul_padded_rank_equals_truncated(cuda_device, case):
+    """A rank-8 adapter zero-padded to 64 under the rank mask gives the same
+    bits as the truncated rank-8 adapter (tests/test_kernels.py's pin).
+    Both calls get the same t columns: cuBLAS's x·A may sum in another
+    order at r 8 than at r 64, and this pins the kernel's epilogue."""
+    kind, L, M, K, N, dtype = case
+    x, w, a, b, scale, _ = _lm_case_operands(
+        9, L, M, K, N, 8, dtype, cuda_device,
+        misaligned=kind == "misaligned")
+    kind = "simt" if kind == "misaligned" else kind
+    pad = torch.zeros((L, K, 56), device=cuda_device)
+    a64 = torch.cat([a, pad], -1)
+    b64 = torch.cat([b, torch.zeros((L, 56, N), device=cuda_device)], 1)
+    t64 = x.float() @ a64
+    t8 = t64[..., :8].contiguous()
+    mask64 = rank_arange_mask(torch.full((L,), 8), 64).to(cuda_device)
+    y_pad = _count_variant(kind, lambda: lm_ops._launch(
+        x, w, t64, b64, scale, mask64))
+    y_trunc = _count_variant(kind, lambda: lm_ops._launch(
+        x, w, t8, b, scale, torch.ones((L, 8), device=cuda_device)))
+    assert torch.equal(y_pad, y_trunc)
+
+
+@pytest.mark.parametrize("K,N", [(896, 896), (896, 4864), (4864, 896),
+                                 (4096, 4096), (4096, 14336),
+                                 (14336, 4096)])
+def test_lora_matmul_decode_is_deterministic(cuda_device, K, N):
+    """The served decode shape (4 lanes x 1 row): split-K sums its partials
+    in a fixed order, so two calls give the same bits."""
+    args = _lm_operands(K + N, 4, 1, K, N, 64, torch.bfloat16, cuda_device)
+    y1 = _count_variant("splitk", lambda: lm_ops.lora_matmul(*args))
+    y2 = _count_variant("splitk", lambda: lm_ops.lora_matmul(*args))
+    assert torch.equal(y1, y2)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])

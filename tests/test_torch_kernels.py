@@ -150,6 +150,72 @@ def test_lora_matmul_wrapper_rejects_bad_operands(bad):
         lm_ops.lora_matmul(x, w, a, b, scale, mask)
 
 
+# (rows, K, N, dtype, aligned) -> kernel: every served shape of both models
+# (qwen2-0.5b d 896, d_ff 4864; rwkv6-7b d 4096, d_ff 14336; prefill 512
+# rows, decode 4 lanes x 1 row) and the edges of the rule
+_BF16, _F32 = torch.bfloat16, torch.float32
+LM_VARIANT_RULE = [
+    *[(rows, K, N, _BF16, True, kind)
+      for K, N in ((896, 896), (896, 4864), (4864, 896), (4096, 4096),
+                   (4096, 14336), (14336, 4096))
+      for rows, kind in ((512, "wgmma"), (4, "splitk"))],
+    (200, 896, 896, _BF16, True, "wgmma"),       # 2 lanes x 100 rows
+    (17, 4096, 4096, _BF16, True, "wgmma"),      # just past split-K
+    (16, 14336, 896, _BF16, True, "splitk"),
+    (1, 14336, 4096, _BF16, True, "splitk"),
+    (4, 4096, 4096, _F32, True, "splitk"),       # f32 decode streams too
+    (512, 70, 896, _BF16, True, "simt"),         # K % 8 != 0: no TMA
+    (512, 896, 50, _BF16, True, "simt"),         # N % 8 != 0
+    (512, 896, 896, _F32, True, "simt"),         # f32 prefill
+    (512, 896, 896, _BF16, False, "simt"),       # misaligned view
+    (4, 896, 896, _BF16, False, "simt"),
+    (4, 896, 17, _BF16, True, "simt"),           # N not whole vectors
+    (4, 896, 898, _F32, True, "simt"),
+    (512, 0, 896, _BF16, True, "simt"),          # K = 0
+]
+
+
+@pytest.mark.parametrize("rows,K,N,dtype,aligned,kind", LM_VARIANT_RULE)
+def test_lora_matmul_variant_rule(rows, K, N, dtype, aligned, kind):
+    """The pure-Python rule that picks the CUDA kernel (no card needed)."""
+    assert lm_ops.variant(rows, K, N, dtype, aligned) == kind
+
+
+@pytest.mark.parametrize("K,N", [(896, 896), (896, 4864), (4864, 896),
+                                 (4096, 4096), (4096, 14336),
+                                 (14336, 4096)])
+@pytest.mark.parametrize("rows,itemsize", [(4, 2), (1, 2), (4, 4), (16, 2)])
+def test_lora_matmul_splitk_plan_covers_k_in_one_wave(K, N, rows, itemsize):
+    """Split-K's chunks cover K exactly, are whole 32-row steps, keep x's
+    chunk within 48 KB, and make at most one wave of blocks (two per SM up
+    to 4 rows) unless K is too long for the x chunk to allow it."""
+    sms = 132
+    strips, chunk, splits = lm_ops.splitk_plan(rows, K, N, itemsize, sms)
+    assert strips == -(-N // (32 * 16 // itemsize))
+    assert chunk % 32 == 0 and rows * chunk * 4 <= 48 * 1024
+    assert (splits - 1) * chunk < K <= splits * chunk
+    per_sm = 2 if rows <= 4 else 1
+    assert strips * splits <= sms * per_sm or chunk * rows * 4 > 47 * 1024
+
+
+def test_lora_matmul_wgmma_tile_by_shape():
+    """128 x 128 tiles where their waves keep 3/4 of the SMs busy, else
+    64 x 64 (block counts of the 128 x 128 tile in the comments)."""
+    assert lm_ops.wgmma_tile(512, 4096, 132) == (128, 128)     # 128: 1 wave
+    assert lm_ops.wgmma_tile(512, 14336, 132) == (128, 128)    # 448: 4, 85%
+    assert lm_ops.wgmma_tile(512, 4864, 132) == (64, 64)       # 152: 2, 58%
+    assert lm_ops.wgmma_tile(512, 896, 132) == (64, 64)        # 28
+    assert lm_ops.wgmma_tile(200, 896, 132) == (64, 64)
+
+
+def test_lora_matmul_counts_nothing_on_the_cpu():
+    """The plain path launches nothing, so neither count moves."""
+    x, w, a, b = _t(*_lm_operands(8, 1, 8, 16, 8, 4))
+    before = (lm_ops.launches, dict(lm_ops.launches_by_variant))
+    lm_ops.lora_matmul(x, w, a, b, torch.ones(1), torch.ones(1, 4))
+    assert (lm_ops.launches, lm_ops.launches_by_variant) == before
+
+
 def test_lora_matmul_bf16_plain_matches_reference():
     """bf16 activations and weights, f32 adapters (the served dtypes):
     within the reference suite's bf16 tolerance of 1e-1."""
