@@ -12,7 +12,8 @@ nothing is caught):
 
 1. Print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, all at once) and print
-   ptxas's registers, shared memory and spills per kernel.
+   ptxas's registers and spills per kernel, and the dynamic shared
+   memory of each block the main paths launch.
 2. Hold each kernel to its plain PyTorch version at the main paths'
    shapes, in bf16 and in f32 (TF32 off), and time kernel, plain version
    and a library call on the same inputs (wkv6 has no library call; at
@@ -22,7 +23,12 @@ nothing is caught):
    x·A given), and adds a 2-lane x 100-row case per model; every decode
    case runs twice and must give the same bits; at the square shapes in
    bf16 a rank-8 adapter zero-padded to the 64 slot must give the bits of
-   the truncated one.
+   the truncated one. ``flash_attention`` records its route (mma for
+   bf16, simt for f32) and adds a long prompt (B 4, S 2048) with its
+   TFLOP/s and its ratio to SDPA, recorded without a gate. ``wkv6`` runs
+   in the model's own dtypes (bf16 r, k, v; f32 logw) at the served,
+   ragged and 19-chunk lengths, in f32, and at the strong decays; then
+   its time per chunk step at B 1 and B 4 tells latency from throughput.
 3. Parity at full width and reduced depth (2 layers, f32), per model:
    the same weights on the card (kernels) and on the CPU (plain
    versions), prefill logits and 8 multi-tenant decode steps (rwkv6-7b:
@@ -33,8 +39,9 @@ nothing is caught):
    one retire/admit mid-stream. Launch counts are reset just before and
    read just after each of the two, and must match the model's layer
    count; every ``lora_matmul`` launch of the prefill must be a wgmma one
-   and every one of the decode a split-K one. Then a torch.profiler
-   window over a prefill and 4 steps.
+   and every one of the decode a split-K one; every flash launch of the
+   qwen2-0.5b prefill must take the tensor-core route. Then a
+   torch.profiler window over a prefill and 4 steps.
 5. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -101,9 +108,11 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# lora_matmul.cu's kernels by the variant name ops.variant gives them
-LORA_VARIANT_OF = {"wgmma_kernel": "wgmma", "splitk_kernel": "splitk",
-                   "lora_mm_kernel": "simt"}
+# the kernels of lora_matmul.cu and flash_attention.cu by the variant
+# name their ops.variant gives them
+VARIANT_OF = {"wgmma_kernel": "wgmma", "splitk_kernel": "splitk",
+              "lora_mm_kernel": "simt", "fa_mma_kernel": "mma",
+              "fa_kernel": "simt"}
 
 
 def kernel_name(mangled: str) -> str:
@@ -120,10 +129,36 @@ def kernel_name(mangled: str) -> str:
     return mangled
 
 
+# one template argument in a mangled name: bf16, f32, a substitution of
+# an earlier type (S<n>_), or an integer (Li<n>E)
+_TARG = re.compile(r"13__nv_bfloat16|f|S\d*_|Li(\d+)E")
+
+
+def template_args(mangled: str, name: str):
+    """The template arguments after ``name`` in a mangled name: bf16, f32
+    and integers (an S<n>_ substitution is read as the type before it)."""
+    i = mangled.find(name + "I")
+    rest = mangled[i + len(name) + 1:] if i >= 0 else ""
+    out, last = [], "?"
+    while rest and rest[0] != "E" and (m := _TARG.match(rest)):
+        tok = m.group(0)
+        if m.group(1):
+            out.append(m.group(1))
+        elif tok.startswith("S"):
+            out.append(last)
+        else:
+            last = "f32" if tok == "f" else "bf16"
+            out.append(last)
+        rest = rest[m.end():]
+    return out
+
+
 def ptxas_summary(log: str):
-    """(kernel, "registers, shared memory, spills") per entry function in
-    nvcc's -Xptxas -v output; a kernel is named by its template, e.g.
-    wgmma_kernel<128,128> or splitk_kernel<bf16,4>."""
+    """(kernel, "registers, spills, static shared memory") per entry
+    function in nvcc's -Xptxas -v output (ptxas does not see dynamic
+    shared memory, which the flash and wkv6 kernels use); a kernel is
+    named by its template, e.g. wgmma_kernel<128,128> or
+    wkv6_kernel<bf16,f32,64,64,2>."""
     kernel, info = None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -131,16 +166,18 @@ def ptxas_summary(log: str):
             if kernel:
                 yield kernel, "; ".join(info)
             mangled = m.group(1)
-            targs = (["bf16"] if "I13__nv_bfloat16" in mangled else
-                     ["f32"] if re.search(r"_kernelIf", mangled) else [])
-            targs += re.findall(r"Li(\d+)E", mangled)
-            kernel = kernel_name(mangled) + (
-                f"<{','.join(targs)}>" if targs else "")
+            name = kernel_name(mangled)
+            targs = template_args(mangled, name)
+            kernel = name + (f"<{','.join(targs)}>" if targs else "")
             info = []
         elif kernel and ("registers" in line or "spill" in line):
             info.append(line.split(":", 1)[-1].strip())
     if kernel:
         yield kernel, "; ".join(info)
+
+
+def sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def fail(msg: str) -> None:
@@ -207,16 +244,37 @@ REPLACES = {"lora_matmul": "src/repro/kernels/lora_matmul/kernel.py:79",
 def reset_counts():
     for mod in KERNELS.values():
         mod.launches = 0
-    for k in lm_ops.launches_by_variant:
-        lm_ops.launches_by_variant[k] = 0
+    for by in (lm_ops.launches_by_variant, fa_ops.launches_by_variant):
+        for k in by:
+            by[k] = 0
 
 
 def variant_counts():
     return dict(lm_ops.launches_by_variant)
 
 
+def flash_variant_counts():
+    return dict(fa_ops.launches_by_variant)
+
+
 def counts():
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def shared_memory(qwen, rwkv):
+    """Dynamic shared memory of one block of each kernel at the served
+    shapes (bytes), as the kernels' own sources size it."""
+    D = qwen.resolved_head_dim
+    heads, tiles = fa_ops.plan(4, 128, qwen.num_heads, qwen.num_kv_heads,
+                               sms())
+    fa = fa_ops._kernel_lib().flash_attention_smem_bytes
+    H, K = rwkv.d_model // rwkv.rwkv.head_dim, rwkv.rwkv.head_dim
+    vs, vt, _ = wkv_ops.plan(4, H, K, sms())
+    wk = wkv_ops._kernel_lib().wkv6_smem_bytes
+    return {f"fa_mma_kernel<{D}> {heads}x{tiles} warps": fa(1, D, heads * tiles),
+            f"fa_kernel<f32,{D}>": fa(0, D, 0),
+            f"wkv6_kernel<bf16,f32,{K},{vs},{vt}>": wk(1, 0, K, vs),
+            f"wkv6_kernel<f32,f32,{K},{vs},{vt}>": wk(0, 0, K, vs)}
 
 
 def per_layer(cfg):
@@ -351,13 +409,21 @@ def check_flash(cfg, dtype):
     rows = []
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B = 4
-    for S in (128, 100):
+    kind = fa_ops.variant(dtype, D)
+    # the served prefill (S 128), a ragged one, and a long qwen2 prompt
+    for S in ((128, 100, 2048) if dtype == torch.bfloat16 else (128, 100)):
         g = torch.Generator(device="cuda").manual_seed(S)
         q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
         v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
+        before = flash_variant_counts()
         got = fa_ops.flash_attention(q, k, v)
         torch.cuda.synchronize()
+        took = [n for n, c in flash_variant_counts().items()
+                if c != before[n]]
+        if took != [kind]:
+            fail(f"flash_attention S={S}/{dtype} launched {took}, want "
+                 f"{kind}")
         want = fa_ops._plain(q, k, v, True, None, D ** -0.5)
         err = maxabs(got, want)
         tol = TOL[("flash_attention", dtype)]
@@ -366,80 +432,91 @@ def check_flash(cfg, dtype):
         es = q.element_size()
         nbytes = es * (2 * B * S * H * D + 2 * B * S * Hkv * D)
         pairs = S * (S + 1) / 2                  # causal: visible (q, k)
-        b_ms, b_by = bound(nbytes, {dtype: 4.0 * B * H * D * pairs})
+        flops = 4.0 * B * H * D * pairs
+        b_ms, b_by = bound(nbytes, {dtype: flops})
         # the library yardstick: SDPA in its own (B, H, S, D) layout
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
+        ms = timed_ms(lambda: fa_ops.flash_attention(q, k, v))
+        lib_ms = timed_ms(library)
+        heads, tiles = fa_ops.plan(B, S, H, Hkv, sms())
         rows.append({
             "name": "flash_attention", "model": cfg.name,
-            "dtype": str(dtype).replace("torch.", ""),
+            "dtype": str(dtype).replace("torch.", ""), "variant": kind,
+            "block": f"{heads}x{tiles}" if kind == "mma" else "32 rows",
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D}",
-            "max_abs_err": err, "tol": tol,
-            "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "tflops": flops / ms / 1e9, "vs_library": ms / lib_ms,
             "plain_ms": timed_ms(
                 lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
-            "library_ms": timed_ms(library),
-            "bound_ms": b_ms, "bound_by": b_by})
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 
 def wkv_cases():
-    """(label, B, S, dtype, decay): the served prefill shape (the model
-    hands the kernel f32), ragged lengths, bf16 inputs, strong decay."""
-    yield "model shape", 4, 128, torch.float32, None
-    yield "ragged", 4, 100, torch.float32, None
-    yield "ragged, 3 chunks", 4, 300, torch.float32, None
-    yield "bf16 inputs", 4, 128, torch.bfloat16, None
-    yield "logw = -2", 4, 128, torch.float32, -2.0
-    yield "logw = -20", 4, 128, torch.float32, -20.0
+    """(label, B, S, dtype of r/k/v, dtype of logw, decay): the served
+    prefill in the model's own dtypes, ragged lengths, all-f32 inputs,
+    strong decay."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    yield "model shape", 4, 128, bf16, f32, None
+    yield "ragged", 4, 100, bf16, f32, None
+    yield "ragged, 19 chunks", 4, 300, bf16, f32, None
+    yield "f32", 4, 128, f32, f32, None
+    yield "logw = -2", 4, 128, f32, f32, -2.0
+    yield "logw = -20", 4, 128, f32, f32, -20.0
 
 
-def wkv_bytes(B, S, H, K, es):
-    """r/k/v/logw read and y written once in the input dtype, u read and
-    the state written once in f32."""
-    return es * 5 * B * S * H * K + 4 * (H * K + B * H * K * K)
+def wkv_bytes(B, S, H, K, es, es_w):
+    """r/k/v read and y written once in their dtype (es bytes), logw read
+    once in its own (es_w), u read and the state written once in f32."""
+    n = B * S * H * K
+    return es * 4 * n + es_w * n + 4 * (H * K + B * H * K * K)
 
 
-def wkv_bound(B, S, H, K, es):
+def wkv_bound(B, S, H, K, es, es_w):
     """Bound of the work the function needs: per step and head about
     5·K² f32 flops (k·vᵀ, r·S and the decayed state update; the kernel's
     chunked form at its 16 rows does 4·Q²·K + 4·Q·K² per chunk, the
     same count at K = 64)."""
-    return bound(wkv_bytes(B, S, H, K, es),
+    return bound(wkv_bytes(B, S, H, K, es, es_w),
                  {torch.float32: 5.0 * B * H * S * K * K})
 
 
-def wkv_tpu_work_ms(B, S, H, K, es):
+def wkv_tpu_work_ms(B, S, H, K, es, es_w):
     """A yardstick, not the bound: the TPU kernel's own work at its chunk
     of c = min(128, S), 4·c²·K + 4·c·K² flops per chunk and head, against
     the same bytes (ms)."""
     c = min(wkv_ops.CHUNK, S)
     flops = B * H * -(-S // c) * (4.0 * c * c * K + 4.0 * c * K * K)
-    return bound(wkv_bytes(B, S, H, K, es), {torch.float32: flops})[0]
+    return bound(wkv_bytes(B, S, H, K, es, es_w),
+                 {torch.float32: flops})[0]
 
 
 def rel_err(got, want) -> float:
     return maxabs(got, want) / (float(want.float().abs().max()) + 1e-6)
 
 
+def wkv_operands(B, S, H, K, dtype, wdtype, decay, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn((B, S, H, K), generator=g, device="cuda"
+                           ).to(dtype) for _ in range(3))
+    if decay is None:     # the init decays' range, -e^(-6) .. -e^(-1)
+        logw = -torch.exp(torch.rand((B, S, H, K), generator=g,
+                                     device="cuda") * 5.0 - 6.0)
+    else:
+        logw = torch.full((B, S, H, K), decay, device="cuda")
+    u = 0.1 * torch.randn((H, K), generator=g, device="cuda")
+    return r, k, v, logw.to(wdtype), u
+
+
 def check_wkv(cfg):
     rows = []
     H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
-    for label, B, S, dtype, decay in wkv_cases():
-        g = torch.Generator(device="cuda").manual_seed(S + int(K))
-        r, k, v = (torch.randn((B, S, H, K), generator=g, device="cuda"
-                               ).to(dtype) for _ in range(3))
-        if decay is None:     # the init decays' range, -e^(-6) .. -e^(-1)
-            logw = -torch.exp(torch.rand((B, S, H, K), generator=g,
-                                         device="cuda") * 5.0 - 6.0)
-        else:
-            logw = torch.full((B, S, H, K), decay, device="cuda")
-        logw = logw.to(dtype)
-        u = 0.1 * torch.randn((H, K), generator=g, device="cuda")
-        args = (r, k, v, logw, u)
+    for label, B, S, dtype, wdtype, decay in wkv_cases():
+        args = wkv_operands(B, S, H, K, dtype, wdtype, decay, S + int(K))
         y, s = wkv_ops.wkv6(*args)
         torch.cuda.synchronize()
 
@@ -457,18 +534,42 @@ def check_wkv(cfg):
         if not (rel < tol and s_rel < TOL[("wkv6", torch.float32)]
                 and torch.isfinite(y).all() and torch.isfinite(s).all()):
             fail(f"wkv6 {label}: y rel {rel}, state rel {s_rel} (tol {tol})")
-        b_ms, b_by = wkv_bound(B, S, H, K, r.element_size())
+        es, es_w = args[0].element_size(), args[3].element_size()
+        b_ms, b_by = wkv_bound(B, S, H, K, es, es_w)
+        vs, vt, grid = wkv_ops.plan(B, H, K, sms())
         rows.append({
             "name": "wkv6", "model": cfg.name, "case": label,
             "dtype": str(dtype).replace("torch.", ""),
+            "logw_dtype": str(wdtype).replace("torch.", ""),
             "shape": f"B={B} S={S} H={H} K={K}", "yardstick": yardstick,
+            "plan": f"VS={vs} VT={vt} grid {grid}",
             "max_abs_err": err, "rel_err": rel, "state_rel_err": s_rel,
             "tol": tol, "ms": timed_ms(lambda: wkv_ops.wkv6(*args)),
             "plain_ms": timed_ms(plain), "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
-            "tpu_chunk128_work_ms": wkv_tpu_work_ms(B, S, H, K,
-                                                    r.element_size())})
+            "tpu_chunk128_work_ms": wkv_tpu_work_ms(B, S, H, K, es, es_w)})
     return rows
+
+
+def wkv_chunk_steps(cfg):
+    """Time per 16-row chunk step, the slope from S 64 to S 1024, at B 1
+    (an SM holds at most one block: close to the latency of one step) and
+    at the served B 4 (what the SMs get through). Equal slopes would say
+    latency; a B 4 slope that grows with the blocks per SM says issue
+    and shared-memory throughput."""
+    H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    out = {}
+    for B in (1, 4):
+        ms = []
+        for S in (64, 1024):
+            args = wkv_operands(B, S, H, K, torch.bfloat16, torch.float32,
+                                None, S)
+            ms.append(timed_ms(lambda: wkv_ops.wkv6(*args)))
+        vs, vt, grid = wkv_ops.plan(B, H, K, sms())
+        out[f"B={B}"] = {"grid": list(grid), "ms_S64": ms[0],
+                         "ms_S1024": ms[1],
+                         "us_per_chunk_step": (ms[1] - ms[0]) / 60 * 1e3}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -563,17 +664,23 @@ def served(cfg, lora):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_counts = counts()
     prefill_variants = variant_counts()
+    prefill_flash = flash_variant_counts()
     if not torch.isfinite(logits).all():
         fail(f"{cfg.name} prefill logits not finite")
     in_prefill, in_step = per_layer(cfg)
     want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
     if prefill_counts != want:
         fail(f"{cfg.name} prefill launches {prefill_counts}, want {want}")
-    # every bf16 lora_matmul of the served prefill on the tensor cores
+    # every bf16 lora_matmul and flash launch of the served prefill on
+    # the tensor cores
+    want_fa = {"mma": want["flash_attention"], "simt": 0}
     want = {"wgmma": want["lora_matmul"], "splitk": 0, "simt": 0}
     if prefill_variants != want:
         fail(f"{cfg.name} prefill lora_matmul variants {prefill_variants}, "
              f"want {want}")
+    if prefill_flash != want_fa:
+        fail(f"{cfg.name} prefill flash_attention variants {prefill_flash}, "
+             f"want {want_fa}")
 
     eng = engine_with_tenants(params, cfg, lora, torch.bfloat16, "cuda",
                               seed0=20)
@@ -595,6 +702,7 @@ def served(cfg, lora):
     steps = 2 * (16 + 32 - 1) + 1
     decode_counts = counts()
     decode_variants = variant_counts()
+    decode_flash = flash_variant_counts()
     if not torch.isfinite(last).all():
         fail(f"{cfg.name} decode logits not finite")
     want = {k: n * cfg.num_layers * steps for k, n in in_step.items()}
@@ -618,7 +726,8 @@ def served(cfg, lora):
         "config": f"{cfg.name}, {cfg.num_layers} layers, full width, bf16",
         "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
                     "launches": prefill_counts,
-                    "lora_matmul_variants": prefill_variants},
+                    "lora_matmul_variants": prefill_variants,
+                    "flash_attention_variants": prefill_flash},
         "decode": {"lanes": len(RANKS), "ranks": list(RANKS), "slot": SLOT,
                    "steps": steps, "seconds": decode_s,
                    "lane_tokens_per_s": len(RANKS) * steps / decode_s,
@@ -631,6 +740,8 @@ def served(cfg, lora):
                      for k in prefill_counts},
         "lora_matmul_variants": {k: prefill_variants[k] + decode_variants[k]
                                  for k in prefill_variants},
+        "flash_attention_variants": {k: prefill_flash[k] + decode_flash[k]
+                                     for k in prefill_flash},
         "profile": traces,
     }
 
@@ -650,9 +761,17 @@ def device_profile(fn, top=8):
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    ours = {}   # the port's kernels, by name, wherever they rank
+    for k, ms, n in rows:
+        name = next((n_ for n_ in (*VARIANT_OF, "wkv6_kernel")
+                     if f"::{n_}<" in k), None)
+        if name:
+            t = ours.setdefault(name, {"ms": 0.0, "count": 0})
+            t["ms"] += ms
+            t["count"] += n
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
-            "kernels": len(rows),
+            "kernels": len(rows), "port_kernels": ours,
             "top": [{"kernel": k[:100], "ms": ms, "count": n}
                     for k, ms, n in rows[:top]]}
 
@@ -673,11 +792,14 @@ def main() -> int:
           f"wall ({', '.join(f'{k} {v:.2f}s' for k, v in secs.items())})")
     for name, log in _build.build_logs.items():
         for kernel, info in ptxas_summary(log):
-            kind = LORA_VARIANT_OF.get(kernel.split("<")[0])
+            kind = VARIANT_OF.get(kernel.split("<")[0])
             print(f"[1] ptxas {name} {kernel}"
                   f"{f' ({kind} variant)' if kind else ''}: {info}")
 
     qwen, rwkv = qwen2_0_5b.qwen2_0_5b(), rwkv6_7b.rwkv6_7b()
+    smem = shared_memory(qwen, rwkv)
+    print("[1] dynamic shared memory per block: " + "; ".join(
+        f"{k} {v} B" for k, v in smem.items()), flush=True)
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
     rows = []
     for cfg in (qwen, rwkv):
@@ -686,6 +808,7 @@ def main() -> int:
             if cfg.rwkv is None:
                 rows += check_flash(cfg, dtype)
     rows += check_wkv(rwkv)
+    steps = wkv_chunk_steps(rwkv)
     for r in rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
@@ -693,7 +816,12 @@ def main() -> int:
         if "tpu_chunk128_work_ms" in r:
             rel += (f", TPU chunk-128 work "
                     f"{r['tpu_chunk128_work_ms']:.4f} ms")
-        if "variant" in r:
+        if r["name"] == "flash_attention":
+            rel += (f", {r['variant']} block {r['block']}: "
+                    f"{r['tflops']:.1f} TFLOP/s, {r['vs_library']:.2f}x SDPA")
+        if r["name"] == "wkv6":
+            rel += f", logw {r['logw_dtype']}, {r['plan']}"
+        if r["name"] == "lora_matmul":
             rel += (f", {r['variant']}: kernel alone {r['kernel_ms']:.4f} ms"
                     f" ({r['kernel_tflops']:.1f} TFLOP/s, "
                     f"{r['kernel_gbs']:.0f} GB/s)")
@@ -706,6 +834,11 @@ def main() -> int:
               f": err {r['max_abs_err']:.3g}{rel} (tol {r['tol']}), ms "
               f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library {lib}, "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+
+    for b, st in steps.items():
+        print(f"[2] wkv6 chunk step at {b} (grid {st['grid']}): "
+              f"{st['us_per_chunk_step']:.3f} us (S 64 {st['ms_S64']:.4f} "
+              f"ms, S 1024 {st['ms_S1024']:.4f} ms)", flush=True)
 
     pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100)]
     for par in pars:
@@ -725,19 +858,23 @@ def main() -> int:
               f"{d['lanes']} lanes {d['lane_tokens_per_s']:.1f} tok/s "
               f"({d['ms_per_step']:.2f} ms/step), launches per step "
               f"{d['launches_per_step']}, lora_matmul by variant "
-              f"{d['lora_matmul_variants']}", flush=True)
+              f"{d['lora_matmul_variants']}; flash by variant in the "
+              f"prefill {p['flash_attention_variants']}", flush=True)
         for name, tr in run["profile"].items():
             print(f"[4] {run['model']} profile {name}: wall "
                   f"{tr['wall_ms']:.2f} ms, device {tr['device_ms']:.2f} ms "
-                  f"(busy {tr['busy_share']:.3f}), top: "
+                  f"(busy {tr['busy_share']:.3f}), port kernels: "
+                  + "; ".join(f"{k} {t['ms']:.3f} ms x{t['count']}"
+                              for k, t in tr["port_kernels"].items())
+                  + "; top: "
                   + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms "
                               f"x{t['count']}" for t in tr["top"][:4]),
                   flush=True)
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
-    # in bf16; wkv6: rwkv6-7b's prefill shape, f32 as the model calls
-    # it), with every shape measured under "cases"
+    # in bf16; wkv6: rwkv6-7b's prefill shape in the model's own dtypes),
+    # with every shape measured under "cases"
     entries = []
     for name, pick in (("lora_matmul", lambda r: r["dtype"] == "bfloat16"
                         and r.get("linear") == "up/gate"
@@ -754,6 +891,13 @@ def main() -> int:
                 k: sum(run["lora_matmul_variants"][k] for run in runs)
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
+        if name == "flash_attention":
+            extra["launches_by_variant"] = {
+                k: sum(run["flash_attention_variants"][k] for run in runs)
+                for k in fa_ops.launches_by_variant}
+            extra["block"] = head["block"]
+        if name == "wkv6":
+            extra["plan"] = head["plan"]
         entries.append({
             "name": name, "route": "cuda",
             "source": str(_build.source_of(name).relative_to(HERE)),
@@ -769,7 +913,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump({"card": card, "torch": torch.__version__,
-                   "build_seconds": secs, "kernels": entries,
+                   "build_seconds": secs, "shared_memory_bytes": smem,
+                   "wkv6_chunk_steps": steps, "kernels": entries,
                    "parity": pars, "served": runs}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

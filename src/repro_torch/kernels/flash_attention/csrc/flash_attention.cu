@@ -14,36 +14,59 @@
 // the models' (B, S, H, D) layout, read in place (no transposes, no
 // padding: ragged Sq/Sk edges are masked here, so the reference wrapper's
 // separate q/kv padding, which shifts rows when block_q ≠ block_k, has no
-// counterpart). Output is in the input dtype; all arithmetic is f32.
+// counterpart). Output is in the input dtype. Under the causal mask or a
+// window both kernels visit only kv tiles that hold a visible key;
+// skipping a fully masked tile is exact (it leaves m, l and acc unchanged).
 //
-// What bounds it on an H100: at the prefill shape (B=4, H=14, Hkv=2,
-// S=128, D=64, bf16) it moves about 2 MB and does about 0.1 GFLOP under the
-// causal mask, under 1 us either way; launch cost dominates. This first
-// version is the simple, right one: f32 FMA through shared memory, no
-// tensor cores. Long sequences would want mma/wgmma and a pipelined kv
-// loop — a later redesign.
+// Two kernels behind one launch function; the wrapper (ops.py::variant)
+// picks one from dtype, head dim and alignment:
 //
-// Tiling: grid (ceil(Sq/32), H, B); one block of 4 warps owns 32 query
-// rows, 8 per warp. The TPU's sequential kv grid axis becomes a loop over
-// 32-key blocks inside the block; m, l and the output accumulator stay in
-// registers (lane j of a warp holds columns j, j+32, ... of its rows).
-// Per kv block: K and V tiles are staged in shared memory (K rows padded by
-// one float so the score loop is free of bank conflicts), each lane scores
-// one key, warp shuffles give the row max and sum, and p goes through a
-// per-warp shared row into the P·V product. Under the causal mask or a
-// window the loop visits only kv blocks that hold a visible key; skipping a
-// fully masked block is exact (it leaves m, l and acc unchanged).
+// fa_mma_kernel — bf16, the tensor-core route (FlashAttention-2's design
+// on mma.sync.m16n8k16, bf16 in, f32 accumulate). Each warp owns 16 query
+// rows of one head. Q is staged once through shared memory and held in
+// registers as A fragments (ldmatrix). K and V tiles of 64 keys arrive by
+// cp.async into a double-buffered ring (tile t + 1 loads while tile t
+// computes); rows are padded by 16 bytes, so ldmatrix reads them free of
+// bank conflicts. S = Q·Kᵀ stays in f32 accumulator fragments; the online
+// softmax works on them (row max and row sum by quad shuffles, m and l in
+// registers, exp2 on pre-scaled scores). P is rounded to bf16 in registers
+// and fed straight into P·V as the A operand, with V's B fragments from
+// ldmatrix.trans; P never goes through shared memory. Rounding p to bf16
+// before P·V is a rounding the SIMT kernel does not make (FlashAttention
+// and SDPA make it too): l sums the unrounded p, and the result stays
+// within the bf16 tolerance (max abs < 2e-2 at |o| < 4).
+//   Grid: (ceil(Sq / (16·tiles)), H / heads, B) with heads·tiles warps per
+// block: a block takes `tiles` consecutive 16-row q tiles of `heads` query
+// heads that share one kv head, so the block's warps share each K and V
+// tile. The wrapper's plan (ops.py::plan) takes one head and 64-row
+// blocks: at qwen2-0.5b's prefill (B 4, S 128, H 14, Hkv 2, D 64) that is
+// 112 blocks of 4 warps on 132 SMs. Timed on an NVIDIA H100 80GB HBM3 at
+// 700 W (tools/flash_wkv6_sweep.py), it beat 16- and 32-row blocks (448
+// and 224 blocks: more blocks, each loading its K and V again) and a
+// whole GQA group of 7 heads per block (K and V loaded once per group)
+// at every length from S 100 to 2048. What bounds it at the served shape
+// (H100 SXM data sheet, 700 W): 2 MB of bytes (0.6 us at 3.35 TB/s) and
+// 0.12 GFLOP (0.1 us at 989 TFLOP/s); launch and the latency of the first
+// loads dominate.
+//
+// fa_kernel — SIMT f32 FMA (the first port's kernel), for f32 (tensor
+// cores take f32 only as TF32, which breaks the f32 tolerance of 2e-5)
+// and for operands the mma kernel cannot take (misaligned views). Grid
+// (ceil(Sq/32), H, B); one block of 4 warps owns 32 query rows, 8 per
+// warp; m, l and the output accumulator stay in registers (lane j holds
+// columns j, j+32, ...). Per 32-key block: K and V tiles are staged in
+// shared memory as f32 (K rows padded by one float), each lane scores one
+// key, warp shuffles give the row max and sum, and p goes through a
+// per-warp shared row into the P·V product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 32;       // query rows per block
-constexpr int BK = 32;       // keys per kv step (one per lane)
-constexpr int NWARPS = 4;
-constexpr int RPW = BQ / NWARPS;   // query rows per warp
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -68,6 +91,289 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// fa_mma_kernel: bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BK = 64;          // keys per kv tile
+constexpr int MMA_MAX_WARPS = 8;    // heads x tiles per block
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-fills them when !pred (src-size 0, the
+// source is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) · b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+constexpr size_t mma_smem_bytes(int warps) {
+  // Q rows of every warp, then the K and V rings; rows padded by 8 bf16
+  return sizeof(__nv_bfloat16) * (size_t)(warps * 16 + 4 * MMA_BK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+              int Sq, int Sk, int H, int Hkv, float scale_log2, int causal,
+              int window, int heads, int tiles) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;          // shared row stride (elements)
+  constexpr int CH = D / 8;          // 16-byte chunks per row
+  constexpr int KSTEPS = D / 16;     // k-steps of Q·Kᵀ
+  constexpr int NS = MMA_BK / 8;     // n-tiles of S
+  constexpr int NO = D / 8;          // n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int warps = heads * tiles;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // warps*16 x LD
+  bf16* ks = qs + warps * 16 * LD;                // 2 x BK x LD
+  bf16* vs = ks + 2 * MMA_BK * LD;                // 2 x BK x LD
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;   // mma fragment row / column pair
+  const int nthr = blockDim.x;
+  const int rows = tiles * 16;
+  const int q0 = blockIdx.x * rows;
+  const int h0 = blockIdx.y * heads;
+  const int hk = h0 / (H / Hkv);
+  const int bi = blockIdx.z;
+  const int h = h0 + warp / tiles;              // this warp's head
+  const int qw0 = q0 + (warp % tiles) * 16;     // and its first q row
+
+  // Q rows of every warp (zero past Sq)
+  for (int c = threadIdx.x; c < warps * 16 * CH; c += nthr) {
+    const int wr = c / CH, ch = c % CH;
+    const int ww = wr / 16;
+    const int qi = q0 + (ww % tiles) * 16 + wr % 16;
+    const bool in = qi < Sq;
+    const bf16* src = q + ((size_t)(bi * Sq + (in ? qi : 0)) * H + h0 + ww / tiles) * D + ch * 8;
+    cp_async16(qs + wr * LD + ch * 8, src, in);
+  }
+
+  // the kv tiles holding a key visible to some row of the block
+  const int off = Sk - Sq;
+  const int q_first = q0 + off;
+  const int q_last = min(q0 + rows, Sq) - 1 + off;
+  const int kv_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int kv_lo = window > 0 ? max(0, q_first - window + 1) : 0;
+  const int t_lo = kv_lo / MMA_BK;
+  const int t_hi = kv_hi > kv_lo ? (kv_hi + MMA_BK - 1) / MMA_BK : t_lo;
+
+  auto load_kv = [&](int t, int buf) {
+    const int k0 = t * MMA_BK;
+    for (int c = threadIdx.x; c < MMA_BK * CH; c += nthr) {
+      const int kr = c / CH, ch = c % CH;
+      const int kj = k0 + kr;
+      const bool in = kj < Sk;
+      const size_t src = ((size_t)(bi * Sk + (in ? kj : 0)) * Hkv + hk) * D + ch * 8;
+      cp_async16(ks + (buf * MMA_BK + kr) * LD + ch * 8, k + src, in);
+      cp_async16(vs + (buf * MMA_BK + kr) * LD + ch * 8, v + src, in);
+    }
+  };
+  if (t_lo < t_hi) load_kv(t_lo, 0);
+  cp_async_commit();
+
+  // this warp's rows: fragment rows g and g + 8 sit at q positions qa, qa + 8
+  const int qa = qw0 + g + off;
+  const int w_last = min(qw0 + 16, Sq) - 1 + off;   // < qw0 + off: no rows
+  const bool w_rows = qw0 < Sq;
+
+  uint32_t qf[KSTEPS][4];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int buf = (t - t_lo) & 1;
+    if (t + 1 < t_hi) load_kv(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // Q and tile t have landed
+    __syncthreads();
+    if (t == t_lo) {
+      const bf16* base = qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + 8 * (lane / 16);
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], base + kk * 16);
+    }
+    const int k0 = t * MMA_BK;
+    const bool skip = !w_rows || (causal && k0 > w_last) ||
+                      (window > 0 && k0 + MMA_BK - 1 <= qw0 + off - window);
+    if (!skip) {
+      const bf16* kt = ks + buf * MMA_BK * LD;
+      const bf16* vt = vs + buf * MMA_BK * LD;
+      // S = Q·Kᵀ: per pair of n-tiles, one ldmatrix.x4 gives both B fragments
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + (n * 8 + (lane % 8) + 8 * (lane / 16)) * LD + kk * 16 +
+                             8 * ((lane / 8) % 2));
+          mma_bf16(s[n], qf[kk], b[0], b[1]);
+          mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
+        }
+      }
+      // scale into log2 units; mask only tiles that straddle an edge
+      const bool full = k0 + MMA_BK <= Sk && (!causal || k0 + MMA_BK - 1 <= qw0 + off) &&
+                        (window <= 0 || k0 > w_last - window);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (!full) {
+            const int kpos = k0 + n * 8 + 2 * tq + (e & 1);
+            const int qpos = qa + 8 * (e >> 1);
+            const bool keep = kpos < Sk && (!causal || kpos <= qpos) &&
+                              (window <= 0 || kpos > qpos - window);
+            x = keep ? x : -INFINITY;
+          }
+          s[n][e] = x;
+        }
+      }
+      // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rh], s[n][2 * rh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[rh], mx);
+        // a row with no visible key yet keeps m = -inf: subtract 0 there,
+        // so its p = exp2(-inf) = 0 exactly
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = exp2f(m[rh] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float p0 = exp2f(s[n][2 * rh] - m_use);
+          const float p1 = exp2f(s[n][2 * rh + 1] - m_use);
+          s[n][2 * rh] = p0;
+          s[n][2 * rh + 1] = p1;
+          sum += p0 + p1;
+        }
+        l[rh] = l[rh] * corr + sum;   // this thread's columns; quad-summed at the end
+        m[rh] = m_new;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[n][2 * rh] *= corr;
+          acc[n][2 * rh + 1] *= corr;
+        }
+      }
+      // O += P·V: P's accumulator fragments are the A fragments of P·V
+#pragma unroll
+      for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vt + (kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD +
+                                   n * 8 + 8 * (lane / 16));
+          mma_bf16(acc[n], a, b[0], b[1]);
+          mma_bf16(acc[n + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();   // no copy outlives the block (none is pending
+                        // unless the block had no tile to visit)
+
+  if (!w_rows) return;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float den = l[rh];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    const int qi = qw0 + g + 8 * rh;
+    if (qi >= Sq) continue;
+    bf16* dst = o + ((size_t)(bi * Sq + qi) * H + h) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack_bf16(acc[n][2 * rh] * inv, acc[n][2 * rh + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Sk, int H, int Hkv, float sm_scale, int causal,
+               int window, int heads, int tiles, cudaStream_t stream) {
+  const int warps = heads * tiles;
+  if (heads < 1 || tiles < 1 || warps > MMA_MAX_WARPS || (H / Hkv) % heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mma_smem_bytes<D>(warps);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fa_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int rows = tiles * 16;
+  dim3 grid((Sq + rows - 1) / rows, H / heads, B);
+  fa_mma_kernel<D><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk,
+      H, Hkv, sm_scale * 1.4426950408889634f, causal, window, heads, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fa_kernel: SIMT f32 FMA
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 32;       // query rows per block
+constexpr int BK = 32;       // keys per kv step (one per lane)
+constexpr int NWARPS = 4;
+constexpr int RPW = BQ / NWARPS;   // query rows per warp
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -207,24 +513,56 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+int dispatch_mma(int D, const void* q, const void* k, const void* v, void* o,
+                 int B, int Sq, int Sk, int H, int Hkv, float sm_scale,
+                 int causal, int window, int heads, int tiles, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
+    case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
+    case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/o are (B, Sq, H, D) and k/v are
-// (B, Sk, Hkv, D), contiguous on the device. window <= 0 means none.
+// variant: 0 = SIMT (fa_kernel), 1 = tensor cores (fa_mma_kernel, bf16
+// only, every pointer 16-byte aligned). dtype: 0 = float32, 1 = bfloat16.
+// q/o are (B, Sq, H, D) and k/v are (B, Sk, Hkv, D), contiguous on the
+// device. window <= 0 means none. heads/tiles: the mma kernel's block (query
+// heads of one kv group x 16-row q tiles; ignored by the SIMT kernel).
 // Returns cudaGetLastError() after the launch (0 = ok).
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int Hkv, int D,
-                                      float sm_scale, int causal, int window,
+extern "C" int flash_attention_launch(int variant, int dtype, const void* q,
+                                      const void* k, const void* v, void* o,
+                                      int B, int Sq, int Sk, int H, int Hkv,
+                                      int D, float sm_scale, int causal,
+                                      int window, int heads, int tiles,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_mma(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one block, in bytes: variant 1 with `warps`
+// warps (heads x tiles), or variant 0 (warps ignored); 0 for a head dim
+// the kernels do not take.
+extern "C" int flash_attention_smem_bytes(int variant, int D, int warps) {
+  switch (D) {
+    case 32: return (int)(variant ? mma_smem_bytes<32>(warps) : smem_bytes<32>());
+    case 64: return (int)(variant ? mma_smem_bytes<64>(warps) : smem_bytes<64>());
+    case 128: return (int)(variant ? mma_smem_bytes<128>(warps) : smem_bytes<128>());
+    default: return 0;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -117,16 +117,18 @@ def apply_rwkv6_timemix(p, adapters, x, cfg: ModelConfig, lora_scale,
         (p["w0"] + torch.tanh(xw @ p["decay_a"]) @ p["decay_b"]
          ).float())                                    # (b,S,d), ≤ 0
 
-    hs = lambda t: t.reshape(b, S, H, K).float().contiguous()
-    rh, kh, vh, wh = hs(r), hs(k), hs(v), hs(logw)
+    # r, k, v in the activations' dtype and logw in f32, not copied: the
+    # kernel widens them to f32 itself and rounds y to r's dtype once
+    rh, kh, vh, wh = (t.reshape(b, S, H, K).contiguous()
+                      for t in (r, k, v, logw))
     u = p["u_bonus"].float().reshape(H, K)
 
     if state is None:
         y, _ = wkv6(rh, kh, vh, wh, u)         # chunks of min(128, S)
         new_state = None
     else:
-        y, wkv = _wkv_step(rh[:, 0], kh[:, 0], vh[:, 0], wh[:, 0], u,
-                           state["wkv"])
+        y, wkv = _wkv_step(rh[:, 0].float(), kh[:, 0].float(),
+                           vh[:, 0].float(), wh[:, 0], u, state["wkv"])
         y = y[:, None]
         new_state = {"wkv": wkv, "last": x[:, -1, :]}
 

@@ -192,6 +192,23 @@ def test_lora_matmul_decode_is_deterministic(cuda_device, K, N):
     assert torch.equal(y1, y2)
 
 
+def _fa_operands(seed, B, S, H, Hkv, D, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, S, h, D), generator=g).to(device, dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def _count_flash(kind, fn):
+    before = dict(fa_ops.launches_by_variant)
+    n0 = fa_ops.launches
+    out = fn()
+    torch.cuda.synchronize()
+    grew = {k: fa_ops.launches_by_variant[k] - before[k] for k in before}
+    assert grew == {k: int(k == kind) for k in before}, grew
+    assert fa_ops.launches == n0 + 1
+    return out
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
@@ -199,19 +216,87 @@ def test_lora_matmul_decode_is_deterministic(cuda_device, K, N):
                                         (100, 64, 16), (128, 64, None),
                                         (40, 32, None), (70, 128, 8)])
 def test_flash_kernel_matches_plain(cuda_device, S, D, window, dtype, tol):
-    g = torch.Generator().manual_seed(S + D)
-    q = torch.randn((2, S, 4, D), generator=g).to(cuda_device, dtype)
-    k = torch.randn((2, S, 2, D), generator=g).to(cuda_device, dtype)
-    v = torch.randn((2, S, 2, D), generator=g).to(cuda_device, dtype)
-    before = fa_ops.launches
-    got = fa_ops.flash_attention(q, k, v, sliding_window=window)
-    torch.cuda.synchronize()
-    assert fa_ops.launches == before + 1
+    """bf16 takes the tensor-core kernel, f32 the SIMT one."""
+    q, k, v = _fa_operands(S + D, 2, S, 4, 2, D, dtype, cuda_device)
+    kind = "mma" if dtype == torch.bfloat16 else "simt"
+    got = _count_flash(kind, lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
     want = fa_ops._plain(q, k, v, True, window, D ** -0.5)
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) < tol
 
 
-def _wkv_operands(seed, B, S, H, K, dtype, device, decay=None):
+@pytest.mark.parametrize("S,D,window", [(24, 32, None), (40, 32, 8),
+                                        (70, 128, None), (100, 128, 16),
+                                        (128, 32, 16), (24, 128, 8)])
+def test_flash_mma_other_head_dims_and_windows(cuda_device, S, D, window):
+    """The tensor-core kernel at every head dim it takes, with and without
+    a window, against the plain version (bf16 tolerance)."""
+    q, k, v = _fa_operands(S * 3 + D, 2, S, 4, 2, D, torch.bfloat16,
+                           cuda_device)
+    got = _count_flash("mma", lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
+    want = fa_ops._plain(q, k, v, True, window, D ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (14, 2)],
+                         ids=["group1", "group2", "group7"])
+@pytest.mark.parametrize("B,S", [(2, 100), (4, 128), (1, 2048)])
+def test_flash_mma_gqa_groups_and_long_prompt(cuda_device, H, Hkv, B, S):
+    """GQA groups of 1, 2 and 7 query heads per kv head, at ragged,
+    served and long-prompt lengths (S 2048 takes 64-row blocks)."""
+    q, k, v = _fa_operands(H * S + Hkv, B, S, H, Hkv, 64, torch.bfloat16,
+                           cuda_device)
+    got = _count_flash("mma", lambda: fa_ops.flash_attention(q, k, v))
+    want = fa_ops._plain(q, k, v, True, None, 64 ** -0.5)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("block", [(1, 1), (1, 2), (1, 4), (1, 8), (7, 1)])
+@pytest.mark.parametrize("window", [None, 16])
+def test_flash_mma_every_block_shape(cuda_device, block, window):
+    """Each block the plan can take, and a whole GQA group per block,
+    give the plain version's result (ragged S 100, 14/2 heads)."""
+    q, k, v = _fa_operands(77, 2, 100, 14, 2, 64, torch.bfloat16,
+                           cuda_device)
+    got = _count_flash("mma", lambda: fa_ops._launch(
+        q, k, v, True, window, 0.125, block=block))
+    want = fa_ops._plain(q, k, v, True, window, 0.125)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_flash_mma_fully_masked_rows_are_zero(cuda_device):
+    """Sq > Sk leaves the first Sq - Sk rows with no visible key: the
+    kernel gives exactly 0 there (p = 0, denominator max(l, 1e-30)), and
+    the plain version's other rows elsewhere."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 40, 4, 64), generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    k, v = (torch.randn((1, 24, 2, 64), generator=g).to(
+        cuda_device, torch.bfloat16) for _ in range(2))
+    got = _count_flash("mma", lambda: fa_ops.flash_attention(q, k, v))
+    assert torch.equal(got[:, :16], torch.zeros_like(got[:, :16]))
+    want = fa_ops._plain(q, k, v, True, None, 0.125)
+    assert float((got[:, 16:].float() - want[:, 16:].float()).abs().max()
+                 ) < 2e-2
+
+
+def test_flash_misaligned_bf16_takes_simt(cuda_device):
+    """A bf16 view off a 16-byte boundary cannot feed cp.async: the SIMT
+    kernel takes it, with the same result."""
+    q, k, v = _fa_operands(5, 1, 64, 4, 2, 64, torch.bfloat16, cuda_device)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    qm = buf[1:].view(q.shape)
+    qm.copy_(q)
+    got = _count_flash("simt", lambda: fa_ops.flash_attention(qm, k, v))
+    want = fa_ops._plain(q, k, v, True, None, 0.125)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def _wkv_operands(seed, B, S, H, K, dtype, device, decay=None,
+                  wdtype=None):
+    """r, k, v in ``dtype``, logw in ``wdtype`` (default: ``dtype``)."""
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn((B, S, H, K), generator=g) for _ in range(3))
     if decay is None:
@@ -219,8 +304,15 @@ def _wkv_operands(seed, B, S, H, K, dtype, device, decay=None):
     else:
         logw = torch.full((B, S, H, K), float(decay))
     u = 0.3 * torch.randn((H, K), generator=g)
-    return ([t.to(device, dtype) for t in (r, k, v, logw)]
-            + [u.to(device)])
+    return ([t.to(device, dtype) for t in (r, k, v)]
+            + [logw.to(device, wdtype or dtype), u.to(device)])
+
+
+# (r/k/v dtype, logw dtype, y tolerance): the model's own pair is bf16
+# activations with f32 log-decays
+WKV_DTYPES = [(torch.float32, torch.float32, 1e-5),
+              (torch.bfloat16, torch.bfloat16, 1e-2),
+              (torch.bfloat16, torch.float32, 1e-2)]
 
 
 def _rel(got, want):
@@ -228,16 +320,18 @@ def _rel(got, want):
                  / (want.float().abs().max() + 1e-6))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype,wdtype,tol", WKV_DTYPES,
+                         ids=["f32", "bf16", "bf16-f32logw"])
 @pytest.mark.parametrize("B,S,H,K", [(4, 128, 64, 64), (2, 100, 4, 64),
                                      (1, 300, 2, 64), (2, 50, 2, 16),
                                      (1, 96, 4, 32), (3, 17, 2, 64)])
-def test_wkv6_kernel_matches_plain(cuda_device, B, S, H, K, dtype, tol):
+def test_wkv6_kernel_matches_plain(cuda_device, B, S, H, K, dtype, wdtype,
+                                   tol):
     """Against the plain chunked version (chunk min(128, S), padded) and
-    the per-step oracle, both on the kernel's (rounded) inputs."""
-    args = _wkv_operands(B * S + K, B, S, H, K, dtype, cuda_device)
+    the per-step oracle, both on the kernel's (rounded) inputs; the state
+    is f32 in every dtype pair."""
+    args = _wkv_operands(B * S + K, B, S, H, K, dtype, cuda_device,
+                         wdtype=wdtype)
     before = wkv_ops.launches
     y, s = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
@@ -249,19 +343,48 @@ def test_wkv6_kernel_matches_plain(cuda_device, B, S, H, K, dtype, tol):
     assert _rel(y, yr) < tol and _rel(s, sr) < 1e-5
 
 
+@pytest.mark.parametrize("dtype,wdtype,tol", WKV_DTYPES[::2],
+                         ids=["f32", "bf16-f32logw"])
 @pytest.mark.parametrize("decay", [-0.8, -2.0, -5.0, -20.0])
-def test_wkv6_kernel_stays_finite_at_strong_decay(cuda_device, decay):
+def test_wkv6_kernel_stays_finite_at_strong_decay(cuda_device, decay, dtype,
+                                                  wdtype, tol):
     """Per-step log-decays where the chunk-128 form overflows: the
     kernel's 16-row chunks stay finite and match the per-step oracle."""
-    args = _wkv_operands(5, 2, 128, 4, 64, torch.float32, cuda_device,
-                         decay=decay)
+    args = _wkv_operands(5, 2, 128, 4, 64, dtype, cuda_device, decay=decay,
+                         wdtype=wdtype)
     y, s = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     yr, sr = wkv6_ref(*args)
-    assert _rel(y, yr) < 1e-5 and _rel(s, sr) < 1e-5
+    assert _rel(y, yr) < tol and _rel(s, sr) < 1e-5
     yp, _ = wkv_ops._plain(*args, wkv_ops.CHUNK)
     assert not torch.isfinite(yp).all()
+
+
+@pytest.mark.parametrize("slice_", wkv_ops.SLICES[64],
+                         ids=lambda s: f"VS{s[0]}xVT{s[1]}")
+@pytest.mark.parametrize("dtype,wdtype,tol", WKV_DTYPES,
+                         ids=["f32", "bf16", "bf16-f32logw"])
+def test_wkv6_every_value_slice(cuda_device, slice_, dtype, wdtype, tol):
+    """Each (value slice, columns per thread) the kernel is built for at
+    K 64 gives the plain version's result (ragged S 100)."""
+    args = _wkv_operands(31, 2, 100, 4, 64, dtype, cuda_device,
+                         wdtype=wdtype)
+    y, s = wkv_ops._launch(*args, slice_=slice_)
+    torch.cuda.synchronize()
+    yp, sp = wkv_ops._plain(*args, wkv_ops.CHUNK)
+    assert _rel(y, yp) < tol and _rel(s, sp) < 1e-5
+
+
+def test_wkv6_bf16_inputs_give_the_f32_call_rounded_once(cuda_device):
+    """The model's call (bf16 r, k, v; f32 logw) gives the f32 call's y,
+    rounded to bf16 once, and the same state: the kernel widens exactly."""
+    args = _wkv_operands(41, 2, 128, 4, 64, torch.bfloat16, cuda_device,
+                         wdtype=torch.float32)
+    y, s = wkv_ops.wkv6(*args)
+    y32, s32 = wkv_ops.wkv6(*[t.float() for t in args])
+    assert torch.equal(y, y32.to(torch.bfloat16))
+    assert torch.equal(s, s32)
 
 
 def test_wrappers_refuse_noncontiguous_cuda_tensors(cuda_device):

@@ -317,3 +317,46 @@ def test_flash_bf16_plain_matches_reference():
                                    .to(torch.bfloat16) for t in (qb, kb, vb)))
     assert got.dtype == torch.bfloat16
     assert _maxabs(got.float().numpy(), np.asarray(want, np.float32)) < 2e-2
+
+
+# (dtype, head dim, aligned) -> kernel: bf16 on the tensor cores at every
+# head dim the kernels take, f32 (TF32 would break its tolerance) and
+# misaligned views on the SIMT kernel
+FA_VARIANT_RULE = [
+    *[(_BF16, d, True, "mma") for d in fa_ops.HEAD_DIMS],
+    *[(_F32, d, True, "simt") for d in fa_ops.HEAD_DIMS],
+    (_BF16, 64, False, "simt"),
+    (_F32, 64, False, "simt"),
+    (_BF16, 16, True, "simt"),      # not a kernel head dim
+]
+
+
+@pytest.mark.parametrize("dtype,D,aligned,kind", FA_VARIANT_RULE)
+def test_flash_variant_rule(dtype, D, aligned, kind):
+    """The pure-Python route of flash_attention (no card needed)."""
+    assert fa_ops.variant(dtype, D, aligned) == kind
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,block", [
+    (4, 128, 14, 2, (1, 4)),        # qwen2-0.5b's served prefill
+    (4, 100, 14, 2, (1, 4)),        # ragged
+    (4, 2048, 14, 2, (1, 4)),       # a long prompt
+    (1, 24, 4, 2, (1, 2)),          # fewer rows than a 64-row block
+    (2, 8, 4, 4, (1, 1)),
+])
+def test_flash_plan_by_shape(B, S, H, Hkv, block):
+    """The mma kernel's block: one head, 64-row q tiles, fewer where the
+    prompt is shorter; always within the kernel's 8 warps (its launch
+    bounds) and a divisor of the GQA group."""
+    heads, tiles = fa_ops.plan(B, S, H, Hkv, 132)
+    assert (heads, tiles) == block
+    assert heads * tiles <= 8 and (H // Hkv) % heads == 0
+
+
+def test_flash_counts_nothing_on_the_cpu():
+    """The plain path launches nothing, so neither count moves."""
+    q, k, v = _t(*_fa_operands(11, 1, 16, 4, 2, 32))
+    before = (fa_ops.launches, dict(fa_ops.launches_by_variant))
+    fa_ops.flash_attention(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                           v.to(torch.bfloat16))
+    assert (fa_ops.launches, fa_ops.launches_by_variant) == before

@@ -302,6 +302,46 @@ def test_wkv6_wrapper_checks_and_gradients():
         assert _rel(a.grad, b.grad.numpy()) < 1e-4
 
 
+@pytest.mark.parametrize("B,H,K,want", [
+    (4, 64, 64, (64, 2)),     # rwkv6-7b's served prefill: 256 whole heads
+    (2, 64, 64, (64, 2)),
+    (1, 64, 64, (32, 1)),     # 64 heads, under half of 132 SMs: split
+    (1, 66, 64, (32, 1)),
+    (1, 67, 64, (64, 2)),
+    (2, 4, 64, (32, 1)),      # the reduced configs' heads
+    (2, 2, 16, (16, 1)),
+    (1, 4, 32, (32, 1))])
+def test_wkv6_plan_covers_every_value_column(B, H, K, want):
+    """The kernel's plan (pure Python, 132 SMs): a built (VS, VT) case for
+    the head dim, VS value columns per block with VS | K, and a grid of
+    H·K/VS x B blocks, so each (b, h, value column) has one block; whole
+    heads once they cover more than half of the SMs, half heads below.
+    The plan does not depend on S, so the ragged lengths take it too."""
+    vs, vt, grid = wkv_ops.plan(B, H, K, 132)
+    assert (vs, vt) == want and (vs, vt) in wkv_ops.SLICES[K]
+    assert K % vs == 0 and grid == (H * (K // vs), B)
+
+
+def test_wkv6_wrapper_dtype_rules():
+    """r, k, v share one dtype; logw is f32 or that dtype. bf16 r, k, v
+    with f32 logw (the model's call) is taken, computed in f32 on the
+    CPU and rounded once: the all-f32 call's y in bf16, its state
+    exactly. Mixed r/k/v, and bf16 logw under f32 r, are refused."""
+    r, k, v, logw, u = _t(*_wkv_inputs(21, 2, 40, 2, 16))
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    y, s = wkv_ops.wkv6(rb, kb, vb, logw, u)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    y32, s32 = wkv_ops.wkv6(rb.float(), kb.float(), vb.float(), logw, u)
+    assert torch.equal(y, y32.to(torch.bfloat16)) and torch.equal(s, s32)
+    y2, _ = wkv_ops.wkv6(rb, kb, vb, logw.to(torch.bfloat16), u)
+    assert y2.dtype == torch.bfloat16
+    for bad in ((rb, k, v, logw), (r, kb, v, logw), (r, k, vb, logw),
+                (r, k, v, logw.to(torch.bfloat16)),
+                (rb, kb, vb, logw.double())):
+        with pytest.raises(TypeError):
+            wkv_ops.wkv6(*bad, u)
+
+
 # ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
@@ -359,6 +399,41 @@ def test_timemix_and_channelmix_match_reference(weights, mode):
         jp["rwkv"], jad["rwkv"], x, JCFG, JLORA.scale, state=jst)
     assert _maxabs(o, oj) < 1e-5
     assert (last is None) == (lastj is None)
+
+
+def test_timemix_hands_wkv6_the_model_dtypes(weights, monkeypatch):
+    """bf16 weights: the time-mix hands wkv6 its bf16 r, k, v and f32
+    logw as they are. Its output is bit for bit the old call's, which
+    widened r, k and v to f32 first (y is the same f32 sum, rounded to
+    bf16 once), and it matches the reference's bf16 time-mix to two bf16
+    ulps at the output's scale (the two frameworks round bf16
+    activations at different points; one ulp is 7.8e-3 here)."""
+    jparams, params = weights
+    jads, ads = _pair_adapters(4, 15)
+    jp, p, jad, ad = _layer0(jparams, params, jads, ads)
+    pb = interop.tree_map(lambda t: t.to(torch.bfloat16), p["rwkv"])
+    jpb = jax.tree_util.tree_map(lambda t: t.astype(jnp.bfloat16),
+                                 jp["rwkv"])
+    x = np.random.default_rng(16).standard_normal(
+        (2, 24, CFG.d_model)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    seen = []
+    real = r6.wkv6
+
+    def spy(r, k, v, logw, u):
+        seen.append((r.dtype, k.dtype, v.dtype, logw.dtype))
+        return real(r, k, v, logw, u)
+    monkeypatch.setattr(r6, "wkv6", spy)
+    out, _ = r6.apply_rwkv6_timemix(pb, ad["rwkv"], xb, CFG, LORA.scale)
+    assert seen == [(torch.bfloat16,) * 3 + (torch.float32,)]
+    monkeypatch.setattr(r6, "wkv6", lambda r, k, v, logw, u: real(
+        r.float(), k.float(), v.float(), logw, u))
+    old, _ = r6.apply_rwkv6_timemix(pb, ad["rwkv"], xb, CFG, LORA.scale)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, old)
+    want, _ = jax.jit(jr6.apply_rwkv6_timemix, static_argnums=(3, 4))(
+        jpb, jad["rwkv"], jnp.asarray(x, jnp.bfloat16), JCFG, JLORA.scale)
+    want = np.asarray(want, np.float32)
+    assert _maxabs(out.float(), want) < 2 ** -6 * float(np.max(np.abs(want)))
 
 
 # ---------------------------------------------------------------------------
