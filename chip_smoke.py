@@ -27,8 +27,9 @@ nothing is caught):
    bf16, simt for f32) and adds a long prompt (B 4, S 2048) with its
    TFLOP/s and its ratio to SDPA, recorded without a gate. ``wkv6`` runs
    in the model's own dtypes (bf16 r, k, v; f32 logw) at the served,
-   ragged and 19-chunk lengths, in f32, and at the strong decays; then
-   its time per chunk step at B 1 and B 4 tells latency from throughput.
+   ragged and 19-chunk lengths, with bf16 logw, in f32 (served and 19
+   chunks), and at the strong decays; then its time per chunk step at B
+   1 and B 4 tells latency from throughput.
 3. Parity at full width and reduced depth (2 layers, f32), per model:
    the same weights on the card (kernels) and on the CPU (plain
    versions), prefill logits and 8 multi-tenant decode steps (rwkv6-7b:
@@ -265,13 +266,12 @@ def shared_memory(qwen, rwkv):
     """Dynamic shared memory of one block of each kernel at the served
     shapes (bytes), as the kernels' own sources size it."""
     D = qwen.resolved_head_dim
-    heads, tiles = fa_ops.plan(4, 128, qwen.num_heads, qwen.num_kv_heads,
-                               sms())
+    tiles = fa_ops.plan(128)
     fa = fa_ops._kernel_lib().flash_attention_smem_bytes
     H, K = rwkv.d_model // rwkv.rwkv.head_dim, rwkv.rwkv.head_dim
     vs, vt, _ = wkv_ops.plan(4, H, K, sms())
     wk = wkv_ops._kernel_lib().wkv6_smem_bytes
-    return {f"fa_mma_kernel<{D}> {heads}x{tiles} warps": fa(1, D, heads * tiles),
+    return {f"fa_mma_kernel<{D}> {tiles} warps": fa(1, D, tiles),
             f"fa_kernel<f32,{D}>": fa(0, D, 0),
             f"wkv6_kernel<bf16,f32,{K},{vs},{vt}>": wk(1, 0, K, vs),
             f"wkv6_kernel<f32,f32,{K},{vs},{vt}>": wk(0, 0, K, vs)}
@@ -442,11 +442,11 @@ def check_flash(cfg, dtype):
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         ms = timed_ms(lambda: fa_ops.flash_attention(q, k, v))
         lib_ms = timed_ms(library)
-        heads, tiles = fa_ops.plan(B, S, H, Hkv, sms())
         rows.append({
             "name": "flash_attention", "model": cfg.name,
             "dtype": str(dtype).replace("torch.", ""), "variant": kind,
-            "block": f"{heads}x{tiles}" if kind == "mma" else "32 rows",
+            "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
+            else "32 rows",
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D}",
             "max_abs_err": err, "tol": tol, "ms": ms,
             "tflops": flops / ms / 1e9, "vs_library": ms / lib_ms,
@@ -458,13 +458,16 @@ def check_flash(cfg, dtype):
 
 def wkv_cases():
     """(label, B, S, dtype of r/k/v, dtype of logw, decay): the served
-    prefill in the model's own dtypes, ragged lengths, all-f32 inputs,
-    strong decay."""
+    prefill in the model's own dtypes, ragged lengths, all-bf16 and
+    all-f32 inputs (the ragged tail held at f32's tolerance too), strong
+    decay."""
     bf16, f32 = torch.bfloat16, torch.float32
     yield "model shape", 4, 128, bf16, f32, None
     yield "ragged", 4, 100, bf16, f32, None
     yield "ragged, 19 chunks", 4, 300, bf16, f32, None
+    yield "bf16 inputs", 4, 128, bf16, bf16, None
     yield "f32", 4, 128, f32, f32, None
+    yield "f32, ragged, 19 chunks", 4, 300, f32, f32, None
     yield "logw = -2", 4, 128, f32, f32, -2.0
     yield "logw = -20", 4, 128, f32, f32, -20.0
 

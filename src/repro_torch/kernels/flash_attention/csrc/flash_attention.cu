@@ -18,8 +18,8 @@
 // window both kernels visit only kv tiles that hold a visible key;
 // skipping a fully masked tile is exact (it leaves m, l and acc unchanged).
 //
-// Two kernels behind one launch function; the wrapper (ops.py::variant)
-// picks one from dtype, head dim and alignment:
+// Two kernels behind one launch function, one per dtype; the wrapper
+// (ops.py::variant) names the one it takes:
 //
 // fa_mma_kernel — bf16, the tensor-core route (FlashAttention-2's design
 // on mma.sync.m16n8k16, bf16 in, f32 accumulate). Each warp owns 16 query
@@ -35,29 +35,32 @@
 // before P·V is a rounding the SIMT kernel does not make (FlashAttention
 // and SDPA make it too): l sums the unrounded p, and the result stays
 // within the bf16 tolerance (max abs < 2e-2 at |o| < 4).
-//   Grid: (ceil(Sq / (16·tiles)), H / heads, B) with heads·tiles warps per
-// block: a block takes `tiles` consecutive 16-row q tiles of `heads` query
-// heads that share one kv head, so the block's warps share each K and V
-// tile. The wrapper's plan (ops.py::plan) takes one head and 64-row
-// blocks: at qwen2-0.5b's prefill (B 4, S 128, H 14, Hkv 2, D 64) that is
-// 112 blocks of 4 warps on 132 SMs. Timed on an NVIDIA H100 80GB HBM3 at
-// 700 W (tools/flash_wkv6_sweep.py), it beat 16- and 32-row blocks (448
-// and 224 blocks: more blocks, each loading its K and V again) and a
-// whole GQA group of 7 heads per block (K and V loaded once per group)
-// at every length from S 100 to 2048. What bounds it at the served shape
+//   Grid: (ceil(Sq / (16·tiles)), H, B) with `tiles` warps per block: a
+// block takes `tiles` consecutive 16-row q tiles of one query head, and
+// its warps share each K and V tile. The wrapper's plan (ops.py::plan)
+// takes 64-row blocks (tiles = 4; fewer where the prompt is shorter): at
+// qwen2-0.5b's prefill (B 4, S 128, H 14, Hkv 2, D 64) that is 112 blocks
+// of 4 warps on 132 SMs. Timed on an NVIDIA H100 80GB HBM3 at 700 W, it
+// beat 16- and 32-row blocks (448 and 224 blocks: more blocks, each
+// loading its K and V again), a 128-row block, and a whole GQA group of 7
+// heads per block (K and V loaded once per group) at every length from
+// S 100 to 2048 (PERF.md, Findings). What bounds it at the served shape
 // (H100 SXM data sheet, 700 W): 2 MB of bytes (0.6 us at 3.35 TB/s) and
 // 0.12 GFLOP (0.1 us at 989 TFLOP/s); launch and the latency of the first
 // loads dominate.
 //
-// fa_kernel — SIMT f32 FMA (the first port's kernel), for f32 (tensor
-// cores take f32 only as TF32, which breaks the f32 tolerance of 2e-5)
-// and for operands the mma kernel cannot take (misaligned views). Grid
+// fa_kernel — SIMT f32 FMA (the first port's kernel), for f32: tensor
+// cores take f32 only as TF32, which breaks the f32 tolerance of 2e-5.
+// Grid
 // (ceil(Sq/32), H, B); one block of 4 warps owns 32 query rows, 8 per
 // warp; m, l and the output accumulator stay in registers (lane j holds
 // columns j, j+32, ...). Per 32-key block: K and V tiles are staged in
 // shared memory as f32 (K rows padded by one float), each lane scores one
 // key, warp shuffles give the row max and sum, and p goes through a
 // per-warp shared row into the P·V product.
+//
+// Both kernels load 16-byte units or f32 scalars from 16-byte aligned
+// operands; the wrapper copies a view that starts off a 16-byte boundary.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,18 +70,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -97,7 +88,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_BK = 64;          // keys per kv tile
-constexpr int MMA_MAX_WARPS = 8;    // heads x tiles per block
+constexpr int MMA_MAX_TILES = 4;    // 16-row q tiles (warps) per block
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -145,17 +136,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int D>
-constexpr size_t mma_smem_bytes(int warps) {
+constexpr size_t mma_smem_bytes(int tiles) {
   // Q rows of every warp, then the K and V rings; rows padded by 8 bf16
-  return sizeof(__nv_bfloat16) * (size_t)(warps * 16 + 4 * MMA_BK) * (D + 8);
+  return sizeof(__nv_bfloat16) * (size_t)(tiles * 16 + 4 * MMA_BK) * (D + 8);
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+__global__ void __launch_bounds__(MMA_MAX_TILES * 32)
 fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
               int Sq, int Sk, int H, int Hkv, float scale_log2, int causal,
-              int window, int heads, int tiles) {
+              int window, int tiles) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = D + 8;          // shared row stride (elements)
   constexpr int CH = D / 8;          // 16-byte chunks per row
@@ -163,9 +154,8 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr int NS = MMA_BK / 8;     // n-tiles of S
   constexpr int NO = D / 8;          // n-tiles of O
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int warps = heads * tiles;
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // warps*16 x LD
-  bf16* ks = qs + warps * 16 * LD;                // 2 x BK x LD
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // tiles*16 x LD
+  bf16* ks = qs + tiles * 16 * LD;                // 2 x BK x LD
   bf16* vs = ks + 2 * MMA_BK * LD;                // 2 x BK x LD
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -173,19 +163,17 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int nthr = blockDim.x;
   const int rows = tiles * 16;
   const int q0 = blockIdx.x * rows;
-  const int h0 = blockIdx.y * heads;
-  const int hk = h0 / (H / Hkv);
+  const int h = blockIdx.y;
+  const int hk = h / (H / Hkv);
   const int bi = blockIdx.z;
-  const int h = h0 + warp / tiles;              // this warp's head
-  const int qw0 = q0 + (warp % tiles) * 16;     // and its first q row
+  const int qw0 = q0 + warp * 16;               // this warp's first q row
 
   // Q rows of every warp (zero past Sq)
-  for (int c = threadIdx.x; c < warps * 16 * CH; c += nthr) {
+  for (int c = threadIdx.x; c < rows * CH; c += nthr) {
     const int wr = c / CH, ch = c % CH;
-    const int ww = wr / 16;
-    const int qi = q0 + (ww % tiles) * 16 + wr % 16;
+    const int qi = q0 + wr;
     const bool in = qi < Sq;
-    const bf16* src = q + ((size_t)(bi * Sq + (in ? qi : 0)) * H + h0 + ww / tiles) * D + ch * 8;
+    const bf16* src = q + ((size_t)(bi * Sq + (in ? qi : 0)) * H + h) * D + ch * 8;
     cp_async16(qs + wr * LD + ch * 8, src, in);
   }
 
@@ -347,22 +335,20 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int Hkv, float sm_scale, int causal,
-               int window, int heads, int tiles, cudaStream_t stream) {
-  const int warps = heads * tiles;
-  if (heads < 1 || tiles < 1 || warps > MMA_MAX_WARPS || (H / Hkv) % heads != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = mma_smem_bytes<D>(warps);
+               int window, int tiles, cudaStream_t stream) {
+  if (tiles < 1 || tiles > MMA_MAX_TILES) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mma_smem_bytes<D>(tiles);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fa_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int rows = tiles * 16;
-  dim3 grid((Sq + rows - 1) / rows, H / heads, B);
-  fa_mma_kernel<D><<<grid, warps * 32, smem, stream>>>(
+  dim3 grid((Sq + rows - 1) / rows, H, B);
+  fa_mma_kernel<D><<<grid, tiles * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk,
-      H, Hkv, sm_scale * 1.4426950408889634f, causal, window, heads, tiles);
+      H, Hkv, sm_scale * 1.4426950408889634f, causal, window, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -380,10 +366,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * D + BK * (D + 1) + BK * D + BQ * BK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NWARPS * 32)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
+fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
           int Hkv, float sm_scale, int causal, int window) {
   constexpr int NJ = D / 32;           // output columns per lane
   extern __shared__ float smem[];
@@ -400,15 +386,15 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const size_t q_stride = (size_t)H * D;     // one sequence position
   const size_t kv_stride = (size_t)Hkv * D;
-  const T* qp = q + (size_t)bi * Sq * q_stride + (size_t)h * D;
-  const T* kp = k + (size_t)bi * Sk * kv_stride + (size_t)hk * D;
-  const T* vp = v + (size_t)bi * Sk * kv_stride + (size_t)hk * D;
-  T* op = o + (size_t)bi * Sq * q_stride + (size_t)h * D;
+  const float* qp = q + (size_t)bi * Sq * q_stride + (size_t)h * D;
+  const float* kp = k + (size_t)bi * Sk * kv_stride + (size_t)hk * D;
+  const float* vp = v + (size_t)bi * Sk * kv_stride + (size_t)hk * D;
+  float* op = o + (size_t)bi * Sq * q_stride + (size_t)h * D;
 
   for (int i = threadIdx.x; i < BQ * D; i += NWARPS * 32) {
     const int rr = i / D, d = i % D;
     const int qi = q0 + rr;
-    qs[i] = qi < Sq ? to_f32(qp[(size_t)qi * q_stride + d]) : 0.f;
+    qs[i] = qi < Sq ? qp[(size_t)qi * q_stride + d] : 0.f;
   }
 
   float m[RPW], l[RPW], acc[RPW][NJ];
@@ -435,8 +421,8 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = i / D, d = i % D;
       const int kj = k0 + kk;
       const bool in = kj < Sk;
-      ks[kk * (D + 1) + d] = in ? to_f32(kp[(size_t)kj * kv_stride + d]) : 0.f;
-      vs[kk * D + d] = in ? to_f32(vp[(size_t)kj * kv_stride + d]) : 0.f;
+      ks[kk * (D + 1) + d] = in ? kp[(size_t)kj * kv_stride + d] : 0.f;
+      vs[kk * D + d] = in ? vp[(size_t)kj * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -479,88 +465,80 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[rr], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      op[(size_t)qi * q_stride + lane + 32 * j] = from_f32<T>(acc[rr][j] / den);
+      op[(size_t)qi * q_stride + lane + 32 * j] = acc[rr][j] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int Hkv, float sm_scale, int causal,
            int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fa_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_kernel<T, D><<<grid, NWARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, sm_scale,
+  fa_kernel<D><<<grid, NWARPS * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv, sm_scale,
       causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(int D, const void* q, const void* k, const void* v, void* o,
              int B, int Sq, int Sk, int H, int Hkv, float sm_scale,
              int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int dispatch_mma(int D, const void* q, const void* k, const void* v, void* o,
                  int B, int Sq, int Sk, int H, int Hkv, float sm_scale,
-                 int causal, int window, int heads, int tiles, cudaStream_t s) {
+                 int causal, int window, int tiles, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
-    case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
-    case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
+    case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
+    case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
+    case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// variant: 0 = SIMT (fa_kernel), 1 = tensor cores (fa_mma_kernel, bf16
-// only, every pointer 16-byte aligned). dtype: 0 = float32, 1 = bfloat16.
-// q/o are (B, Sq, H, D) and k/v are (B, Sk, Hkv, D), contiguous on the
-// device. window <= 0 means none. heads/tiles: the mma kernel's block (query
-// heads of one kv group x 16-row q tiles; ignored by the SIMT kernel).
+// variant: 0 = SIMT (fa_kernel, float32), 1 = tensor cores (fa_mma_kernel,
+// bfloat16). q/o are (B, Sq, H, D) and k/v are (B, Sk, Hkv, D), contiguous
+// on the device, every pointer 16-byte aligned. window <= 0 means none.
+// tiles: 16-row q tiles per mma block, 1 .. 4 (ignored by the SIMT kernel).
 // Returns cudaGetLastError() after the launch (0 = ok).
-extern "C" int flash_attention_launch(int variant, int dtype, const void* q,
-                                      const void* k, const void* v, void* o,
-                                      int B, int Sq, int Sk, int H, int Hkv,
-                                      int D, float sm_scale, int causal,
-                                      int window, int heads, int tiles,
-                                      void* stream) {
+extern "C" int flash_attention_launch(int variant, const void* q, const void* k,
+                                      const void* v, void* o, int B, int Sq,
+                                      int Sk, int H, int Hkv, int D,
+                                      float sm_scale, int causal, int window,
+                                      int tiles, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_mma(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, heads, tiles, s);
-  }
-  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+  if (variant == 1)
+    return dispatch_mma(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
+  if (variant == 0)
+    return dispatch(D, q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one block, in bytes: variant 1 with `warps`
-// warps (heads x tiles), or variant 0 (warps ignored); 0 for a head dim
-// the kernels do not take.
-extern "C" int flash_attention_smem_bytes(int variant, int D, int warps) {
+// Dynamic shared memory of one block, in bytes: variant 1 with `tiles`
+// warps, or variant 0 (tiles ignored); 0 for a head dim the kernels do
+// not take.
+extern "C" int flash_attention_smem_bytes(int variant, int D, int tiles) {
   switch (D) {
-    case 32: return (int)(variant ? mma_smem_bytes<32>(warps) : smem_bytes<32>());
-    case 64: return (int)(variant ? mma_smem_bytes<64>(warps) : smem_bytes<64>());
-    case 128: return (int)(variant ? mma_smem_bytes<128>(warps) : smem_bytes<128>());
+    case 32: return (int)(variant ? mma_smem_bytes<32>(tiles) : smem_bytes<32>());
+    case 64: return (int)(variant ? mma_smem_bytes<64>(tiles) : smem_bytes<64>());
+    case 128: return (int)(variant ? mma_smem_bytes<128>(tiles) : smem_bytes<128>());
     default: return 0;
   }
 }

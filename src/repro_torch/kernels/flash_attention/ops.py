@@ -7,12 +7,13 @@ no transposes and no padding (it masks the ragged Sq/Sk edges itself).
 On a CUDA tensor a kernel launches (or the call raises); on a CPU
 tensor the plain version (:func:`.ref.attention_ref`, on transposed
 views) runs. The source holds two kernels behind one launch function;
-:func:`variant` picks one from dtype, head dim and alignment alone
-(``mma``, the tensor-core kernel, for bf16; ``simt`` for f32 and for
-misaligned views), and :func:`plan` sizes the mma kernel's blocks. Both
-are plain Python, so the CPU tests check them. ``launches`` counts kernel
-launches, and nothing else; ``launches_by_variant`` splits the same count
-by kernel.
+:func:`variant` picks one from dtype and head dim (``mma``, the
+tensor-core kernel, for bf16; ``simt`` for f32), and :func:`plan` sizes
+the mma kernel's blocks. Both are plain Python, so the CPU tests check
+them. The kernels load 16-byte units: an operand that starts off a
+16-byte boundary is copied to a fresh allocation first. ``launches``
+counts kernel launches, and nothing else; ``launches_by_variant`` splits
+the same count by kernel.
 
 Gradients: an ``autograd.Function`` whose backward recomputes through
 the plain version, as the reference's ``custom_vjp`` does.
@@ -20,7 +21,6 @@ the plain version, as the reference's ``custom_vjp`` does.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -32,36 +32,36 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 launches = 0
 launches_by_variant = {"mma": 0, "simt": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _VARIANTS = {"simt": 0, "mma": 1}
 HEAD_DIMS = (32, 64, 128)
 _lib = None
 
 
-def variant(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+def variant(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel a call takes: ``"mma"`` or ``"simt"``.
 
     bf16 goes to the tensor cores (``mma.sync``, f32 accumulation); f32
     stays on the SIMT kernel, since the tensor cores take f32 only as
-    TF32, which breaks the f32 tolerance. ``aligned``: q, k, v and the
-    output start on 16-byte boundaries, as the mma kernel's 16-byte
-    ``cp.async`` loads need (the rows of every head dim in
-    :data:`HEAD_DIMS` are whole 16-byte units)."""
-    if dtype == torch.bfloat16 and head_dim in HEAD_DIMS and aligned:
-        return "mma"
-    return "simt"
+    TF32, which breaks the f32 tolerance. Both take the head dims in
+    :data:`HEAD_DIMS`, and no other."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {head_dim}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes {_DTYPES}, got "
+                        f"{dtype}")
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
-def plan(B: int, Sq: int, H: int, Hkv: int, sms: int) -> tuple:
-    """(heads, tiles) of the mma kernel's block: ``tiles`` consecutive
-    16-row q tiles of ``heads`` query heads that share one kv head, one
-    warp each. One head and 64-row blocks (fewer tiles where the prompt
-    is shorter): on an NVIDIA H100 80GB HBM3 at 700 W this was the
-    fastest block at every length timed, S 100 to 2048
-    (``tools/flash_wkv6_sweep.py``), ahead of 16-row blocks that give
-    more blocks than SMs at S 128 and of whole GQA groups that share K
-    and V."""
-    return 1, min(4, -(-Sq // 16))
+def plan(Sq: int) -> int:
+    """16-row q tiles (one warp each) per block of the mma kernel, one
+    query head per block: 64-row blocks, fewer tiles where the prompt is
+    shorter. On an NVIDIA H100 80GB HBM3 at 700 W this was the fastest
+    block at every length timed, S 100 to 2048, ahead of 16-, 32- and
+    128-row blocks and of whole GQA groups that share K and V (PERF.md,
+    Findings)."""
+    return min(4, -(-Sq // 16))
 
 
 def _kernel_lib():
@@ -70,15 +70,10 @@ def _kernel_lib():
         lib = _build.load("flash_attention")
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         _lib = lib
     return _lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k, v, sliding_window):
@@ -108,31 +103,24 @@ def _plain(q, k, v, causal, sliding_window, sm_scale):
         sm_scale=sm_scale).transpose(1, 2)
 
 
-def _launch(q, k, v, causal, sliding_window, sm_scale,
-            block=None) -> torch.Tensor:
-    """One kernel launch. ``block``: (heads, tiles) for the mma kernel in
-    place of :func:`plan`'s (a sweep's override; the path never sets it)."""
+def _launch(q, k, v, causal, sliding_window, sm_scale) -> torch.Tensor:
     global launches
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
+    kind = variant(q.dtype, D)
+    operands = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel needs a contiguous "
                              f"{name}")
+        operands.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    q, k, v = operands
     o = torch.empty_like(q)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))
-    kind = variant(q.dtype, D, aligned)
-    heads, tiles = 1, 1
-    if kind == "mma":
-        heads, tiles = block or plan(B, Sq, H, Hkv, _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel_lib().flash_attention_launch(
-        _VARIANTS[kind], _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, Hkv, D, float(sm_scale),
-        int(causal), int(sliding_window or 0), heads, tiles, stream)
+        _VARIANTS[kind], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), B, Sq, Sk, H, Hkv, D, float(sm_scale), int(causal),
+        int(sliding_window or 0), plan(Sq), stream)
     _build.check("flash_attention", rc)
     launches += 1
     launches_by_variant[kind] += 1

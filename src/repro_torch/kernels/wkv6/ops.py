@@ -52,7 +52,7 @@ def plan(B: int, H: int, K: int, sms: int = 132) -> tuple:
     twice the blocks) below that: on an NVIDIA H100 80GB HBM3 at 700 W
     the whole head was the faster at rwkv6-7b's B 4 (0.0368 against
     0.0586 ms at S 128) and B 2 (0.0297 against 0.0321), the half at B 1
-    (0.0250 against 0.0273; ``tools/flash_wkv6_sweep.py``). K 16 and 32
+    (0.0250 against 0.0273; PERF.md, Findings). K 16 and 32
     have one built case each. The plan depends on neither S nor the
     dtypes."""
     if K == 64:
@@ -113,20 +113,13 @@ def _plain(r, k, v, logw, u, chunk=CHUNK):
     return y[:, :S].to(r.dtype), state
 
 
-def _launch(r, k, v, logw, u, slice_=None):
-    """One kernel launch; ``slice_`` = (VS, VT) overrides the plan's (a
-    sweep's; the path never sets it)."""
+def _launch(r, k, v, logw, u):
     global launches
     B, S, H, K = r.shape
     if K not in HEAD_DIMS:
         raise ValueError(f"wkv6 kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {K}")
     vs, vt, _ = plan(B, H, K, _sm_count(r.device))
-    if slice_ is not None:
-        if tuple(slice_) not in SLICES[K]:
-            raise ValueError(f"wkv6 kernel at K={K} takes (VS, VT) in "
-                             f"{SLICES[K]}, got {slice_}")
-        vs, vt = slice_
     operands = []
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
         if not t.is_contiguous():

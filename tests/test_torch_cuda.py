@@ -253,15 +253,17 @@ def test_flash_mma_gqa_groups_and_long_prompt(cuda_device, H, Hkv, B, S):
     assert float((got.float() - want.float()).abs().max()) < 2e-2
 
 
-@pytest.mark.parametrize("block", [(1, 1), (1, 2), (1, 4), (1, 8), (7, 1)])
+@pytest.mark.parametrize("S,tiles", [(9, 1), (16, 1), (30, 2), (40, 3),
+                                     (64, 4), (100, 4)])
 @pytest.mark.parametrize("window", [None, 16])
-def test_flash_mma_every_block_shape(cuda_device, block, window):
-    """Each block the plan can take, and a whole GQA group per block,
-    give the plain version's result (ragged S 100, 14/2 heads)."""
-    q, k, v = _fa_operands(77, 2, 100, 14, 2, 64, torch.bfloat16,
+def test_flash_mma_every_plan_block(cuda_device, S, tiles, window):
+    """Each block the plan takes (1 to 4 q tiles of 16 rows, ragged or
+    whole) gives the plain version's result (14/2 heads)."""
+    assert fa_ops.plan(S) == tiles
+    q, k, v = _fa_operands(77 + S, 2, S, 14, 2, 64, torch.bfloat16,
                            cuda_device)
-    got = _count_flash("mma", lambda: fa_ops._launch(
-        q, k, v, True, window, 0.125, block=block))
+    got = _count_flash("mma", lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
     want = fa_ops._plain(q, k, v, True, window, 0.125)
     assert float((got.float() - want.float()).abs().max()) < 2e-2
 
@@ -282,16 +284,18 @@ def test_flash_mma_fully_masked_rows_are_zero(cuda_device):
                  ) < 2e-2
 
 
-def test_flash_misaligned_bf16_takes_simt(cuda_device):
-    """A bf16 view off a 16-byte boundary cannot feed cp.async: the SIMT
-    kernel takes it, with the same result."""
-    q, k, v = _fa_operands(5, 1, 64, 4, 2, 64, torch.bfloat16, cuda_device)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_misaligned_view_is_copied(cuda_device, dtype):
+    """A view off a 16-byte boundary cannot feed the kernels' 16-byte
+    loads: the wrapper copies it, and the dtype's own route gives the
+    aligned call's bits."""
+    q, k, v = _fa_operands(5, 1, 64, 4, 2, 64, dtype, cuda_device)
     buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
     qm = buf[1:].view(q.shape)
     qm.copy_(q)
-    got = _count_flash("simt", lambda: fa_ops.flash_attention(qm, k, v))
-    want = fa_ops._plain(q, k, v, True, None, 0.125)
-    assert float((got.float() - want.float()).abs().max()) < 2e-2
+    kind = fa_ops.variant(dtype, 64)
+    got = _count_flash(kind, lambda: fa_ops.flash_attention(qm, k, v))
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v))
 
 
 def _wkv_operands(seed, B, S, H, K, dtype, device, decay=None,
@@ -361,16 +365,19 @@ def test_wkv6_kernel_stays_finite_at_strong_decay(cuda_device, decay, dtype,
     assert not torch.isfinite(yp).all()
 
 
-@pytest.mark.parametrize("slice_", wkv_ops.SLICES[64],
-                         ids=lambda s: f"VS{s[0]}xVT{s[1]}")
+@pytest.mark.parametrize("B,slice_", [(1, (32, 1)), (4, (64, 2))],
+                         ids=["VS32xVT1", "VS64xVT2"])
 @pytest.mark.parametrize("dtype,wdtype,tol", WKV_DTYPES,
                          ids=["f32", "bf16", "bf16-f32logw"])
-def test_wkv6_every_value_slice(cuda_device, slice_, dtype, wdtype, tol):
+def test_wkv6_every_value_slice(cuda_device, B, slice_, dtype, wdtype, tol):
     """Each (value slice, columns per thread) the kernel is built for at
-    K 64 gives the plain version's result (ragged S 100)."""
-    args = _wkv_operands(31, 2, 100, 4, 64, dtype, cuda_device,
+    K 64, as the plan picks it for rwkv6-7b's 64 heads at B 1 and B 4,
+    gives the plain version's result (ragged S 100)."""
+    assert wkv_ops.plan(B, 64, 64, wkv_ops._sm_count(cuda_device))[:2] \
+        == slice_
+    args = _wkv_operands(31, B, 100, 64, 64, dtype, cuda_device,
                          wdtype=wdtype)
-    y, s = wkv_ops._launch(*args, slice_=slice_)
+    y, s = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
     yp, sp = wkv_ops._plain(*args, wkv_ops.CHUNK)
     assert _rel(y, yp) < tol and _rel(s, sp) < 1e-5

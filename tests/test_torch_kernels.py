@@ -319,38 +319,43 @@ def test_flash_bf16_plain_matches_reference():
     assert _maxabs(got.float().numpy(), np.asarray(want, np.float32)) < 2e-2
 
 
-# (dtype, head dim, aligned) -> kernel: bf16 on the tensor cores at every
-# head dim the kernels take, f32 (TF32 would break its tolerance) and
-# misaligned views on the SIMT kernel
+# (dtype, head dim) -> kernel: bf16 on the tensor cores at every head dim
+# the kernels take, f32 on the SIMT kernel (TF32 would break its
+# tolerance)
 FA_VARIANT_RULE = [
-    *[(_BF16, d, True, "mma") for d in fa_ops.HEAD_DIMS],
-    *[(_F32, d, True, "simt") for d in fa_ops.HEAD_DIMS],
-    (_BF16, 64, False, "simt"),
-    (_F32, 64, False, "simt"),
-    (_BF16, 16, True, "simt"),      # not a kernel head dim
+    *[(_BF16, d, "mma") for d in fa_ops.HEAD_DIMS],
+    *[(_F32, d, "simt") for d in fa_ops.HEAD_DIMS],
 ]
 
 
-@pytest.mark.parametrize("dtype,D,aligned,kind", FA_VARIANT_RULE)
-def test_flash_variant_rule(dtype, D, aligned, kind):
+@pytest.mark.parametrize("dtype,D,kind", FA_VARIANT_RULE)
+def test_flash_variant_rule(dtype, D, kind):
     """The pure-Python route of flash_attention (no card needed)."""
-    assert fa_ops.variant(dtype, D, aligned) == kind
+    assert fa_ops.variant(dtype, D) == kind
 
 
-@pytest.mark.parametrize("B,S,H,Hkv,block", [
-    (4, 128, 14, 2, (1, 4)),        # qwen2-0.5b's served prefill
-    (4, 100, 14, 2, (1, 4)),        # ragged
-    (4, 2048, 14, 2, (1, 4)),       # a long prompt
-    (1, 24, 4, 2, (1, 2)),          # fewer rows than a 64-row block
-    (2, 8, 4, 4, (1, 1)),
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+@pytest.mark.parametrize("D", [16, 256])
+def test_flash_variant_refuses_other_head_dims(dtype, D):
+    """Neither kernel is built for a head dim outside HEAD_DIMS (the
+    reduced ViT's 16 among them): the route raises, on the card, before
+    any launch."""
+    with pytest.raises(ValueError):
+        fa_ops.variant(dtype, D)
+
+
+@pytest.mark.parametrize("S,tiles", [
+    (128, 4),       # qwen2-0.5b's served prefill
+    (100, 4),       # ragged
+    (2048, 4),      # a long prompt
+    (24, 2),        # fewer rows than a 64-row block
+    (8, 1),
 ])
-def test_flash_plan_by_shape(B, S, H, Hkv, block):
+def test_flash_plan_by_shape(S, tiles):
     """The mma kernel's block: one head, 64-row q tiles, fewer where the
-    prompt is shorter; always within the kernel's 8 warps (its launch
-    bounds) and a divisor of the GQA group."""
-    heads, tiles = fa_ops.plan(B, S, H, Hkv, 132)
-    assert (heads, tiles) == block
-    assert heads * tiles <= 8 and (H // Hkv) % heads == 0
+    prompt is shorter; within the kernel's 4 warps (its launch bounds)."""
+    assert fa_ops.plan(S) == tiles
+    assert 1 <= fa_ops.plan(S) <= 4
 
 
 def test_flash_counts_nothing_on_the_cpu():

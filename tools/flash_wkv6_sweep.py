@@ -8,20 +8,19 @@ NVIDIA card.
 Times each call after a 1 GiB L2 flush, median of 15, as
 ``chip_smoke.py`` does, and prints one line per case:
 
-- flash_attention, bf16 (the tensor-core kernel), at qwen2-0.5b's heads
-  (14/2, head dim 64), batch 4, S 100 / 128 / 512 / 2048: every block
-  shape the kernel takes (heads x 16-row tiles per block) against the
-  one ``ops.plan`` picks, SDPA beside each S as the yardstick, and the
-  f32 SIMT kernel at S 128.
+- flash_attention, bf16 (the tensor-core kernel, at the block
+  ``ops.plan`` picks), at qwen2-0.5b's heads (14/2, head dim 64), batch
+  4, S 100 / 128 / 512 / 2048, with its TFLOP/s and SDPA beside each S
+  as the yardstick, and the f32 SIMT kernel at S 128.
 - wkv6 at rwkv6-7b's heads (64 of 64) in the model's dtypes (bf16 r, k,
-  v; f32 logw): every (value slice, columns per thread) the kernel is
-  built for at B 1, 2, 4 and S 128, 1024, against the one ``ops.plan``
-  picks; then, at the plan's, S over 16 .. 1024 at B 1 (a quarter of the
-  served grid, so an SM holds at most one block and the time per chunk
-  is close to the latency of one chunk step) and at B 4 (the served
-  grid, where the time per chunk is what the SMs get through). The
-  per-chunk slopes of the two tell a chunk step bound by its latency
-  from one bound by the SM's issue and shared-memory traffic.
+  v; f32 logw), at the (value slice, columns per thread) ``ops.plan``
+  picks: B 1, 2, 4 at S 128 and 1024; then S over 16 .. 1024 at B 1 (a
+  quarter of the served grid, so an SM holds at most one block and the
+  time per chunk is close to the latency of one chunk step) and at B 4
+  (the served grid, where the time per chunk is what the SMs get
+  through). The per-chunk slopes of the two tell a chunk step bound by
+  its latency from one bound by the SM's issue and shared-memory
+  traffic.
 - A 4 MB fill, the cost of any launch under this timing.
 
 Needs a card; builds the two kernels from the checkout and prints
@@ -43,9 +42,6 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv  # noqa: E402
 
-FLASH_BLOCKS = [(1, 1), (1, 2), (1, 4), (1, 8), (7, 1)]
-
-
 def timed_ms(fn, flush, reps=15):
     for _ in range(3):
         fn()
@@ -64,7 +60,6 @@ def timed_ms(fn, flush, reps=15):
 
 def flash(flush, g):
     H, Hkv, D, B = 14, 2, 64, 4
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for S in (100, 128, 512, 2048):
         q = torch.randn((B, S, H, D), generator=g, device="cuda").bfloat16()
         k, v = (torch.randn((B, S, Hkv, D), generator=g, device="cuda"
@@ -73,14 +68,11 @@ def flash(flush, g):
         sdpa = timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), flush)
         flops = 4.0 * B * H * D * S * (S + 1) / 2
-        picked = fa.plan(B, S, H, Hkv, sms)
-        for block in FLASH_BLOCKS:
-            ms = timed_ms(lambda: fa._launch(q, k, v, True, None, D ** -0.5,
-                                             block=block), flush)
-            print(f"flash mma B={B} S={S} H={H}/{Hkv} D={D} block "
-                  f"{block[0]}x{block[1]}{' (plan)' if block == picked else ''}"
-                  f": {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
-                  f"(SDPA {sdpa:.4f} ms)", flush=True)
+        ms = timed_ms(lambda: fa.flash_attention(q, k, v), flush)
+        print(f"flash mma B={B} S={S} H={H}/{Hkv} D={D} "
+              f"{16 * fa.plan(S)}-row blocks: {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s (SDPA {sdpa:.4f} ms)",
+              flush=True)
         if S == 128:
             qf, kf, vf = (t.float() for t in (q, k, v))
             ms = timed_ms(lambda: fa.flash_attention(qf, kf, vf), flush)
@@ -100,20 +92,17 @@ def wkv6(flush, g):
     H, K = 64, 64
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B in (1, 2, 4):
-        picked = wkv.plan(B, H, K, sms)
+        vs, vt, grid = wkv.plan(B, H, K, sms)
         for S in (128, 1024):
             args = wkv_args(B, S, H, K, g)
-            for vs, vt in wkv.SLICES[K]:
-                ms = timed_ms(lambda: wkv._launch(*args, slice_=(vs, vt)),
-                              flush)
-                print(f"wkv6 bf16/f32logw B={B} S={S} H={H} K={K} VS={vs} "
-                      f"VT={vt}{' (plan)' if (vs, vt) == picked[:2] else ''}"
-                      f" grid {(H * K // vs, B)}: {ms:.4f} ms", flush=True)
+            ms = timed_ms(lambda: wkv.wkv6(*args), flush)
+            print(f"wkv6 bf16/f32logw B={B} S={S} H={H} K={K} VS={vs} "
+                  f"VT={vt} grid {grid}: {ms:.4f} ms", flush=True)
     for B in (1, 4):
         pts = []
         for S in (16, 64, 128, 300, 512, 1024):
             args = wkv_args(B, S, H, K, g)
-            ms = timed_ms(lambda: wkv._launch(*args), flush)
+            ms = timed_ms(lambda: wkv.wkv6(*args), flush)
             pts.append((-(-S // 16), ms))
             print(f"wkv6 plan {wkv.plan(B, H, K, sms)[:2]} B={B} S={S} "
                   f"({pts[-1][0]} chunks): {ms:.4f} ms", flush=True)
