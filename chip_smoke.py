@@ -43,7 +43,24 @@ nothing is caught):
    and every one of the decode a split-K one; every flash launch of the
    qwen2-0.5b prefill must take the tensor-core route. Then a
    torch.profiler window over a prefill and 4 steps.
-5. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+5. The federated round of the paper's method (serial engine), through
+   ``IoVSimulator``: (a) at the reduced ViT (head dim 16) with the
+   default ``SimConfig`` (24 vehicles, 3 tasks, 3 local steps), one local
+   train step and one round from one seed on the card and on the CPU,
+   held together (ranks, active and departing counts, fallbacks and
+   comm_params exactly; loss, adapter grads, merged deltas, energy and
+   latency within 1e-4); (b) two rounds at the full width of
+   vit-base-paper (12 layers, d 768), each under a torch.profiler
+   window, with the launches of both kernels split into train steps and
+   evaluations and by shape; every loss, energy and accuracy must be
+   finite and both kernels must have launched.
+6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+
+Phase 2 also holds the kernels at the round's training shapes: f32
+``lora_matmul`` (simt) at 240 rows (B 10 x S 24) for 768->768, 768->3072
+and 3072->768 at ranks 2 and 32, with its closed-form backward against
+autograd of the plain version; flash attention in f32 and bf16 at head
+dim 16 (4 heads) and 64 (12 heads), S 24, with its backward.
 
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 Details go to chiprun_out/chip_smoke.json.
@@ -63,7 +80,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
-from repro_torch.configs import qwen2_0_5b, rwkv6_7b  # noqa: E402
+from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
 from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -75,6 +92,9 @@ from repro_torch.launch.adapter_cache import PagedAdapter  # noqa: E402
 from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E402
                                       make_decode_step)
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.interop import tree_map  # noqa: E402
+from repro_torch.optim.adam import leaves  # noqa: E402
+from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
 
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 # H100 SXM data sheet, dense: HBM rate, bf16 tensor-core peak, f32 peak
@@ -271,8 +291,12 @@ def shared_memory(qwen, rwkv):
     H, K = rwkv.d_model // rwkv.rwkv.head_dim, rwkv.rwkv.head_dim
     vs, vt, _ = wkv_ops.plan(4, H, K, sms())
     wk = wkv_ops._kernel_lib().wkv6_smem_bytes
+    train_tiles = fa_ops.plan(TRAIN_S)
     return {f"fa_mma_kernel<{D}> {tiles} warps": fa(1, D, tiles),
             f"fa_kernel<f32,{D}>": fa(0, D, 0),
+            # the reduced ViT's head dim at the round's S 24
+            f"fa_mma_kernel<16> {train_tiles} warps": fa(1, 16, train_tiles),
+            "fa_kernel<f32,16>": fa(0, 16, 0),
             f"wkv6_kernel<bf16,f32,{K},{vs},{vt}>": wk(1, 0, K, vs),
             f"wkv6_kernel<f32,f32,{K},{vs},{vt}>": wk(0, 0, K, vs)}
 
@@ -576,6 +600,165 @@ def wkv_chunk_steps(cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: the round's training shapes
+# ---------------------------------------------------------------------------
+
+# a local train step: B 10 samples of S 24 tokens (SimConfig's batch and
+# the synthetic tasks' length)
+TRAIN_B, TRAIN_S = 10, 24
+# the closed-form LoRA backward and the flash recompute on the card
+# against autograd of the plain versions: 1e-4 of each gradient's largest
+# entry (at least 1e-4), f32 summation order with TF32 off
+BWD_TOL = 1e-4
+
+
+def grad_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), worst over the list."""
+    return max(maxabs(g, w) / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def check_lora_train():
+    """f32 lora_matmul at the training shapes of vit-base-paper (240
+    rows), ranks 2 (round 0's) and 32 (the slot), with the backward."""
+    rows = []
+    M = TRAIN_B * TRAIN_S
+    for linear, K, N in (("q/k/v/o", 768, 768), ("up", 768, 3072),
+                         ("down", 3072, 768)):
+        for r in (2, 32):
+            g = torch.Generator(device="cuda").manual_seed(K + N + r)
+            x = torch.randn((1, M, K), generator=g, device="cuda")
+            w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
+            a = torch.randn((1, K, r), generator=g, device="cuda") / K ** 0.5
+            b = 0.1 * torch.randn((1, r, N), generator=g, device="cuda")
+            scale = torch.full((1,), 16.0 / r, device="cuda")
+            mask = torch.ones((1, r), device="cuda")
+            args = (x, w, a, b, scale, mask)
+            got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
+            err = maxabs(got, lora_matmul_ref(*args))
+            tol = TOL[("lora_matmul", torch.float32)]
+            if not (kind == "simt" and err < tol
+                    and torch.isfinite(got).all()):
+                fail(f"lora_matmul train {linear} r={r}: {kind}, max abs "
+                     f"{err} >= {tol}")
+            gy = torch.randn((1, M, N), generator=g, device="cuda")
+            # the frozen base: x, a and b ask for grads, W does not
+            need = (True, False, True, True, False, False)
+
+            def grads(fn):
+                ins = [t.detach().requires_grad_(n)
+                       for t, n in zip(args, need)]
+                y = fn(*ins)
+                return torch.autograd.grad(
+                    y, [t for t in ins if t.requires_grad], gy)
+            bwd = grad_err(grads(lm_ops.lora_matmul),
+                           grads(lora_matmul_ref))
+            if not bwd < BWD_TOL:
+                fail(f"lora_matmul train {linear} r={r}: backward err "
+                     f"{bwd} >= {BWD_TOL}")
+            t_ = x @ a
+            nbytes = 4 * (M * K + K * N + M * N + K * r + r * N + 1 + r)
+            ops = {torch.float32: 2.0 * M * K * N + 2.0 * M * r * (K + N)}
+            b_ms, b_by = bound(nbytes, ops)
+            # the backward's own work: dx (g·Wᵀ and u·Aᵀ), dA, dB and u
+            bwd_ops = {torch.float32: 2.0 * M * N * K + 2.0 * M * r
+                       * (2 * N + 2 * K)}
+            bwd_bytes = 4 * (2 * M * N + 2 * M * K + K * N + 2 * r * (K + N)
+                             + M * r)
+            bb_ms, _ = bound(bwd_bytes, bwd_ops)
+
+            def closed():
+                return lm_ops.lora_matmul_backward(
+                    gy, x, w, a, b, scale, mask, t_, need)
+
+            def autograd_plain():
+                return grads(lora_matmul_ref)
+
+            def library():
+                return x @ w + scale[:, None, None] * (
+                    ((x @ a) * mask[:, None, :]) @ b)
+            kernel_ms = timed_ms(
+                lambda: lm_ops._launch(x, w, t_, b, scale, mask))
+            rows.append({
+                "name": "lora_matmul", "model": "vit-base-paper",
+                "linear": linear, "mode": "train", "variant": kind,
+                "dtype": "float32", "rank": r,
+                "shape": f"L=1 M={M} K={K} N={N} r={r}",
+                "key": [M, K, N, r],
+                "max_abs_err": err, "tol": tol, "bwd_err": bwd,
+                "bwd_tol": BWD_TOL, "rank_pin": None, "deterministic": None,
+                "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
+                "kernel_ms": kernel_ms,
+                "kernel_tflops": 2.0 * M * K * N / kernel_ms / 1e9,
+                "kernel_gbs": nbytes / kernel_ms / 1e6,
+                "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
+                "library_ms": timed_ms(library),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bwd_ms": timed_ms(closed),
+                "autograd_plain_bwd_ms": timed_ms(autograd_plain),
+                "bwd_bound_ms": bb_ms})
+    return rows
+
+
+def check_flash_train():
+    """Flash attention at the round's attention shapes (B 10, S 24): head
+    dim 16 with 4 heads (reduced ViT) and 64 with 12 (vit-base-paper),
+    f32 (the round's dtype, simt) and bf16 (mma), with the backward."""
+    rows = []
+    B, S = TRAIN_B, TRAIN_S
+    for H, D, model in ((4, 16, "vit-tiny-paper"),
+                        (12, 64, "vit-base-paper")):
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = fa_ops.variant(dtype, D)
+            g = torch.Generator(device="cuda").manual_seed(H * D + S)
+            q, k, v = (torch.randn((B, S, H, D), generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            before = flash_variant_counts()
+            got = fa_ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            took = [n for n, c in flash_variant_counts().items()
+                    if c != before[n]]
+            if took != [kind]:
+                fail(f"flash train D={D}/{dtype} launched {took}, want "
+                     f"{kind}")
+            err = maxabs(got, fa_ops._plain(q, k, v, True, None, D ** -0.5))
+            tol = TOL[("flash_attention", dtype)]
+            if not (err < tol and torch.isfinite(got).all()):
+                fail(f"flash train D={D}/{dtype}: max abs {err} >= {tol}")
+            go = torch.randn_like(got)
+
+            def grads(fn):
+                ins = [t.detach().requires_grad_() for t in (q, k, v)]
+                return torch.autograd.grad(fn(*ins), ins, go)
+            bwd = grad_err(grads(fa_ops.flash_attention), grads(
+                lambda *t: fa_ops._plain(*t, True, None, D ** -0.5)))
+            if not bwd < (BWD_TOL if dtype == torch.float32 else tol):
+                fail(f"flash train D={D}/{dtype}: backward err {bwd}")
+            es = q.element_size()
+            nbytes = es * 4 * B * S * H * D
+            flops = 4.0 * B * H * D * S * (S + 1) / 2
+            b_ms, b_by = bound(nbytes, {dtype: flops})
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rows.append({
+                "name": "flash_attention", "model": model, "mode": "train",
+                "dtype": str(dtype).replace("torch.", ""), "variant": kind,
+                "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
+                else "32 rows",
+                "shape": f"B={B} S={S} H={H} Hkv={H} D={D}",
+                "key": [B, S, H, D], "max_abs_err": err, "tol": tol,
+                "bwd_err": bwd,
+                "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
+                "plain_ms": timed_ms(
+                    lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
+                "library_ms": timed_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)),
+                "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: full width, reduced depth, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -779,6 +962,274 @@ def device_profile(fn, top=8):
                     for k, ms, n in rows[:top]]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the federated round (serial engine)
+# ---------------------------------------------------------------------------
+
+# card vs CPU, reduced ViT, one round: f32 summation order through a
+# 2-layer model and 3 Adam steps per vehicle (relative to the largest
+# entry of each merged delta; energy and latency relative)
+ROUND_TOL = 1e-4
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+class ShapeCounter:
+    """Counts the kernels' launches by shape and dtype while installed, by
+    wrapping the wrappers' ``_launch`` (whose own counts stay as they
+    are)."""
+
+    def __init__(self):
+        self.lora, self.flash = {}, {}
+        self._orig = (lm_ops._launch, fa_ops._launch)
+
+    def __enter__(self):
+        lora_launch, flash_launch = self._orig
+
+        def lora(x, w, t, b, scale, mask):
+            key = (x.shape[0] * x.shape[1], x.shape[2], w.shape[1],
+                   t.shape[-1], dtype_name(x.dtype))
+            self.lora[key] = self.lora.get(key, 0) + 1
+            return lora_launch(x, w, t, b, scale, mask)
+
+        def flash(q, k, v, *rest):
+            key = tuple(q.shape) + (dtype_name(q.dtype),)
+            self.flash[key] = self.flash.get(key, 0) + 1
+            return flash_launch(q, k, v, *rest)
+        lm_ops._launch, fa_ops._launch = lora, flash
+        return self
+
+    def __exit__(self, *exc):
+        lm_ops._launch, fa_ops._launch = self._orig
+
+    @staticmethod
+    def by_shape(table):
+        return {"x".join(map(str, k)): v for k, v in sorted(table.items())}
+
+
+def recording(sim, plans):
+    """Wrap the simulator's planner to keep each task's active set, ranks
+    and departures."""
+    plan_task = sim._plan_task
+
+    def plan(ti):
+        p = plan_task(ti)
+        plans.append((int(ti), p["active_ids"].tolist(),
+                      [int(p["ranks"][v]) for v in p["active_ids"]],
+                      np.asarray(p["departing"]).tolist()))
+        return p
+    sim._plan_task = plan
+
+
+def split_counts(sim):
+    """Accumulate both kernels' launches by variant under the trainer's
+    train steps and its evaluations; keep every step's loss."""
+    split = {"train": {}, "eval": {}, "losses": [], "steps": 0, "evals": 0}
+    tr = sim.trainer
+    step, evaluate = tr.train_step, tr.evaluate
+
+    def snap():
+        return {**{f"lora_matmul.{k}": v
+                   for k, v in lm_ops.launches_by_variant.items()},
+                **{f"flash_attention.{k}": v
+                   for k, v in fa_ops.launches_by_variant.items()}}
+
+    def add(kind, before):
+        for k, v in snap().items():
+            split[kind][k] = split[kind].get(k, 0) + v - before[k]
+
+    def train_step(*a, **kw):
+        before = snap()
+        out = step(*a, **kw)
+        add("train", before)
+        split["steps"] += 1
+        split["losses"].append(out[2]["loss"])
+        return out
+
+    def ev(*a, **kw):
+        before = snap()
+        out = evaluate(*a, **kw)
+        add("eval", before)
+        split["evals"] += 1
+        return out
+    tr.train_step, tr.evaluate = train_step, ev
+    return split
+
+
+def step_grads(sim, ads, batch, rank):
+    """Loss and adapter grads of one local train step's loss on sim's
+    device (the trainer's loss, differentiated by the adapters only)."""
+    import dataclasses
+    ad = tree_map(lambda t: t.to(sim.device).requires_grad_(), ads)
+    lora_r = dataclasses.replace(sim.cfg.lora, rank=rank)
+    b = sim.trainer._batch(batch)
+    loss, _ = T.loss_fn(sim.params, ad, sim.model_cfg, lora_r, b)
+    grads = torch.autograd.grad(loss, leaves(ad))
+    return loss.detach().cpu(), [g.cpu() for g in grads]
+
+
+def round_parity():
+    """Phase 5a: the reduced ViT (head dim 16) with the default SimConfig,
+    one seed, on the card and on the CPU."""
+    sims, plans, recs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        sims[dev] = IoVSimulator(SimConfig(), device=dev)
+        plans[dev] = []
+        recording(sims[dev], plans[dev])
+    cfg, lora = sims["cpu"].model_cfg, sims["cpu"].cfg.lora
+    # one local train step's loss and grads: fresh adapters with b off
+    # zero (with b = 0 every grad of a is exactly 0), a batch of task 0
+    ads = nontrivial(T.init_adapters(cfg, lora, seed=11, rank=8,
+                                     device="cpu"), 11)
+    d = sims["cpu"].task_data[0]
+    batch = {"tokens": d["tokens"][:TRAIN_B], "labels": d["labels"][:TRAIN_B]}
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = (step_grads(sims[dev], ads, batch, 8)
+                                      for dev in ("cuda", "cpu"))
+    loss_err = abs(float(l_gpu) - float(l_cpu))
+    grad_abs = max(maxabs(a, b) for a, b in zip(g_gpu, g_cpu))
+    if not (loss_err < ROUND_TOL and grad_abs < ROUND_TOL):
+        fail(f"train step card vs CPU: loss {loss_err}, grads {grad_abs}")
+    # one round
+    reset_counts()
+    with ShapeCounter() as shapes:
+        t0 = time.perf_counter()
+        recs["cuda"] = sims["cuda"].run_round()
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        lora_v, flash_v = variant_counts(), flash_variant_counts()
+    t0 = time.perf_counter()
+    recs["cpu"] = sims["cpu"].run_round()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if launched["lora_matmul"] == 0 or launched["flash_attention"] == 0:
+        fail(f"reduced round launched {launched}")
+    if plans["cuda"] != plans["cpu"]:
+        fail("round card vs CPU: active sets, ranks or departures differ")
+    rel = {}
+    for gt, ct in zip(recs["cuda"]["tasks"], recs["cpu"]["tasks"]):
+        for key in ("active", "departing", "fallbacks", "comm_params",
+                    "mean_rank"):
+            if gt[key] != ct[key]:
+                fail(f"round card vs CPU: task {gt['task']} {key} "
+                     f"{gt[key]} vs {ct[key]}")
+        for key in ("energy", "latency"):
+            e = abs(gt[key] - ct[key]) / max(abs(ct[key]), 1e-12)
+            rel[key] = max(rel.get(key, 0.0), e)
+    # per task: max abs difference over its merged deltas, relative to
+    # their largest entry. Adam's first step is close to lr·sign(g), so an
+    # entry of b whose gradient is near 0 moves by up to 2·lr apart on
+    # the two devices; the leaf-by-leaf ratios are kept for the record
+    delta, by_leaf = 0.0, {}
+    from repro_torch.core.aggregation import tree_get, tree_paths_delta
+    for ti, (sg, sc) in enumerate(zip(sims["cuda"].servers,
+                                      sims["cpu"].servers)):
+        err = top = 0.0
+        for path in tree_paths_delta(sc.merged):
+            want = tree_get(sc.merged, path)["delta"]
+            got = tree_get(sg.merged, path)["delta"].cpu()
+            e, m = maxabs(got, want), float(want.abs().max())
+            by_leaf[f"{ti}/{'/'.join(map(str, path[2:]))}"] = e / max(m,
+                                                                     1e-30)
+            err, top = max(err, e), max(top, m)
+        delta = max(delta, err / max(top, 1e-30))
+    if not (delta < ROUND_TOL and max(rel.values()) < ROUND_TOL):
+        fail(f"round card vs CPU: merged deltas {delta}, {rel}")
+    return {"config": f"SimConfig() defaults, train arch {cfg.name} "
+            f"({cfg.num_layers} layers, d {cfg.d_model}, head dim "
+            f"{cfg.resolved_head_dim}), f32", "tol": ROUND_TOL,
+            "step_loss_err": loss_err, "step_grad_max_abs_err": grad_abs,
+            "merged_delta_rel_err": delta,
+            "merged_delta_rel_err_by_leaf": by_leaf,
+            "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"],
+            "ranks": sorted({r for _, _, rs, _ in plans["cpu"] for r in rs}),
+            "active": [t["active"] for t in recs["cpu"]["tasks"]],
+            "accuracy_card": recs["cuda"]["accuracy"],
+            "accuracy_cpu": recs["cpu"]["accuracy"],
+            "card_round_ms": card_ms, "cpu_round_ms": cpu_ms,
+            "launches": launched, "lora_matmul_variants": lora_v,
+            "flash_attention_variants": flash_v,
+            "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
+            "flash_attention_by_shape": shapes.by_shape(shapes.flash)}
+
+
+def full_rounds(n_rounds=2):
+    """Phase 5b: rounds at the full width of vit-base-paper on the card,
+    each under a profiler window, then one more without it."""
+    sim = IoVSimulator(SimConfig(method="ours", engine="serial",
+                                 train_arch=vit_base_paper.vit_base_paper()),
+                       device="cuda")
+    cfg = sim.model_cfg
+    split = split_counts(sim)
+    out = []
+    reset_counts()
+    with ShapeCounter() as shapes:
+        for rnd in range(n_rounds):
+            before = {"train": dict(split["train"]),
+                      "eval": dict(split["eval"]),
+                      "steps": split["steps"], "evals": split["evals"]}
+            recs = []
+            prof = device_profile(lambda: recs.append(sim.run_round()),
+                                  top=6)
+            rec = recs[0]
+            losses = torch.stack(split["losses"]).cpu()
+            split["losses"] = []
+            finite = (bool(torch.isfinite(losses).all())
+                      and np.isfinite(rec["energy"])
+                      and np.isfinite(rec["accuracy"])
+                      and all(np.isfinite(t["energy"]) and
+                              np.isfinite(t["accuracy"])
+                              for t in rec["tasks"]))
+            if not finite:
+                fail(f"full-width round {rnd}: a loss, energy or accuracy "
+                     f"is not finite")
+            out.append({
+                "round": rnd, "wall_ms": prof["wall_ms"],
+                "device_ms": prof["device_ms"],
+                "busy_share": prof["busy_share"],
+                "kernels_in_trace": prof["kernels"],
+                "port_kernels": prof["port_kernels"], "top": prof["top"],
+                "train_steps": split["steps"] - before["steps"],
+                "evals": split["evals"] - before["evals"],
+                "launches": {kind: {k: v - before[kind].get(k, 0)
+                                    for k, v in split[kind].items()}
+                             for kind in ("train", "eval")},
+                "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
+                "active": {t["task"]: t["active"] for t in rec["tasks"]},
+                "energy": rec["energy"], "latency": rec["latency"],
+                "accuracy": rec["accuracy"],
+                "loss_first_last": [float(losses[0]), float(losses[-1])]})
+        launched = counts()
+        lora_v, flash_v = variant_counts(), flash_variant_counts()
+    for name in ("lora_matmul", "flash_attention"):
+        if launched[name] == 0:
+            fail(f"full-width rounds launched no {name}")
+    if lora_v["simt"] != launched["lora_matmul"] or \
+            flash_v["simt"] != launched["flash_attention"]:
+        fail(f"full-width rounds: f32 launches off the simt kernels "
+             f"{lora_v} {flash_v}")
+    # one more round, no profiler: the plain wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = sim.run_round()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return {"config": f"{cfg.name}, {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_heads} heads of "
+            f"{cfg.resolved_head_dim}, f32; SimConfig(method='ours', "
+            f"engine='serial') otherwise default",
+            "rounds": out, "launches": launched,
+            "lora_matmul_variants": lora_v,
+            "flash_attention_variants": flash_v,
+            "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
+            "flash_attention_by_shape": shapes.by_shape(shapes.flash),
+            "unprofiled_round": {"round": n_rounds, "wall_ms": plain_ms,
+                                 "energy": rec["energy"],
+                                 "accuracy": rec["accuracy"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -843,6 +1294,20 @@ def main() -> int:
               f"{st['us_per_chunk_step']:.3f} us (S 64 {st['ms_S64']:.4f} "
               f"ms, S 1024 {st['ms_S1024']:.4f} ms)", flush=True)
 
+    train_rows = check_lora_train() + check_flash_train()
+    for r in train_rows:
+        extra = (f", kernel alone {r['kernel_ms']:.4f} ms, backward "
+                 f"{r['bwd_ms']:.4f} ms (autograd of the plain version "
+                 f"{r['autograd_plain_bwd_ms']:.4f}, bound "
+                 f"{r['bwd_bound_ms']:.4f})"
+                 if r["name"] == "lora_matmul" else f", {r['block']}")
+        print(f"[2] train {r['name']} {r['model']} {r.get('linear', '')} "
+              f"{r['variant']} {r['dtype']} {r['shape']}: err "
+              f"{r['max_abs_err']:.3g} (tol {r['tol']}), backward err "
+              f"{r['bwd_err']:.3g}, ms {r['ms']:.4f}, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}){extra}", flush=True)
+
     pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100)]
     for par in pars:
         print(f"[3] {par['config']}: prefill max abs "
@@ -874,6 +1339,65 @@ def main() -> int:
                               f"x{t['count']}" for t in tr["top"][:4]),
                   flush=True)
 
+    # the round: each path driven with the counts set to 0 just before
+    # it and read just after (inside round_parity and full_rounds)
+    par5 = round_parity()
+    print(f"[5a] {par5['config']}, card vs CPU: train step loss err "
+          f"{par5['step_loss_err']:.3g}, grads max abs "
+          f"{par5['step_grad_max_abs_err']:.3g}; one round: ranks "
+          f"{par5['ranks']}, active {par5['active']} equal, merged deltas "
+          f"rel {par5['merged_delta_rel_err']:.3g}, energy rel "
+          f"{par5['energy_rel_err']:.3g}, latency rel "
+          f"{par5['latency_rel_err']:.3g} (tol {ROUND_TOL}); accuracy card "
+          f"{par5['accuracy_card']:.4f}, CPU {par5['accuracy_cpu']:.4f}; "
+          f"round {par5['card_round_ms']:.0f} ms on the card, "
+          f"{par5['cpu_round_ms']:.0f} ms on the CPU; launches "
+          f"{par5['launches']}", flush=True)
+    full = full_rounds()
+    for rd in full["rounds"]:
+        print(f"[5b] {full['config']}: round {rd['round']} wall "
+              f"{rd['wall_ms']:.1f} ms (profiled), device "
+              f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}; "
+              f"{rd['train_steps']} train steps, {rd['evals']} evals; "
+              f"launches in train steps {rd['launches']['train']}, in "
+              f"evals {rd['launches']['eval']}; ranks {rd['ranks']}, "
+              f"active {rd['active']}; energy {rd['energy']:.2f} J, "
+              f"accuracy {rd['accuracy']:.4f}, loss "
+              f"{rd['loss_first_last'][0]:.4f} -> "
+              f"{rd['loss_first_last'][1]:.4f}; port kernels: "
+              + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                          for k, t in rd["port_kernels"].items())
+              + "; top: " + "; ".join(f"{t['kernel'][:40]} {t['ms']:.2f} "
+                                      f"ms x{t['count']}"
+                                      for t in rd["top"][:4]), flush=True)
+    up = full["unprofiled_round"]
+    print(f"[5b] round {up['round']} without the profiler: wall "
+          f"{up['wall_ms']:.1f} ms; launches over the profiled rounds "
+          f"{full['launches']}; lora_matmul by shape (rows x K x N x r x "
+          f"dtype) "
+          f"{full['lora_matmul_by_shape']}; flash by shape "
+          f"{full['flash_attention_by_shape']}", flush=True)
+    round_paths = {"vit-tiny-paper round (5a)": par5["launches"],
+                   "vit-base-paper 2 rounds (5b)": full["launches"]}
+    # launches per round at each training row's shape: vit-base-paper's
+    # averaged over the two rounds of 5b, vit-tiny-paper's from 5a's one
+    per_round = {}
+    for model, run, n in (("vit-base-paper", full, len(full["rounds"])),
+                          ("vit-tiny-paper", par5, 1)):
+        for name in ("lora_matmul", "flash_attention"):
+            for k, v in run[f"{name}_by_shape"].items():
+                *dims, dt = k.split("x")
+                key = (model, name, dt) + tuple(int(x) for x in dims)
+                per_round[key] = v / n
+    for r in train_rows:
+        r["launches_per_round"] = per_round.get(
+            (r["model"], r["name"], r["dtype"]) + tuple(r["key"]), 0)
+    print("[5] launches per round at the training shapes of phase 2: "
+          + "; ".join(f"{r['name']} {r['model']} {r['dtype']} {r['shape']} "
+                      f"{r['launches_per_round']:g}" for r in train_rows),
+          flush=True)
+    rows += train_rows
+
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
     # in bf16; wkv6: rwkv6-7b's prefill shape in the model's own dtypes),
@@ -888,15 +1412,21 @@ def main() -> int:
         mine = [r for r in rows if r["name"] == name]
         head = next(r for r in mine if pick(r))
         by_path = {run["model"]: run["launches"][name] for run in runs}
+        if name != "wkv6":
+            by_path.update({p: c[name] for p, c in round_paths.items()})
         extra = {}
         if name == "lora_matmul":
             extra["launches_by_variant"] = {
                 k: sum(run["lora_matmul_variants"][k] for run in runs)
+                + par5["lora_matmul_variants"][k]
+                + full["lora_matmul_variants"][k]
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
         if name == "flash_attention":
             extra["launches_by_variant"] = {
                 k: sum(run["flash_attention_variants"][k] for run in runs)
+                + par5["flash_attention_variants"][k]
+                + full["flash_attention_variants"][k]
                 for k in fa_ops.launches_by_variant}
             extra["block"] = head["block"]
         if name == "wkv6":
@@ -918,7 +1448,8 @@ def main() -> int:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_seconds": secs, "shared_memory_bytes": smem,
                    "wkv6_chunk_steps": steps, "kernels": entries,
-                   "parity": pars, "served": runs}, fh, indent=1)
+                   "parity": pars, "served": runs, "round_parity": par5,
+                   "full_rounds": full}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

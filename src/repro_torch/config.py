@@ -1,13 +1,19 @@
-"""Configuration for the PyTorch port: the serving slice's own copies.
+"""Configuration for the PyTorch port: its own copies of the reference's.
 
 The port imports nothing from ``repro``, so it keeps its own copies of
-the pieces of ``repro/config.py`` the serving slices read: the block-kind
+the pieces of ``repro/config.py`` the ported slices read: the block-kind
 constants, :class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
-:class:`ServeSpec` and the ``--arch`` registry. Each keeps the reference's
-names, defaults and validation for the fields it has; fields only the
-unported parts read (MoE/MLA/SSM sub-configs, modality frontends,
-candidate ranks, buffer donation, adapter-cache and block-pool sizes) are
-left out until a slice needs them.
+:class:`ServeSpec`, the federated round's configs (:class:`UCBDualConfig`,
+:class:`EnergyAllocConfig`, :class:`MobilityConfig`) and scenario specs
+(:class:`TraceSpec`, :class:`OutageSpec`, :class:`RSUTierSpec`,
+:class:`ParticipationSpec`, :class:`ShardSpec`, :class:`CheckpointSpec`),
+and the ``--arch`` registry. Each keeps the reference's names, defaults
+and validation for the fields it has; fields only the unported parts read
+(MoE/MLA/SSM sub-configs, modality frontends, buffer donation,
+adapter-cache and block-pool sizes) are left out until a slice needs them.
+The spec classes are data here: the simulator refuses the non-trivial
+tiers, participation modes, shardings, checkpoints and traces it does not
+run yet.
 """
 from __future__ import annotations
 
@@ -74,18 +80,238 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_counts(self) -> Dict[str, float]:
+        """Approximate parameter counts, total and active per token (the
+        reference's, for the block kinds this config can describe)."""
+        d, f = self.d_model, self.d_ff
+        hd = self.resolved_head_dim if self.num_heads > 0 else 0
+        nq, nkv = self.num_heads, self.num_kv_heads
+        glu = self.activation in ("swiglu", "geglu")
+        per_mlp = d * f * (3 if glu else 2)
+        counts = {"embed": self.d_model * self.vocab_size *
+                  (1 if self.tie_embeddings else 2)}
+        total = active = 0.0
+        for kind in self.blocks():
+            if kind in (BLOCK_ATTN, BLOCK_SHARED_ATTN):
+                blk = d * hd * (nq + 2 * nkv) + nq * hd * d + per_mlp
+            elif kind == BLOCK_RWKV6:
+                r = self.rwkv
+                tm = d * d * 4 + d * r.gate_lora * 2 + d * r.decay_lora * 2
+                cm = d * int(3.5 * d) * 2 if f == 0 else d * f * 2
+                blk = tm + cm
+            else:
+                raise NotImplementedError(
+                    f"{self.name}: the port counts the params of 'attn' and "
+                    f"'rwkv6' blocks only, not {kind!r}")
+            total += blk
+            active += blk
+        counts["blocks_total"] = total
+        counts["blocks_active"] = active
+        counts["total"] = total + counts["embed"]
+        counts["active"] = active + counts["embed"]
+        return counts
+
 
 @dataclass(frozen=True)
 class LoRAConfig:
     rank: int = 8                      # current rank (per-client, adaptive)
-    max_rank: int = 64                 # server-side truncated-SVD depth
+    max_rank: int = 64                 # η_max: server-side truncated-SVD depth
     alpha: float = 16.0                # scaling: s = alpha / rank
+    candidate_ranks: Tuple[int, ...] = (2, 4, 8, 16, 32, 64)   # φ_η
     target_attn: bool = True
     target_mlp: bool = True
+    dropout: float = 0.0
 
     @property
     def scale(self) -> float:
         return self.alpha / max(self.rank, 1)
+
+
+# ---------------------------------------------------------------------------
+# The federated round (the paper's method)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class UCBDualConfig:
+    """Algorithm 2 (UCB-DUAL) hyper-parameters — paper §V-A values."""
+    alpha: float = 0.5        # latency weight in reward
+    gamma: float = 2.0        # accuracy weight in reward
+    epsilon: float = 1.4142135623730951   # exploration factor √2
+    omega: float = 0.05       # dual learning rate
+    lambda_init: float = 0.0
+    # reward latency normalization τ/τ_ref (raw 50–80 s latencies with
+    # α = 0.5 would make rewards hugely negative)
+    latency_ref: float = 60.0
+
+
+@dataclass(frozen=True)
+class EnergyAllocConfig:
+    """Algorithm 1 (inter-task budget allocation) hyper-parameters."""
+    e_total: float = 4000.0   # global per-round energy budget (J)
+    warmup_q: int = 6         # reallocation period Q
+    xi: float = 0.7           # EMA smoothing ξ
+    zeta: float = 1.5         # difficulty amplification ζ > 1
+    task_cap_frac: float = 0.7
+
+
+@dataclass(frozen=True)
+class MobilityConfig:
+    beta: float = 1.0          # energy weight in fallback costs
+    accuracy_threshold: float = 0.6   # q*_v
+    migration_latency: float = 2.0    # τ^mig baseline (s)
+    migration_energy: float = 30.0    # e^mig baseline (J)
+
+
+@dataclass(frozen=True)
+class TraceSpec:
+    """Declarative trajectory source for the mobility model: pre-staged
+    per-round positions and presence instead of online Gauss-Markov
+    dynamics. The port keeps the spec as data; replaying it waits for the
+    scenarios slice (the mobility model raises)."""
+    kind: str = "synthetic"      # "synthetic" | "tdrive"
+    length: int = 64             # staged round ticks; replay wraps modulo
+    path: Optional[str] = None   # tdrive: path to a T-Drive format file
+    max_gap_s: float = 600.0     # tdrive: gaps beyond this mark absence
+    mean_speed: float = 10.0     # m/s
+    speed_std: float = 3.0
+    gm_alpha: float = 0.85       # velocity memory
+    hotspot_pull: float = 0.35   # attraction toward the nearest RSU center
+    corridor_frac: float = 0.0   # >0: motion confined to a corridor
+    arrivals: str = "all"        # "all" | "staggered" | "waves"
+    min_dwell: int = 6           # minimum rounds a vehicle stays present
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RSUTierSpec:
+    """Two-tier RSU hierarchy: ``num_rsus_per_task`` RSUs per task, each
+    aggregating into a partial, merged every ``sync_period`` rounds with
+    staleness-discounted weights; a handoff between two RSUs of a task
+    charges the migration penalty. The trivial tier (one RSU, sync every
+    round) is the only one the port's simulator runs yet."""
+    num_rsus_per_task: int = 1
+    sync_period: int = 1
+    staleness_decay: float = 0.6
+    handoff_energy: float = 0.0    # J
+    handoff_latency: float = 0.0   # s
+
+    @property
+    def trivial(self) -> bool:
+        return self.num_rsus_per_task == 1 and self.sync_period == 1
+
+    def __post_init__(self):
+        if self.num_rsus_per_task < 1:
+            raise ValueError("num_rsus_per_task must be >= 1")
+        if self.sync_period < 1:
+            raise ValueError("sync_period must be >= 1")
+        if not 0.0 < self.staleness_decay <= 1.0:
+            raise ValueError("staleness_decay must be in (0, 1]")
+        if self.handoff_energy < 0.0 or self.handoff_latency < 0.0:
+            raise ValueError("handoff penalties must be >= 0 (a negative "
+                             "penalty would subsidize re-associations)")
+
+
+@dataclass(frozen=True)
+class ParticipationSpec:
+    """When a vehicle's upload lands: ``"sync"`` drops a missed upload;
+    ``"semi_sync"`` buffers it and lands it up to ``max_delay`` rounds
+    late at weight ``w · vehicle_staleness_decay**k``. The port's
+    simulator runs ``"sync"`` only, yet."""
+    mode: str = "sync"
+    max_delay: int = 3
+    vehicle_staleness_decay: float = 0.6
+    buffer_handoffs: bool = True
+
+    @property
+    def trivial(self) -> bool:
+        return self.mode == "sync"
+
+    def __post_init__(self):
+        if self.mode not in ("sync", "semi_sync"):
+            raise ValueError("mode must be 'sync' or 'semi_sync', got "
+                             f"{self.mode!r}")
+        if self.max_delay < 0:
+            raise ValueError("max_delay must be >= 0")
+        if not 0.0 < self.vehicle_staleness_decay <= 1.0:
+            raise ValueError("vehicle_staleness_decay must be in (0, 1]")
+
+    @classmethod
+    def of(cls, value) -> "ParticipationSpec":
+        """A spec passes through; ``"sync"`` / ``"semi-sync"`` /
+        ``"semi_sync"`` build one with the default knobs."""
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, str):
+            name = value.replace("-", "_")
+            if name == "sync":
+                return cls()
+            if name == "semi_sync":
+                return cls(mode="semi_sync")
+            raise ValueError(f"unknown participation mode {value!r} "
+                             "(want 'sync' or 'semi-sync')")
+        raise TypeError("participation must be a ParticipationSpec or a "
+                        f"mode string, got {type(value).__name__}")
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """Fleet-axis device sharding of the fused round engine;
+    ``num_shards=1`` is the trivial spec, 0 means every visible card."""
+    num_shards: int = 1
+    axis_name: str = "fleet"
+    placement: str = "roundrobin"   # "roundrobin" | "block"
+
+    @property
+    def trivial(self) -> bool:
+        return self.num_shards == 1
+
+    def resolve(self) -> int:
+        """Concrete shard count (0 ⇒ every visible card)."""
+        if self.num_shards == 0:
+            import torch
+            return torch.cuda.device_count()
+        return self.num_shards
+
+    def __post_init__(self):
+        if self.num_shards < 0:
+            raise ValueError("num_shards must be >= 0 (0 = all devices)")
+        if self.placement not in ("roundrobin", "block"):
+            raise ValueError(
+                f"placement must be 'roundrobin' or 'block', "
+                f"not {self.placement!r}")
+        if not self.axis_name:
+            raise ValueError("axis_name must be non-empty")
+
+
+@dataclass(frozen=True)
+class CheckpointSpec:
+    """Checkpoint every ``interval`` completed rounds into ``dir``, keeping
+    the newest ``keep_last`` (0 keeps all); ``interval=0`` is off."""
+    interval: int = 0
+    dir: Optional[str] = None
+    keep_last: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.interval > 0
+
+    def __post_init__(self):
+        if self.interval < 0:
+            raise ValueError("checkpoint interval must be >= 0 (0 = off)")
+        if self.keep_last < 0:
+            raise ValueError("keep_last must be >= 0 (0 = keep all)")
+        if self.interval > 0 and not self.dir:
+            raise ValueError(
+                "an enabled CheckpointSpec (interval > 0) needs a dir")
+
+
+@dataclass(frozen=True)
+class OutageSpec:
+    """RSU ``rsu_id`` has zero effective radius for rounds
+    ``start <= round < end`` (0-based)."""
+    rsu_id: int
+    start: int
+    end: int
 
 
 @dataclass(frozen=True)

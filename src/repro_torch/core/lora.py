@@ -113,6 +113,44 @@ def apply_lora_linear(base: Dict[str, torch.Tensor],
     return y
 
 
+def merge_delta(adapter: Adapter, scale: float) -> torch.Tensor:
+    """Δθ = scale · A·B, shape (d_in, d_out) (or (L, d_in, d_out))."""
+    return scale * (adapter["a"] @ adapter["b"])
+
+
+def factors_from_svd(u: torch.Tensor, s: torch.Tensor, vt: torch.Tensor,
+                     rank: int, scale: float, balanced: bool = False
+                     ) -> Adapter:
+    """Truncated-SVD factors for client redistribution.
+
+    Default is the paper's split (Fig. 3): a = UΣ/scale, b = Vᵀ, so that
+    scale·a·b is the rank-``rank`` truncation. ``balanced=True`` splits
+    √Σ between the factors (an ablation the reference keeps: with Σ ≈ 0
+    early in training it zeroes both factors).
+    """
+    if balanced:
+        root = torch.sqrt(torch.clamp(s[:rank], min=0.0) / scale)
+        a = u[:, :rank] * root[None, :]
+        b = root[:, None] * vt[:rank, :]
+    else:
+        a = (u[:, :rank] * s[:rank][None, :]) / scale
+        b = vt[:rank, :]
+    return {"a": a, "b": b}
+
+
+def adapter_num_params(d_in: int, d_out: int, rank: int) -> int:
+    return rank * (d_in + d_out)
+
+
+def count_params(adapters: Any) -> int:
+    """Elements over every tensor leaf of a tree."""
+    if isinstance(adapters, dict):
+        return sum(count_params(v) for v in adapters.values())
+    if isinstance(adapters, (list, tuple)):
+        return sum(count_params(v) for v in adapters)
+    return int(adapters.numel())
+
+
 # ---------------------------------------------------------------------------
 # Rank padding: a rank-r adapter zero-padded to max_rank behaves exactly
 # like the rank-r adapter (the tail contributes 0 to (x·A)·B), which is

@@ -49,6 +49,12 @@
 // 0.12 GFLOP (0.1 us at 989 TFLOP/s); launch and the latency of the first
 // loads dominate.
 //
+// Head dim 16 (the reduced ViT's) runs on both: in fa_mma_kernel Q·Kᵀ
+// is one m16n8k16 k-step and P·V two n8 tiles (one ldmatrix.x4.trans),
+// with 32-byte rows padded to 48 bytes, whose 8-row ldmatrix phases
+// still fall on distinct banks; in fa_kernel lanes 16 .. 31 hold no
+// output column.
+//
 // fa_kernel — SIMT f32 FMA (the first port's kernel), for f32: tensor
 // cores take f32 only as TF32, which breaks the f32 tolerance of 2e-5.
 // Grid
@@ -371,7 +377,9 @@ __global__ void __launch_bounds__(NWARPS * 32)
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
           int Hkv, float sm_scale, int causal, int window) {
-  constexpr int NJ = D / 32;           // output columns per lane
+  // output columns per lane: lane j holds columns j, j + 32, ...; at
+  // D 16 one column, on lanes 0 .. 15 only (the rest skip P·V and store)
+  constexpr int NJ = (D + 31) / 32;
   extern __shared__ float smem[];
   float* qs = smem;                    // BQ x D
   float* ks = qs + BQ * D;             // BK x (D + 1)
@@ -449,9 +457,11 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
+        const int col = lane + 32 * j;
+        if (D % 32 != 0 && col >= D) continue;
         float a = acc[rr][j] * corr;
 #pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) a = fmaf(ps[row * BK + kk], vs[kk * D + lane + 32 * j], a);
+        for (int kk = 0; kk < BK; ++kk) a = fmaf(ps[row * BK + kk], vs[kk * D + col], a);
         acc[rr][j] = a;
       }
       __syncwarp();
@@ -464,8 +474,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= Sq) continue;
     const float den = fmaxf(l[rr], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      op[(size_t)qi * q_stride + lane + 32 * j] = acc[rr][j] / den;
+    for (int j = 0; j < NJ; ++j) {
+      const int col = lane + 32 * j;
+      if (D % 32 == 0 || col < D) op[(size_t)qi * q_stride + col] = acc[rr][j] / den;
+    }
   }
 }
 
@@ -491,6 +503,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
              int B, int Sq, int Sk, int H, int Hkv, float sm_scale,
              int causal, int window, cudaStream_t s) {
   switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
@@ -502,6 +515,7 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v, void* o,
                  int B, int Sq, int Sk, int H, int Hkv, float sm_scale,
                  int causal, int window, int tiles, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_mma<16>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
@@ -536,6 +550,7 @@ extern "C" int flash_attention_launch(int variant, const void* q, const void* k,
 // not take.
 extern "C" int flash_attention_smem_bytes(int variant, int D, int tiles) {
   switch (D) {
+    case 16: return (int)(variant ? mma_smem_bytes<16>(tiles) : smem_bytes<16>());
     case 32: return (int)(variant ? mma_smem_bytes<32>(tiles) : smem_bytes<32>());
     case 64: return (int)(variant ? mma_smem_bytes<64>(tiles) : smem_bytes<64>());
     case 128: return (int)(variant ? mma_smem_bytes<128>(tiles) : smem_bytes<128>());

@@ -21,9 +21,14 @@ Python, so the CPU tests check them. Each call is one launch.
 ``launches`` counts kernel launches, and nothing else;
 ``launches_by_variant`` splits the same count by kernel.
 
-Gradients: an ``autograd.Function`` whose backward differentiates the
-plain version, as the reference's ``custom_vjp`` does. Serving needs no
-gradients; the Function is only entered when one is asked for.
+Gradients: an ``autograd.Function`` with a closed-form backward in plain
+PyTorch (the reference has no backward kernel either; its ``custom_vjp``
+differentiates its plain version). With u = (g·Bᵀ)⊙mask:
+dx = g·Wᵀ + scale·u·Aᵀ, dA = scale·xᵀ·u, dB = scale·((x·A)⊙mask)ᵀ·g, and
+dW = xᵀ·g only when W asks for a grad (a frozen base never does). The
+forward saves t = x·A, so the backward recomputes neither t nor the base
+product x·W. Serving needs no gradients; the Function is only entered
+when one is asked for.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref
+from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref_t
 
 launches = 0
 launches_by_variant = {"wgmma": 0, "splitk": 0, "simt": 0}
@@ -188,31 +193,54 @@ def _launch(x, w, t, b, scale, mask) -> torch.Tensor:
     return y
 
 
-def _forward(x, w, a, b, scale, mask) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return lora_matmul_ref(x, w, a, b, scale, mask)
-    if x.device.type != "cuda":
+def _forward(x, w, a, b, scale, mask):
+    """(y, t): the result and t = x·A, which the backward reuses."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lora_matmul runs on cuda or cpu, not {x.device}")
     t = x.to(a.dtype) @ a
-    return _launch(x, w, t, b, scale, mask)
+    if x.device.type == "cpu":
+        return lora_matmul_ref_t(x, w, t, b, scale, mask), t
+    return _launch(x, w, t, b, scale, mask), t
+
+
+def lora_matmul_backward(g, x, w, a, b, scale, mask, t, needs):
+    """Closed-form gradients of y = x·W + scale·((x·A)⊙mask)·B per lane,
+    for the operands flagged in ``needs`` (x, w, a, b, scale, mask);
+    None for the rest. g (L, M, N) is dL/dy; t = x·A from the forward.
+    The adapter terms run in f32 (the adapters' dtype); dx and dW come
+    back in x's dtype."""
+    need_x, need_w, need_a, need_b, need_s, need_m = needs
+    gf = g.to(a.dtype)
+    s3 = scale[:, None, None]
+    gb = gf @ b.transpose(1, 2)                        # (L, M, r)
+    u = gb * mask[:, None, :]
+    dx = dw = da = db = ds = dm = None
+    if need_x:
+        dx = g @ w.T + (s3 * (u @ a.transpose(1, 2))).to(x.dtype)
+    if need_w:       # one product over every lane's rows
+        dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+    if need_a:
+        da = s3 * (x.to(a.dtype).transpose(1, 2) @ u)
+    if need_b:
+        db = s3 * ((t * mask[:, None, :]).transpose(1, 2) @ gf)
+    if need_s:
+        ds = (gf * ((t * mask[:, None, :]) @ b)).sum((1, 2))
+    if need_m:
+        dm = (s3 * gb * t).sum(1)
+    return dx, dw, da, db, ds, dm
 
 
 class _LoraMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, a, b, scale, mask):
-        ctx.save_for_backward(x, w, a, b, scale, mask)
-        return _forward(x, w, a, b, scale, mask)
+        y, t = _forward(x, w, a, b, scale, mask)
+        ctx.save_for_backward(x, w, a, b, scale, mask, t)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need) for t, need
-                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            y = lora_matmul_ref(*inputs)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, g, allow_unused=True))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs)
+        return lora_matmul_backward(g.contiguous(), *ctx.saved_tensors,
+                                    ctx.needs_input_grad)
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -223,4 +251,4 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     operands = (x, w, a, b, scale, mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         return _LoraMatmul.apply(*operands)
-    return _forward(*operands)
+    return _forward(*operands)[0]

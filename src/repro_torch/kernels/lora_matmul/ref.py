@@ -20,7 +20,12 @@ def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     x (L, M, K), w (K, N), a (L, K, r), b (L, r, N), scale (L,),
     mask (L, r) → (L, M, N) in x.dtype.
     """
-    t = x.to(a.dtype) @ a
+    return lora_matmul_ref_t(x, w, x.to(a.dtype) @ a, b, scale, mask)
+
+
+def lora_matmul_ref_t(x, w, t, b, scale, mask) -> torch.Tensor:
+    """:func:`lora_matmul_ref` given t = x·A (the same operations after
+    it), for callers that keep t."""
     t = t * mask[:, None, :]
     y = x @ w
     return y + (scale[:, None, None] * (t @ b)).to(y.dtype)

@@ -13,6 +13,7 @@ Public API:
     forward(params, adapters, cfg, lora, batch)       -> (logits, aux)
     decode_step(params, adapters, cfg, lora, token, caches, position)
     init_caches(cfg, batch, cache_len, dtype, device)
+    loss_fn(params, adapters, cfg, lora, batch)       -> (loss, metrics)
 
 Block kinds other than ``attn`` and ``rwkv6`` (MLA, MoE, Mamba2, zamba2's
 shared attention) raise ``NotImplementedError``.
@@ -140,12 +141,16 @@ def _lora_targets(kind: str, cfg: ModelConfig, lora: LoRAConfig):
 
 def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
                   dtype=torch.float32, rank: Optional[int] = None,
-                  device="cuda") -> Dict:
-    """Adapter tree mirroring the (stacked) param structure."""
+                  device="cuda",
+                  generator: Optional[torch.Generator] = None) -> Dict:
+    """Adapter tree mirroring the (stacked) param structure, drawn from
+    ``generator`` (which then fixes the device) or from a fresh one
+    seeded with ``seed`` on ``device``."""
     _check_ported(cfg)
-    dev = resolve_device(device)
     rank = rank or lora.rank
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     out: Dict[str, Any] = {"segments": []}
     for kind, n in segments_of(cfg):
         seg_ad: Dict[str, Any] = {}
@@ -298,3 +303,60 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     x = _run_layers(params, adapters, x, cfg, scale, positions, window,
                     caches=caches)
     return _lm_head(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _ce_of(params, cfg, h_blk, lab_blk, mask_blk):
+    logits = _lm_head(params, cfg, h_blk)
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(lp, -1, lab_blk[..., None])[..., 0]
+    hit = (torch.argmax(logits, -1) == lab_blk).float()
+    return -torch.sum(ll * mask_blk), torch.sum(hit * mask_blk)
+
+
+def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
+            batch: Dict, *, ce_chunk: int = 0, scale=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE, or classification CE when ``labels`` has rank 1.
+
+    batch: tokens (B, S) int64; labels (B, S) shifted targets with -100 =
+    masked, or (B,) class labels (ViT-style classification on the last
+    position, the paper's tasks). ce_chunk > 0: the lm head and CE run
+    over sequence chunks of that size, each recomputed in the backward
+    pass (torch.utils.checkpoint), so at most B x chunk x V logits live at
+    once. Returns (loss + aux, {"loss", "aux", "accuracy"}).
+    """
+    hidden, aux = forward_hidden(params, adapters, cfg, lora, batch,
+                                 scale=scale)
+    labels = batch["labels"]
+    if labels.dim() == 1:
+        cls_logits = _lm_head(params, cfg, hidden[:, -1, :])
+        lp = torch.log_softmax(cls_logits.float(), dim=-1)
+        ll = torch.gather(lp, -1, labels[:, None])[:, 0]
+        loss = -torch.mean(ll)
+        acc = torch.mean((torch.argmax(cls_logits, -1) == labels).float())
+        return loss + aux, {"loss": loss, "aux": aux, "accuracy": acc}
+    npref = hidden.shape[1] - labels.shape[1]
+    hidden = hidden[:, npref:, :]
+    mask = (labels >= 0).float()
+    lab = torch.clamp(labels, min=0)
+    S = hidden.shape[1]
+    if ce_chunk and S % ce_chunk == 0 and S > ce_chunk:
+        from torch.utils.checkpoint import checkpoint
+        loss_sum = hit_sum = torch.zeros((), dtype=torch.float32,
+                                         device=hidden.device)
+        for c0 in range(0, S, ce_chunk):
+            sl = slice(c0, c0 + ce_chunk)
+            l, h = checkpoint(_ce_of, params, cfg, hidden[:, sl],
+                              lab[:, sl], mask[:, sl], use_reentrant=False)
+            loss_sum = loss_sum + l
+            hit_sum = hit_sum + h
+    else:
+        loss_sum, hit_sum = _ce_of(params, cfg, hidden, lab, mask)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = loss_sum / denom
+    acc = hit_sum / denom
+    return loss + aux, {"loss": loss, "aux": aux, "accuracy": acc}

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.config import LoRAConfig, ServeSpec
-from repro_torch.configs import qwen2_0_5b, rwkv6_7b
+from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper
 from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.lora_matmul import ops as lm_ops
@@ -27,7 +27,9 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.launch.adapter_cache import PagedAdapter
 from repro_torch.launch.serve import ServeEngine, make_prefill_step
+from repro_torch.federated.client import LocalTrainer
 from repro_torch.models import transformer as T
+from repro_torch.sim.simulator import IoVSimulator, SimConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -508,3 +510,117 @@ def test_reduced_rwkv6_on_card_matches_cpu(cuda_device):
         if step == 4:
             for eng in engines.values():
                 eng.retire(1)
+
+
+# ---------------------------------------------------------------------------
+# The federated round's shapes and paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,window", [
+    (10, 24, 4, 4, None),     # the reduced ViT's train step
+    (32, 24, 4, 4, None),     # its local eval
+    (2, 100, 4, 2, 16),       # ragged, GQA, a window
+    (1, 9, 2, 2, None),       # one partial q tile
+    (2, 130, 4, 4, None),     # three kv tiles of the mma kernel
+])
+def test_flash_head_dim_16(cuda_device, B, S, H, Hkv, window, dtype, tol):
+    """Head dim 16 on both kernels: the mma kernel's single k-step and
+    two n8 tiles with 48-byte rows, the SIMT kernel's half-warp columns."""
+    q, k, v = _fa_operands(B * S + H, B, S, H, Hkv, 16, dtype, cuda_device)
+    kind = "mma" if dtype == torch.bfloat16 else "simt"
+    got = _count_flash(kind, lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
+    want = fa_ops._plain(q, k, v, True, window, 16 ** -0.5)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("shape", [(1, 240, 768, 768, 2),
+                                   (1, 240, 768, 3072, 32),
+                                   (1, 240, 3072, 768, 4),
+                                   (2, 100, 70, 50, 8), (4, 1, 96, 200, 16)],
+                         ids=["train_768", "train_up", "train_down",
+                              "lanes_ragged", "decode_lanes"])
+def test_lora_matmul_closed_form_backward_on_card(cuda_device, shape):
+    """The closed-form backward (every operand asks for a grad) against
+    autograd of the plain version on the card, within 1e-4 of each
+    gradient's largest entry (f32 summation order, TF32 off)."""
+    L, M, K, N, r = shape
+    args = _lm_operands(sum(shape), L, M, K, N, r, torch.float32,
+                        cuda_device)
+    g = torch.randn((L, M, N), generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+
+    def grads(fn):
+        ins = [t.detach().requires_grad_() for t in args]
+        return torch.autograd.grad(fn(*ins), ins, g)
+    lm0 = lm_ops.launches
+    got = grads(lm_ops.lora_matmul)
+    assert lm_ops.launches == lm0 + 1       # the backward launches nothing
+    want = grads(lora_matmul_ref)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))
+
+
+def _nontrivial(ads, seed):
+    g = torch.Generator().manual_seed(seed)
+    return {"segments": [{k: {n: {"a": v["a"], "b": 0.02 * torch.randn(
+        v["b"].shape, generator=g)} for n, v in blk.items()}
+        for k, blk in seg.items()} for seg in ads["segments"]]}
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One local train step of the reduced ViT (head dim 16): loss and
+    updated adapters on the card == on the CPU (1e-4), with every
+    targeted linear (6 per layer) and every attention on the kernels."""
+    cfg = vit_base_paper.reduced()
+    lora = LoRAConfig(rank=8, max_rank=32)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ads = _nontrivial(T.init_adapters(cfg, lora, seed=1, device="cpu"), 2)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (10, 24)),
+             "labels": rng.integers(0, 6, (10,))}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tr = LocalTrainer(cfg, lora, lr=5e-3, device=dev)
+        lm0, fa0 = lm_ops.launches, fa_ops.launches
+        ad = _to(ads, dev)
+        new, _, m = tr.train_step(_to(params, dev), ad, tr.opt.init(ad),
+                                  tr._batch(batch),
+                                  torch.ones(cfg.num_layers, device=dev))
+        out[str(dev)] = (new, m, lm_ops.launches - lm0,
+                         fa_ops.launches - fa0)
+    new_g, m_g, lm_n, fa_n = out[str(cuda_device)]
+    new_c, m_c, lm_c, fa_c = out["cpu"]
+    assert (lm_c, fa_c) == (0, 0)
+    assert lm_n == 6 * cfg.num_layers and fa_n == cfg.num_layers
+    assert abs(float(m_g["loss"]) - float(m_c["loss"])) < 1e-4
+    for seg_g, seg_c in zip(new_g["segments"], new_c["segments"]):
+        for blk in seg_c:
+            for n in seg_c[blk]:
+                for f in ("a", "b"):
+                    assert float((seg_g[blk][n][f].cpu()
+                                  - seg_c[blk][n][f]).abs().max()) < 1e-4
+
+
+def test_round_on_card_matches_cpu(cuda_device):
+    """Two rounds of the port's simulator, 6 vehicles and 2 tasks, on the
+    card and on the CPU from one seed: the same records (integers exactly;
+    energy, latency and accuracy within 1e-4 relative)."""
+    kw = dict(method="ours", engine="serial", num_vehicles=6, num_tasks=2,
+              local_steps=2)
+    hist = {dev: IoVSimulator(SimConfig(**kw), device=dev).run(2)
+            for dev in ("cpu", "cuda")}
+    for rc, rg in zip(hist["cpu"], hist["cuda"]):
+        for tc, tg in zip(rc["tasks"], rg["tasks"]):
+            for key in ("active", "departing", "fallbacks", "comm_params",
+                        "mean_rank"):
+                assert tg[key] == tc[key], key
+            for key in ("energy", "latency", "accuracy"):
+                assert abs(tg[key] - tc[key]) <= 1e-4 * max(1.0,
+                                                            abs(tc[key]))

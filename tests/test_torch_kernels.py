@@ -116,17 +116,21 @@ def test_lora_matmul_rank_mask_equals_truncated(r):
 
 
 def test_lora_matmul_grads_match_plain_autodiff():
-    """The autograd.Function's backward (recompute through the plain
-    version) == autodiff of the plain version."""
+    """The autograd.Function's closed-form backward == autodiff of the
+    plain version, within 1e-6 (the closed form applies the scale at
+    another point of the products), for every operand."""
     x, w, a, b = _lm_operands(4, 2, 6, 12, 10, 4)
     ins = [t.requires_grad_() for t in _t(x, w, a, b)]
-    scale, mask = torch.tensor([1.0, 2.0]), torch.ones(2, 4)
+    ins += [torch.tensor([1.0, 2.0]).requires_grad_(),
+            rank_arange_mask(torch.tensor([4, 3]), 4).requires_grad_()]
     g_kernel = torch.autograd.grad(
-        lm_ops.lora_matmul(*ins, scale, mask).square().sum(), ins)
+        lm_ops.lora_matmul(*ins).square().sum(), ins)
     g_plain = torch.autograd.grad(
-        lora_matmul_ref(*ins, scale, mask).square().sum(), ins)
+        lora_matmul_ref(*ins).square().sum(), ins)
     for got, want in zip(g_kernel, g_plain):
-        assert torch.equal(got, want)
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) < 1e-6 * max(
+            1.0, float(want.abs().max()))
 
 
 @pytest.mark.parametrize("bad", ["rank", "lanes", "dtype", "adapter_dtype",
@@ -335,10 +339,10 @@ def test_flash_variant_rule(dtype, D, kind):
 
 
 @pytest.mark.parametrize("dtype", [_BF16, _F32])
-@pytest.mark.parametrize("D", [16, 256])
+@pytest.mark.parametrize("D", [8, 256])
 def test_flash_variant_refuses_other_head_dims(dtype, D):
-    """Neither kernel is built for a head dim outside HEAD_DIMS (the
-    reduced ViT's 16 among them): the route raises, on the card, before
+    """Neither kernel is built for a head dim outside HEAD_DIMS (16, the
+    reduced ViT's, is one of them): the route raises, on the card, before
     any launch."""
     with pytest.raises(ValueError):
         fa_ops.variant(dtype, D)

@@ -101,7 +101,7 @@ def test_lora_and_serve_spec_copies_match_reference():
     with pytest.raises(ValueError):
         ServeSpec(admission="lifo")
     assert get_arch("qwen2-0.5b") == qwen2_0_5b.qwen2_0_5b()
-    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b"]
+    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b", "vit-base-paper"]
 
 
 def test_interop_round_trip_is_exact(weights):
