@@ -56,11 +56,13 @@ nothing is caught):
    finite and both kernels must have launched.
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
-Phase 2 also holds the kernels at the round's training shapes: f32
-``lora_matmul`` (simt) at 240 rows (B 10 x S 24) for 768->768, 768->3072
-and 3072->768 at ranks 2 and 32, with its closed-form backward against
-autograd of the plain version; flash attention in f32 and bf16 at head
-dim 16 (4 heads) and 64 (12 heads), S 24, with its backward.
+Phase 2 also holds the kernels at the round's shapes: f32
+``lora_matmul`` (simt) for 768->768, 768->3072 and 3072->768 at a train
+step's 240 rows (B 10 x S 24; ranks 2, 4 and 32, with the closed-form
+backward against autograd of the plain version), a local eval's 768
+(ranks 2 and 4) and the largest global eval's 8064 (rank 32); flash
+attention at S 24 in f32 and bf16 at a train step's B 10 with head dim
+16 (4 heads) and 64 (12 heads), and in f32 at the evals' B 32 and 336.
 
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 Details go to chiprun_out/chip_smoke.json.
@@ -606,9 +608,9 @@ def wkv_chunk_steps(cfg):
 # a local train step: B 10 samples of S 24 tokens (SimConfig's batch and
 # the synthetic tasks' length)
 TRAIN_B, TRAIN_S = 10, 24
-# the closed-form LoRA backward and the flash recompute on the card
-# against autograd of the plain versions: 1e-4 of each gradient's largest
-# entry (at least 1e-4), f32 summation order with TF32 off
+# the closed-form LoRA backward on the card against autograd of the plain
+# version: 1e-4 of each gradient's largest entry (at least 1e-4), f32
+# summation order with TF32 off
 BWD_TOL = 1e-4
 
 
@@ -618,99 +620,113 @@ def grad_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+# the rows each kind of lora_matmul call of a vit-base-paper round takes,
+# and the ranks it runs there: a train step's batch (rank 2 in round 0,
+# 4 in round 1; 32 is the slot), a vehicle's local eval (32 samples) and
+# the server's global eval at max_rank (the largest task's eval split,
+# 336 samples)
+LORA_TRAIN_CASES = (("train", TRAIN_B * TRAIN_S, (2, 4, 32)),
+                    ("local eval", 32 * TRAIN_S, (2, 4)),
+                    ("global eval", 336 * TRAIN_S, (32,)))
+
+
 def check_lora_train():
-    """f32 lora_matmul at the training shapes of vit-base-paper (240
-    rows), ranks 2 (round 0's) and 32 (the slot), with the backward."""
+    """f32 lora_matmul at the round's shapes of vit-base-paper, with the
+    closed-form backward at the train step's."""
     rows = []
-    M = TRAIN_B * TRAIN_S
-    for linear, K, N in (("q/k/v/o", 768, 768), ("up", 768, 3072),
-                         ("down", 3072, 768)):
-        for r in (2, 32):
-            g = torch.Generator(device="cuda").manual_seed(K + N + r)
-            x = torch.randn((1, M, K), generator=g, device="cuda")
-            w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
-            a = torch.randn((1, K, r), generator=g, device="cuda") / K ** 0.5
-            b = 0.1 * torch.randn((1, r, N), generator=g, device="cuda")
-            scale = torch.full((1,), 16.0 / r, device="cuda")
-            mask = torch.ones((1, r), device="cuda")
-            args = (x, w, a, b, scale, mask)
-            got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
-            err = maxabs(got, lora_matmul_ref(*args))
-            tol = TOL[("lora_matmul", torch.float32)]
-            if not (kind == "simt" and err < tol
-                    and torch.isfinite(got).all()):
-                fail(f"lora_matmul train {linear} r={r}: {kind}, max abs "
-                     f"{err} >= {tol}")
-            gy = torch.randn((1, M, N), generator=g, device="cuda")
-            # the frozen base: x, a and b ask for grads, W does not
-            need = (True, False, True, True, False, False)
-
-            def grads(fn):
-                ins = [t.detach().requires_grad_(n)
-                       for t, n in zip(args, need)]
-                y = fn(*ins)
-                return torch.autograd.grad(
-                    y, [t for t in ins if t.requires_grad], gy)
-            bwd = grad_err(grads(lm_ops.lora_matmul),
-                           grads(lora_matmul_ref))
-            if not bwd < BWD_TOL:
-                fail(f"lora_matmul train {linear} r={r}: backward err "
-                     f"{bwd} >= {BWD_TOL}")
-            t_ = x @ a
-            nbytes = 4 * (M * K + K * N + M * N + K * r + r * N + 1 + r)
-            ops = {torch.float32: 2.0 * M * K * N + 2.0 * M * r * (K + N)}
-            b_ms, b_by = bound(nbytes, ops)
-            # the backward's own work: dx (g·Wᵀ and u·Aᵀ), dA, dB and u
-            bwd_ops = {torch.float32: 2.0 * M * N * K + 2.0 * M * r
-                       * (2 * N + 2 * K)}
-            bwd_bytes = 4 * (2 * M * N + 2 * M * K + K * N + 2 * r * (K + N)
-                             + M * r)
-            bb_ms, _ = bound(bwd_bytes, bwd_ops)
-
-            def closed():
-                return lm_ops.lora_matmul_backward(
-                    gy, x, w, a, b, scale, mask, t_, need)
-
-            def autograd_plain():
-                return grads(lora_matmul_ref)
-
-            def library():
-                return x @ w + scale[:, None, None] * (
-                    ((x @ a) * mask[:, None, :]) @ b)
-            kernel_ms = timed_ms(
-                lambda: lm_ops._launch(x, w, t_, b, scale, mask))
-            rows.append({
-                "name": "lora_matmul", "model": "vit-base-paper",
-                "linear": linear, "mode": "train", "variant": kind,
-                "dtype": "float32", "rank": r,
-                "shape": f"L=1 M={M} K={K} N={N} r={r}",
-                "key": [M, K, N, r],
-                "max_abs_err": err, "tol": tol, "bwd_err": bwd,
-                "bwd_tol": BWD_TOL, "rank_pin": None, "deterministic": None,
-                "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
-                "kernel_ms": kernel_ms,
-                "kernel_tflops": 2.0 * M * K * N / kernel_ms / 1e9,
-                "kernel_gbs": nbytes / kernel_ms / 1e6,
-                "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
-                "library_ms": timed_ms(library),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "bwd_ms": timed_ms(closed),
-                "autograd_plain_bwd_ms": timed_ms(autograd_plain),
-                "bwd_bound_ms": bb_ms})
+    for mode, M, ranks in LORA_TRAIN_CASES:
+        for linear, K, N in (("q/k/v/o", 768, 768), ("up", 768, 3072),
+                             ("down", 3072, 768)):
+            for r in ranks:
+                rows.append(lora_train_row(mode, M, linear, K, N, r))
     return rows
 
 
+def lora_train_row(mode, M, linear, K, N, r):
+    g = torch.Generator(device="cuda").manual_seed(M + K + N + r)
+    x = torch.randn((1, M, K), generator=g, device="cuda")
+    w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
+    a = torch.randn((1, K, r), generator=g, device="cuda") / K ** 0.5
+    b = 0.1 * torch.randn((1, r, N), generator=g, device="cuda")
+    scale = torch.full((1,), 16.0 / r, device="cuda")
+    mask = torch.ones((1, r), device="cuda")
+    args = (x, w, a, b, scale, mask)
+    got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
+    err = maxabs(got, lora_matmul_ref(*args))
+    tol = TOL[("lora_matmul", torch.float32)]
+    if not (kind == "simt" and err < tol and torch.isfinite(got).all()):
+        fail(f"lora_matmul {mode} {linear} M={M} r={r}: {kind}, max abs "
+             f"{err} >= {tol}")
+    t_ = x @ a
+    nbytes = 4 * (M * K + K * N + M * N + K * r + r * N + 1 + r)
+    b_ms, b_by = bound(nbytes, {torch.float32: 2.0 * M * K * N
+                                + 2.0 * M * r * (K + N)})
+
+    def library():
+        return x @ w + scale[:, None, None] * (
+            ((x @ a) * mask[:, None, :]) @ b)
+    kernel_ms = timed_ms(lambda: lm_ops._launch(x, w, t_, b, scale, mask))
+    row = {"name": "lora_matmul", "model": "vit-base-paper",
+           "linear": linear, "mode": mode, "variant": kind,
+           "dtype": "float32", "rank": r,
+           "shape": f"L=1 M={M} K={K} N={N} r={r}", "key": [M, K, N, r],
+           "max_abs_err": err, "tol": tol, "rank_pin": None,
+           "deterministic": None,
+           "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
+           "kernel_ms": kernel_ms,
+           "kernel_tflops": 2.0 * M * K * N / kernel_ms / 1e9,
+           "kernel_gbs": nbytes / kernel_ms / 1e6,
+           "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
+           "library_ms": timed_ms(library),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if mode != "train":
+        return row
+    gy = torch.randn((1, M, N), generator=g, device="cuda")
+    # the frozen base: x, a and b ask for grads, W does not
+    need = (True, False, True, True, False, False)
+
+    def grads(fn):
+        ins = [t.detach().requires_grad_(n) for t, n in zip(args, need)]
+        return torch.autograd.grad(
+            fn(*ins), [t for t in ins if t.requires_grad], gy)
+    bwd = grad_err(grads(lm_ops.lora_matmul), grads(lora_matmul_ref))
+    if not bwd < BWD_TOL:
+        fail(f"lora_matmul train {linear} r={r}: backward err {bwd} >= "
+             f"{BWD_TOL}")
+    # the backward's own work: dx (g·Wᵀ and u·Aᵀ), dA, dB and u
+    bwd_ops = {torch.float32: 2.0 * M * N * K + 2.0 * M * r
+               * (2 * N + 2 * K)}
+    bwd_bytes = 4 * (2 * M * N + 2 * M * K + K * N + 2 * r * (K + N)
+                     + M * r)
+    row.update({
+        "bwd_err": bwd, "bwd_tol": BWD_TOL,
+        "bwd_ms": timed_ms(lambda: lm_ops.lora_matmul_backward(
+            gy, x, w, a, b, scale, mask, t_, need)),
+        "autograd_plain_bwd_ms": timed_ms(lambda: grads(lora_matmul_ref)),
+        "bwd_bound_ms": bound(bwd_bytes, bwd_ops)[0]})
+    return row
+
+
 def check_flash_train():
-    """Flash attention at the round's attention shapes (B 10, S 24): head
-    dim 16 with 4 heads (reduced ViT) and 64 with 12 (vit-base-paper),
-    f32 (the round's dtype, simt) and bf16 (mma), with the backward."""
+    """Flash attention at the round's attention shapes (S 24): a train
+    step's batch (B 10) at head dim 16 with 4 heads (reduced ViT) and 64
+    with 12 (vit-base-paper), f32 (the round's dtype, simt) and bf16
+    (mma); and vit-base-paper's local and global evals (B 32 and 336) in
+    f32. The backward is the plain version's autograd (no kernel), so it
+    is not held here."""
     rows = []
-    B, S = TRAIN_B, TRAIN_S
-    for H, D, model in ((4, 16, "vit-tiny-paper"),
-                        (12, 64, "vit-base-paper")):
-        for dtype in (torch.float32, torch.bfloat16):
+    S = TRAIN_S
+    for mode, B, H, D, model, dtypes in (
+            ("train", TRAIN_B, 4, 16, "vit-tiny-paper",
+             (torch.float32, torch.bfloat16)),
+            ("train", TRAIN_B, 12, 64, "vit-base-paper",
+             (torch.float32, torch.bfloat16)),
+            ("local eval", 32, 12, 64, "vit-base-paper", (torch.float32,)),
+            ("global eval", 336, 12, 64, "vit-base-paper",
+             (torch.float32,))):
+        for dtype in dtypes:
             kind = fa_ops.variant(dtype, D)
-            g = torch.Generator(device="cuda").manual_seed(H * D + S)
+            g = torch.Generator(device="cuda").manual_seed(B * H * D + S)
             q, k, v = (torch.randn((B, S, H, D), generator=g,
                                    device="cuda").to(dtype)
                        for _ in range(3))
@@ -720,34 +736,25 @@ def check_flash_train():
             took = [n for n, c in flash_variant_counts().items()
                     if c != before[n]]
             if took != [kind]:
-                fail(f"flash train D={D}/{dtype} launched {took}, want "
-                     f"{kind}")
+                fail(f"flash {mode} B={B} D={D}/{dtype} launched {took}, "
+                     f"want {kind}")
             err = maxabs(got, fa_ops._plain(q, k, v, True, None, D ** -0.5))
             tol = TOL[("flash_attention", dtype)]
             if not (err < tol and torch.isfinite(got).all()):
-                fail(f"flash train D={D}/{dtype}: max abs {err} >= {tol}")
-            go = torch.randn_like(got)
-
-            def grads(fn):
-                ins = [t.detach().requires_grad_() for t in (q, k, v)]
-                return torch.autograd.grad(fn(*ins), ins, go)
-            bwd = grad_err(grads(fa_ops.flash_attention), grads(
-                lambda *t: fa_ops._plain(*t, True, None, D ** -0.5)))
-            if not bwd < (BWD_TOL if dtype == torch.float32 else tol):
-                fail(f"flash train D={D}/{dtype}: backward err {bwd}")
+                fail(f"flash {mode} B={B} D={D}/{dtype}: max abs {err} >= "
+                     f"{tol}")
             es = q.element_size()
             nbytes = es * 4 * B * S * H * D
             flops = 4.0 * B * H * D * S * (S + 1) / 2
             b_ms, b_by = bound(nbytes, {dtype: flops})
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             rows.append({
-                "name": "flash_attention", "model": model, "mode": "train",
+                "name": "flash_attention", "model": model, "mode": mode,
                 "dtype": str(dtype).replace("torch.", ""), "variant": kind,
                 "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
                 else "32 rows",
                 "shape": f"B={B} S={S} H={H} Hkv={H} D={D}",
                 "key": [B, S, H, D], "max_abs_err": err, "tol": tol,
-                "bwd_err": bwd,
                 "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
                 "plain_ms": timed_ms(
                     lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
@@ -1165,44 +1172,46 @@ def full_rounds(n_rounds=2):
     split = split_counts(sim)
     out = []
     reset_counts()
-    with ShapeCounter() as shapes:
-        for rnd in range(n_rounds):
-            before = {"train": dict(split["train"]),
-                      "eval": dict(split["eval"]),
-                      "steps": split["steps"], "evals": split["evals"]}
-            recs = []
+    for rnd in range(n_rounds):
+        before = {"train": dict(split["train"]),
+                  "eval": dict(split["eval"]),
+                  "steps": split["steps"], "evals": split["evals"]}
+        recs = []
+        with ShapeCounter() as shapes:
             prof = device_profile(lambda: recs.append(sim.run_round()),
                                   top=6)
-            rec = recs[0]
-            losses = torch.stack(split["losses"]).cpu()
-            split["losses"] = []
-            finite = (bool(torch.isfinite(losses).all())
-                      and np.isfinite(rec["energy"])
-                      and np.isfinite(rec["accuracy"])
-                      and all(np.isfinite(t["energy"]) and
-                              np.isfinite(t["accuracy"])
-                              for t in rec["tasks"]))
-            if not finite:
-                fail(f"full-width round {rnd}: a loss, energy or accuracy "
-                     f"is not finite")
-            out.append({
-                "round": rnd, "wall_ms": prof["wall_ms"],
-                "device_ms": prof["device_ms"],
-                "busy_share": prof["busy_share"],
-                "kernels_in_trace": prof["kernels"],
-                "port_kernels": prof["port_kernels"], "top": prof["top"],
-                "train_steps": split["steps"] - before["steps"],
-                "evals": split["evals"] - before["evals"],
-                "launches": {kind: {k: v - before[kind].get(k, 0)
-                                    for k, v in split[kind].items()}
-                             for kind in ("train", "eval")},
-                "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
-                "active": {t["task"]: t["active"] for t in rec["tasks"]},
-                "energy": rec["energy"], "latency": rec["latency"],
-                "accuracy": rec["accuracy"],
-                "loss_first_last": [float(losses[0]), float(losses[-1])]})
-        launched = counts()
-        lora_v, flash_v = variant_counts(), flash_variant_counts()
+        rec = recs[0]
+        losses = torch.stack(split["losses"]).cpu()
+        split["losses"] = []
+        finite = (bool(torch.isfinite(losses).all())
+                  and np.isfinite(rec["energy"])
+                  and np.isfinite(rec["accuracy"])
+                  and all(np.isfinite(t["energy"]) and
+                          np.isfinite(t["accuracy"])
+                          for t in rec["tasks"]))
+        if not finite:
+            fail(f"full-width round {rnd}: a loss, energy or accuracy is "
+                 f"not finite")
+        out.append({
+            "round": rnd, "wall_ms": prof["wall_ms"],
+            "device_ms": prof["device_ms"],
+            "busy_share": prof["busy_share"],
+            "kernels_in_trace": prof["kernels"],
+            "port_kernels": prof["port_kernels"], "top": prof["top"],
+            "train_steps": split["steps"] - before["steps"],
+            "evals": split["evals"] - before["evals"],
+            "launches": {kind: {k: v - before[kind].get(k, 0)
+                                for k, v in split[kind].items()}
+                         for kind in ("train", "eval")},
+            "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
+            "flash_attention_by_shape": shapes.by_shape(shapes.flash),
+            "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
+            "active": {t["task"]: t["active"] for t in rec["tasks"]},
+            "energy": rec["energy"], "latency": rec["latency"],
+            "accuracy": rec["accuracy"],
+            "loss_first_last": [float(losses[0]), float(losses[-1])]})
+    launched = counts()
+    lora_v, flash_v = variant_counts(), flash_variant_counts()
     for name in ("lora_matmul", "flash_attention"):
         if launched[name] == 0:
             fail(f"full-width rounds launched no {name}")
@@ -1223,8 +1232,6 @@ def full_rounds(n_rounds=2):
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
-            "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
-            "flash_attention_by_shape": shapes.by_shape(shapes.flash),
             "unprofiled_round": {"round": n_rounds, "wall_ms": plain_ms,
                                  "energy": rec["energy"],
                                  "accuracy": rec["accuracy"]}}
@@ -1296,17 +1303,20 @@ def main() -> int:
 
     train_rows = check_lora_train() + check_flash_train()
     for r in train_rows:
-        extra = (f", kernel alone {r['kernel_ms']:.4f} ms, backward "
-                 f"{r['bwd_ms']:.4f} ms (autograd of the plain version "
-                 f"{r['autograd_plain_bwd_ms']:.4f}, bound "
-                 f"{r['bwd_bound_ms']:.4f})"
+        extra = (f", kernel alone {r['kernel_ms']:.4f} ms"
                  if r["name"] == "lora_matmul" else f", {r['block']}")
-        print(f"[2] train {r['name']} {r['model']} {r.get('linear', '')} "
-              f"{r['variant']} {r['dtype']} {r['shape']}: err "
-              f"{r['max_abs_err']:.3g} (tol {r['tol']}), backward err "
-              f"{r['bwd_err']:.3g}, ms {r['ms']:.4f}, plain "
-              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}){extra}", flush=True)
+        if "bwd_err" in r:
+            extra += (f", backward err {r['bwd_err']:.3g} (tol "
+                      f"{r['bwd_tol']}), backward {r['bwd_ms']:.4f} ms "
+                      f"(autograd of the plain version "
+                      f"{r['autograd_plain_bwd_ms']:.4f}, bound "
+                      f"{r['bwd_bound_ms']:.4f})")
+        print(f"[2] {r['mode']} {r['name']} {r['model']} "
+              f"{r.get('linear', '')} {r['variant']} {r['dtype']} "
+              f"{r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']}), "
+              f"ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){extra}", flush=True)
 
     pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100)]
     for par in pars:
@@ -1373,29 +1383,35 @@ def main() -> int:
     up = full["unprofiled_round"]
     print(f"[5b] round {up['round']} without the profiler: wall "
           f"{up['wall_ms']:.1f} ms; launches over the profiled rounds "
-          f"{full['launches']}; lora_matmul by shape (rows x K x N x r x "
-          f"dtype) "
-          f"{full['lora_matmul_by_shape']}; flash by shape "
-          f"{full['flash_attention_by_shape']}", flush=True)
+          f"{full['launches']}", flush=True)
+    for rd in full["rounds"]:
+        print(f"[5b] round {rd['round']} by shape: lora_matmul (rows x K "
+              f"x N x r x dtype) {rd['lora_matmul_by_shape']}; flash (B x "
+              f"S x H x D x dtype) {rd['flash_attention_by_shape']}",
+              flush=True)
     round_paths = {"vit-tiny-paper round (5a)": par5["launches"],
                    "vit-base-paper 2 rounds (5b)": full["launches"]}
-    # launches per round at each training row's shape: vit-base-paper's
-    # averaged over the two rounds of 5b, vit-tiny-paper's from 5a's one
+    # each phase-2 row's launches in each round: vit-base-paper's in
+    # rounds 0 and 1 of 5b, vit-tiny-paper's in 5a's one round (its
+    # round 0)
     per_round = {}
-    for model, run, n in (("vit-base-paper", full, len(full["rounds"])),
-                          ("vit-tiny-paper", par5, 1)):
-        for name in ("lora_matmul", "flash_attention"):
-            for k, v in run[f"{name}_by_shape"].items():
-                *dims, dt = k.split("x")
-                key = (model, name, dt) + tuple(int(x) for x in dims)
-                per_round[key] = v / n
+    for model, rounds in (("vit-base-paper", full["rounds"]),
+                          ("vit-tiny-paper", [dict(par5, round=0)])):
+        for rd in rounds:
+            for name in ("lora_matmul", "flash_attention"):
+                for k, v in rd[f"{name}_by_shape"].items():
+                    *dims, dt = k.split("x")
+                    key = (model, name, dt) + tuple(int(x) for x in dims)
+                    per_round.setdefault(key, {})[f"round {rd['round']}"] = v
     for r in train_rows:
-        r["launches_per_round"] = per_round.get(
-            (r["model"], r["name"], r["dtype"]) + tuple(r["key"]), 0)
-    print("[5] launches per round at the training shapes of phase 2: "
-          + "; ".join(f"{r['name']} {r['model']} {r['dtype']} {r['shape']} "
-                      f"{r['launches_per_round']:g}" for r in train_rows),
-          flush=True)
+        r["launches_by_round"] = per_round.get(
+            (r["model"], r["name"], r["dtype"]) + tuple(r["key"]), {})
+    print("[5] launches in each round at the shapes of phase 2's training "
+          "rows: " + "; ".join(
+              f"{r['name']} {r['model']} {r['mode']} {r['dtype']} "
+              f"{r['shape']} " + (", ".join(
+                  f"{k} {v}" for k, v in r["launches_by_round"].items())
+                  or "none") for r in train_rows), flush=True)
     rows += train_rows
 
     # the kernels line: one entry per kernel at a main-path shape

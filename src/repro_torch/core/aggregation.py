@@ -105,24 +105,16 @@ def _delta_svd(delta: torch.Tensor, max_rank: int, seed: int,
 
 
 def redistribute(merged: Any, rank: int, scale: float, max_rank: int,
-                 seed: int = 0, balanced: bool = False,
-                 draw_omega: Optional[OmegaFn] = None) -> Any:
+                 seed: int = 0, draw_omega: Optional[OmegaFn] = None) -> Any:
     """Paper Fig. 3: truncated SVD of each Δθ, personalized rank-η factors
-    a = UΣ/scale, b = Vᵀ (``balanced``: √Σ on both, an ablation). The SVD
-    runs to max_rank and is then sliced to ``rank``. ``draw_omega`` gives
-    the sketch (see :func:`_delta_svd`)."""
+    a = UΣ/scale, b = Vᵀ. The SVD runs to max_rank and is then sliced to
+    ``rank``. ``draw_omega`` gives the sketch (see :func:`_delta_svd`)."""
     out = merged
     for path in tree_paths_delta(merged):
         u, s, vt = _delta_svd(tree_get(merged, path)["delta"], max_rank,
                               seed, draw_omega)
-        if balanced:
-            root = torch.sqrt(torch.clamp(s[..., :rank], min=0.0) / scale)
-            a = u[..., :, :rank] * root[..., None, :]
-            b = root[..., :, None] * vt[..., :rank, :]
-        else:
-            a = (u[..., :, :rank] * s[..., None, :rank]) / scale
-            b = vt[..., :rank, :]
-        out = tree_set(out, path, {"a": a, "b": b})
+        out = tree_set(out, path,
+                       lora_lib.factors_from_svd(u, s, vt, rank, scale))
     return out
 
 

@@ -119,23 +119,13 @@ def merge_delta(adapter: Adapter, scale: float) -> torch.Tensor:
 
 
 def factors_from_svd(u: torch.Tensor, s: torch.Tensor, vt: torch.Tensor,
-                     rank: int, scale: float, balanced: bool = False
-                     ) -> Adapter:
-    """Truncated-SVD factors for client redistribution.
-
-    Default is the paper's split (Fig. 3): a = UΣ/scale, b = Vᵀ, so that
-    scale·a·b is the rank-``rank`` truncation. ``balanced=True`` splits
-    √Σ between the factors (an ablation the reference keeps: with Σ ≈ 0
-    early in training it zeroes both factors).
+                     rank: int, scale: float) -> Adapter:
+    """Truncated-SVD factors for client redistribution, the paper's split
+    (Fig. 3): a = UΣ/scale, b = Vᵀ, so that scale·a·b is the
+    rank-``rank`` truncation. Leading axes (a layer stack) pass through.
     """
-    if balanced:
-        root = torch.sqrt(torch.clamp(s[:rank], min=0.0) / scale)
-        a = u[:, :rank] * root[None, :]
-        b = root[:, None] * vt[:rank, :]
-    else:
-        a = (u[:, :rank] * s[:rank][None, :]) / scale
-        b = vt[:rank, :]
-    return {"a": a, "b": b}
+    a = (u[..., :, :rank] * s[..., None, :rank]) / scale
+    return {"a": a, "b": vt[..., :rank, :]}
 
 
 def adapter_num_params(d_in: int, d_out: int, rank: int) -> int:

@@ -1,6 +1,7 @@
 """Baseline method descriptors (paper §V-A), port of
-``repro/federated/baselines.py`` (unchanged; the port's simulator runs
-the ``ours`` family only, yet).
+``repro/federated/baselines.py`` (the descriptors only; the port's
+simulator runs ``ours`` alone, and the baselines' rank rules and server
+rules come with ROADMAP Queue 1, item 6).
 
 - HomoLoRA [25]: fixed uniform rank + FedAvg on factors.
 - HetLoRA [27]: capability-based heterogeneous ranks, zero-padding
@@ -12,9 +13,7 @@ the ``ours`` family only, yet).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence
-
-import numpy as np
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -49,24 +48,3 @@ METHODS = {
     "ours_residual": MethodSpec("ours_residual", adaptive_rank=True,
                                 energy_scheduler=True, mobility_aware=True),
 }
-
-
-def capability_ranks(candidates: Sequence[int], freqs: np.ndarray
-                     ) -> np.ndarray:
-    """HetLoRA: rank ∝ device capability (compute frequency quantiles)."""
-    qs = np.argsort(np.argsort(freqs)) / max(len(freqs) - 1, 1)
-    idx = np.clip((qs * len(candidates)).astype(int), 0,
-                  len(candidates) - 1)
-    return np.asarray(candidates)[idx]
-
-
-def server_method(name: str) -> str:
-    """Which RSUServer aggregation a method uses."""
-    return {"ours": "ours", "ours_no_energy": "ours",
-            "ours_no_mobility": "ours", "ours_residual": "ours",
-            "homolora": "homolora", "hetlora": "hetlora",
-            "fedra": "fedra"}[name]
-
-
-def is_residual(name: str) -> bool:
-    return name == "ours_residual"

@@ -4,9 +4,10 @@
 The server state is the merged global delta tree Δθ per LoRA target;
 distribution ships truncated-SVD factors at each vehicle's chosen rank;
 aggregation is the data-weighted sum of the clients' scale·A·B products
-(paper §III-B). HomoLoRA, HetLoRA and FedRA, non-trivial RSU tiers,
-semi-synchronous participation and residual aggregation raise
-``NotImplementedError``: ROADMAP Queue 1, item 6 lists them.
+(paper §III-B). HomoLoRA, HetLoRA and FedRA, non-trivial RSU tiers and
+semi-synchronous participation raise ``NotImplementedError``; residual
+aggregation has no parameter here yet. ROADMAP Queue 1, item 6 lists
+them.
 
 Two draws come from ``jax.random`` in the reference: the fresh adapters
 of the first round and the SVD sketch Ω. Both are injectable here
@@ -34,7 +35,7 @@ MISSING = "ROADMAP Queue 1, item 6"
 
 class RSUServer:
     def __init__(self, cfg: ModelConfig, lora: LoRAConfig, method: str,
-                 seed: int = 0, residual: bool = False,
+                 seed: int = 0,
                  tier: Optional[RSUTierSpec] = None,
                  participation: Optional[ParticipationSpec] = None,
                  device="cuda",
@@ -59,20 +60,15 @@ class RSUServer:
             raise NotImplementedError(
                 f"semi_sync participation ({self.participation}) is not "
                 f"ported yet ({MISSING})")
-        if residual:
-            raise NotImplementedError(
-                f"residual aggregation is not ported yet ({MISSING})")
         self.cfg = cfg
         self.lora = lora
         self.method = method
-        self.residual = residual
         self.device = resolve_device(device)
         self._gen = torch.Generator().manual_seed(seed)
         self.draw_adapters = draw_adapters
         self.draw_omega = draw_omega
         self.round = 0
         self.merged = None            # tree of {"delta"}
-        self._distributed: List[Any] = []
 
     # ------------------------------------------------------------------
     def _fresh(self, rank: int):
@@ -104,23 +100,13 @@ class RSUServer:
                                            seed=self.round,
                                            draw_omega=self.draw_omega)
             out = [uniq[r] for r in ranks]
-        self._distributed = out
         return out
 
     # ------------------------------------------------------------------
     def aggregate(self, client_adapters: Sequence[Any],
-                  weights: Sequence[float],
-                  masks: Optional[Sequence] = None,
-                  indices: Optional[Sequence[int]] = None,
-                  assoc: Optional[Sequence[int]] = None,
-                  released: Optional[Sequence] = None) -> None:
+                  weights: Sequence[float]) -> None:
         """Replace the global state with the weighted merged deltas of the
-        kept clients (none kept: the state stays). ``masks``, ``indices``
-        and ``assoc`` belong to the unported methods, tiers and residual
-        rule and are not read; ``released`` must be empty (sync)."""
-        if released:
-            raise NotImplementedError(
-                f"released uploads need semi_sync participation ({MISSING})")
+        kept clients (none kept: the state stays)."""
         if client_adapters:
             self.merged = agg.aggregate_merged(client_adapters, weights,
                                                self.lora.scale)

@@ -20,8 +20,9 @@ reference's fleet, data and channel bit for bit.
 
 What the port does not run yet raises (ROADMAP Queue 1): the batched and
 fused engines and ``run_scanned`` (items 7, 8), checkpoints (item 9),
-trace replay (item 10), the baselines' methods, residual aggregation,
-multi-RSU tiers and semi-sync participation (item 6).
+trace replay (item 10), every method but ``ours`` (the baselines, the
+ablations and residual aggregation), multi-RSU tiers and semi-sync
+participation (item 6).
 """
 from __future__ import annotations
 
@@ -41,8 +42,7 @@ from repro_torch.core import energy_alloc, mobility as mob
 from repro_torch.core import ucb_dual
 from repro_torch.data import (ClientDataset, DEFAULT_TASKS,
                               dirichlet_partition, make_task)
-from repro_torch.federated.baselines import (METHODS, is_residual,
-                                             server_method)
+from repro_torch.federated.baselines import METHODS
 from repro_torch.federated.client import LocalTrainer
 from repro_torch.federated.server import RSUServer
 from repro_torch.interop import tree_map
@@ -101,7 +101,6 @@ class IoVSimulator:
         self.device = resolve_device(device)
         self.engine = self._resolve_engine(cfg)
         self._check_ported(cfg)
-        self.spec = METHODS[cfg.method]
         rng = np.random.default_rng(cfg.seed)
         self.rng = rng
 
@@ -178,10 +177,8 @@ class IoVSimulator:
         self.mobility = MobilityModel(ms, all_rsus)
         self.channel = ChannelModel(cfg.channel, seed=cfg.seed + 3)
         draws = server_draws or [None] * cfg.num_tasks
-        self.servers = [RSUServer(self.model_cfg, cfg.lora,
-                                  server_method(cfg.method),
+        self.servers = [RSUServer(self.model_cfg, cfg.lora, cfg.method,
                                   seed=cfg.seed + 7 * t,
-                                  residual=is_residual(cfg.method),
                                   tier=cfg.rsu_tier,
                                   participation=cfg.participation,
                                   device=self.device,
@@ -209,6 +206,10 @@ class IoVSimulator:
         if cfg.method not in METHODS:
             raise KeyError(f"unknown method {cfg.method!r}; have "
                            f"{sorted(METHODS)}")
+        if cfg.method != "ours":
+            raise NotImplementedError(
+                f"the port runs method 'ours' only, not {cfg.method!r} "
+                "(ROADMAP Queue 1, item 6)")
         if not cfg.shard.trivial:
             raise NotImplementedError(
                 f"SimConfig.shard={cfg.shard} needs the sharded fused "
@@ -247,10 +248,9 @@ class IoVSimulator:
             accuracies[ti] = trec["accuracy"]
             rec["tasks"].append(trec)
 
-        if self.spec.energy_scheduler:
-            self.alloc, _ = energy_alloc.step(
-                self.alloc, cfg.energy, torch.as_tensor(consumed),
-                torch.as_tensor(accuracies))
+        self.alloc, _ = energy_alloc.step(
+            self.alloc, cfg.energy, torch.as_tensor(consumed),
+            torch.as_tensor(accuracies))
         rec["budgets"] = budgets.tolist()
         rec["reward"] = float(sum(t["reward"] for t in rec["tasks"]))
         rec["energy"] = float(consumed.sum())
@@ -351,7 +351,7 @@ class IoVSimulator:
             contribute = True
             extra_energy = 0.0
             extra_latency = 0.0
-            if dep and self.spec.mobility_aware:
+            if dep:
                 peer = self.mobility.nearby_peer(rsu, v, staying)
                 dec = mob.decide_fallback(
                     cfg.mobility, cfg.ucb, local_accuracy=local_acc,
@@ -363,8 +363,6 @@ class IoVSimulator:
                 elif dec.strategy == mob.MIGRATE:
                     extra_energy += cfg.mobility.migration_energy
                     extra_latency += cfg.mobility.migration_latency
-            elif dep:   # baseline: departure loses the update
-                contribute = False
 
             tau = costs.latency + extra_latency
             per_v_energy[v] = costs.energy + extra_energy
@@ -388,14 +386,11 @@ class IoVSimulator:
             acc = 0.0
 
         # UCB-DUAL update with the task's current budget
-        if self.spec.adaptive_rank and arms is not None:
-            self.ucb_states[ti], info = ucb_dual.update(
-                self.ucb_states[ti], cfg.ucb, torch.as_tensor(arms),
-                torch.as_tensor(per_v_reward), torch.as_tensor(per_v_energy),
-                torch.tensor(budget, dtype=torch.float32))
-            lam = float(info["lambda"])
-        else:
-            lam = 0.0
+        self.ucb_states[ti], info = ucb_dual.update(
+            self.ucb_states[ti], cfg.ucb, torch.as_tensor(arms),
+            torch.as_tensor(per_v_reward), torch.as_tensor(per_v_energy),
+            torch.tensor(budget, dtype=torch.float32))
+        lam = float(info["lambda"])
 
         tau_t = summary["latency"]
         e_t = float(per_v_energy.sum()) + agg_costs[1]

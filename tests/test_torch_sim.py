@@ -179,6 +179,7 @@ def test_summary_and_history_shape(runs):
     {"engine": "batched"}, {"engine": "fused"}, {"engine": "batched_check"},
     {"engine": "fused_sharded"}, {"method": "hetlora"},
     {"method": "homolora"}, {"method": "fedra"}, {"method": "ours_residual"},
+    {"method": "ours_no_energy"}, {"method": "ours_no_mobility"},
     {"rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
     {"rsu_tier": RSUTierSpec(sync_period=3)},
     {"participation": ParticipationSpec(mode="semi_sync")},
@@ -186,7 +187,8 @@ def test_summary_and_history_shape(runs):
     {"checkpoint": CheckpointSpec(interval=2, dir="ck")},
     {"mobility_sim": MobilitySimConfig(trace=TraceSpec())},
 ], ids=["batched", "fused", "batched_check", "fused_sharded", "hetlora",
-        "homolora", "fedra", "ours_residual", "two_rsus", "sync_period_3",
+        "homolora", "fedra", "ours_residual", "ours_no_energy",
+        "ours_no_mobility", "two_rsus", "sync_period_3",
         "semi_sync", "two_shards", "checkpoint", "trace"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(SimConfig(**KW), **change)
