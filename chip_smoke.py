@@ -43,17 +43,37 @@ nothing is caught):
    and every one of the decode a split-K one; every flash launch of the
    qwen2-0.5b prefill must take the tensor-core route. Then a
    torch.profiler window over a prefill and 4 steps.
-5. The federated round of the paper's method (serial engine), through
-   ``IoVSimulator``: (a) at the reduced ViT (head dim 16) with the
-   default ``SimConfig`` (24 vehicles, 3 tasks, 3 local steps), one local
-   train step and one round from one seed on the card and on the CPU,
-   held together (ranks, active and departing counts, fallbacks and
-   comm_params exactly; loss, adapter grads, merged deltas, energy and
-   latency within 1e-4); (b) two rounds at the full width of
-   vit-base-paper (12 layers, d 768), each under a torch.profiler
-   window, with the launches of both kernels split into train steps and
-   evaluations and by shape; every loss, energy and accuracy must be
-   finite and both kernels must have launched.
+5. The federated round of the paper's method, through ``IoVSimulator``,
+   under both engines that the port runs: ``serial`` (one vehicle at a
+   time) and ``batched`` (each (task, rank) group of vehicles one stack
+   of lanes). (a) At the reduced ViT (head dim 16) with the default
+   ``SimConfig`` (24 vehicles, 3 tasks, 3 local steps), per engine one
+   round from one seed on the card and on the CPU, held together (ranks,
+   active and departing counts, fallbacks and comm_params exactly;
+   merged deltas, energy and latency within 1e-4; under ``serial`` also
+   one train step's loss and adapter grads), then one ``batched_check``
+   round on the card, whose ``engine_check_dev`` (the serial trainer
+   replayed on the same batches) is printed and must be below 1e-4. (b) At the full width of
+   vit-base-paper (12 layers, d 768): one serial and two batched rounds,
+   each under a torch.profiler window (wall and device ms, busy share,
+   peak memory, launches split into train steps and evaluations and by
+   shape), then one more round of each without it. Every batched round's
+   launches must equal what its groups predict (one forward per group
+   step, one local eval per group, one global eval per task that kept an
+   upload); the batched rounds are held to the serial ones (ranks and
+   active sets exactly, energy and latency within 1e-5, merged deltas
+   after round 0 within the update limit below, as a Frobenius spread);
+   every loss, energy and accuracy must be finite and every launch
+   ``simt``. Then task 0's first rank group of round 0, through the
+   batched trainer and vehicle by vehicle through the serial one: one
+   step's gradients within 1e-4, and after the step budgets each lane's
+   update within twice the serial trainer's own card-vs-CPU spread on
+   the same lanes (Adam's sign-like first update lets single entries
+   part by 2·lr, so the largest entry difference is recorded, not
+   held); two planted faults must break these gates. Then phase 2's
+   rows at the batched round's lane shapes, V from its largest group
+   per rank: f32 ``lora_matmul`` at V x 240 rows (with the closed-form
+   backward) and V x 768, flash at B = V·10 and V·32.
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -83,6 +103,8 @@ import torch  # noqa: E402
 
 from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
 from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
+from repro_torch.core.aggregation import (  # noqa: E402
+    tree_get, tree_paths, tree_paths_delta)
 from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -630,37 +652,42 @@ LORA_TRAIN_CASES = (("train", TRAIN_B * TRAIN_S, (2, 4, 32)),
                     ("global eval", 336 * TRAIN_S, (32,)))
 
 
+VIT_LINEARS = (("q/k/v/o", 768, 768), ("up", 768, 3072),
+               ("down", 3072, 768))
+
+
 def check_lora_train():
-    """f32 lora_matmul at the round's shapes of vit-base-paper, with the
-    closed-form backward at the train step's."""
+    """f32 lora_matmul at the serial round's shapes of vit-base-paper,
+    with the closed-form backward at the train step's."""
     rows = []
     for mode, M, ranks in LORA_TRAIN_CASES:
-        for linear, K, N in (("q/k/v/o", 768, 768), ("up", 768, 3072),
-                             ("down", 3072, 768)):
+        for linear, K, N in VIT_LINEARS:
             for r in ranks:
                 rows.append(lora_train_row(mode, M, linear, K, N, r))
     return rows
 
 
-def lora_train_row(mode, M, linear, K, N, r):
-    g = torch.Generator(device="cuda").manual_seed(M + K + N + r)
-    x = torch.randn((1, M, K), generator=g, device="cuda")
+def lora_train_row(mode, M, linear, K, N, r, L=1):
+    """One f32 lora_matmul row: L lanes of M rows against one W."""
+    g = torch.Generator(device="cuda").manual_seed(L * M + K + N + r)
+    x = torch.randn((L, M, K), generator=g, device="cuda")
     w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
-    a = torch.randn((1, K, r), generator=g, device="cuda") / K ** 0.5
-    b = 0.1 * torch.randn((1, r, N), generator=g, device="cuda")
-    scale = torch.full((1,), 16.0 / r, device="cuda")
-    mask = torch.ones((1, r), device="cuda")
+    a = torch.randn((L, K, r), generator=g, device="cuda") / K ** 0.5
+    b = 0.1 * torch.randn((L, r, N), generator=g, device="cuda")
+    scale = torch.full((L,), 16.0 / r, device="cuda")
+    mask = torch.ones((L, r), device="cuda")
     args = (x, w, a, b, scale, mask)
     got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
     err = maxabs(got, lora_matmul_ref(*args))
     tol = TOL[("lora_matmul", torch.float32)]
     if not (kind == "simt" and err < tol and torch.isfinite(got).all()):
-        fail(f"lora_matmul {mode} {linear} M={M} r={r}: {kind}, max abs "
-             f"{err} >= {tol}")
+        fail(f"lora_matmul {mode} {linear} L={L} M={M} r={r}: {kind}, max "
+             f"abs {err} >= {tol}")
     t_ = x @ a
-    nbytes = 4 * (M * K + K * N + M * N + K * r + r * N + 1 + r)
-    b_ms, b_by = bound(nbytes, {torch.float32: 2.0 * M * K * N
-                                + 2.0 * M * r * (K + N)})
+    LM = L * M
+    nbytes = 4 * (LM * K + K * N + LM * N + L * (K * r + r * N + 1 + r))
+    b_ms, b_by = bound(nbytes, {torch.float32: 2.0 * LM * K * N
+                                + 2.0 * LM * r * (K + N)})
 
     def library():
         return x @ w + scale[:, None, None] * (
@@ -669,19 +696,20 @@ def lora_train_row(mode, M, linear, K, N, r):
     row = {"name": "lora_matmul", "model": "vit-base-paper",
            "linear": linear, "mode": mode, "variant": kind,
            "dtype": "float32", "rank": r,
-           "shape": f"L=1 M={M} K={K} N={N} r={r}", "key": [M, K, N, r],
+           "shape": f"L={L} M={M} K={K} N={N} r={r}",
+           "key": [L, M, K, N, r],
            "max_abs_err": err, "tol": tol, "rank_pin": None,
            "deterministic": None,
            "ms": timed_ms(lambda: lm_ops.lora_matmul(*args)),
            "kernel_ms": kernel_ms,
-           "kernel_tflops": 2.0 * M * K * N / kernel_ms / 1e9,
+           "kernel_tflops": 2.0 * LM * K * N / kernel_ms / 1e9,
            "kernel_gbs": nbytes / kernel_ms / 1e6,
            "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
            "library_ms": timed_ms(library),
            "bound_ms": b_ms, "bound_by": b_by}
-    if mode != "train":
+    if not mode.startswith("train"):
         return row
-    gy = torch.randn((1, M, N), generator=g, device="cuda")
+    gy = torch.randn((L, M, N), generator=g, device="cuda")
     # the frozen base: x, a and b ask for grads, W does not
     need = (True, False, True, True, False, False)
 
@@ -694,10 +722,10 @@ def lora_train_row(mode, M, linear, K, N, r):
         fail(f"lora_matmul train {linear} r={r}: backward err {bwd} >= "
              f"{BWD_TOL}")
     # the backward's own work: dx (g·Wᵀ and u·Aᵀ), dA, dB and u
-    bwd_ops = {torch.float32: 2.0 * M * N * K + 2.0 * M * r
+    bwd_ops = {torch.float32: 2.0 * LM * N * K + 2.0 * LM * r
                * (2 * N + 2 * K)}
-    bwd_bytes = 4 * (2 * M * N + 2 * M * K + K * N + 2 * r * (K + N)
-                     + M * r)
+    bwd_bytes = 4 * (2 * LM * N + 2 * LM * K + K * N
+                     + 2 * L * r * (K + N) + LM * r)
     row.update({
         "bwd_err": bwd, "bwd_tol": BWD_TOL,
         "bwd_ms": timed_ms(lambda: lm_ops.lora_matmul_backward(
@@ -715,7 +743,6 @@ def check_flash_train():
     f32. The backward is the plain version's autograd (no kernel), so it
     is not held here."""
     rows = []
-    S = TRAIN_S
     for mode, B, H, D, model, dtypes in (
             ("train", TRAIN_B, 4, 16, "vit-tiny-paper",
              (torch.float32, torch.bfloat16)),
@@ -725,43 +752,63 @@ def check_flash_train():
             ("global eval", 336, 12, 64, "vit-base-paper",
              (torch.float32,))):
         for dtype in dtypes:
-            kind = fa_ops.variant(dtype, D)
-            g = torch.Generator(device="cuda").manual_seed(B * H * D + S)
-            q, k, v = (torch.randn((B, S, H, D), generator=g,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
-            before = flash_variant_counts()
-            got = fa_ops.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            took = [n for n, c in flash_variant_counts().items()
-                    if c != before[n]]
-            if took != [kind]:
-                fail(f"flash {mode} B={B} D={D}/{dtype} launched {took}, "
-                     f"want {kind}")
-            err = maxabs(got, fa_ops._plain(q, k, v, True, None, D ** -0.5))
-            tol = TOL[("flash_attention", dtype)]
-            if not (err < tol and torch.isfinite(got).all()):
-                fail(f"flash {mode} B={B} D={D}/{dtype}: max abs {err} >= "
-                     f"{tol}")
-            es = q.element_size()
-            nbytes = es * 4 * B * S * H * D
-            flops = 4.0 * B * H * D * S * (S + 1) / 2
-            b_ms, b_by = bound(nbytes, {dtype: flops})
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            rows.append({
-                "name": "flash_attention", "model": model, "mode": mode,
-                "dtype": str(dtype).replace("torch.", ""), "variant": kind,
-                "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
-                else "32 rows",
-                "shape": f"B={B} S={S} H={H} Hkv={H} D={D}",
-                "key": [B, S, H, D], "max_abs_err": err, "tol": tol,
-                "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
-                "plain_ms": timed_ms(
-                    lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
-                "library_ms": timed_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True)),
-                "bound_ms": b_ms, "bound_by": b_by})
+            rows.append(flash_train_row(mode, B, H, D, model, dtype))
+    return rows
+
+
+def flash_train_row(mode, B, H, D, model, dtype, S=TRAIN_S):
+    kind = fa_ops.variant(dtype, D)
+    g = torch.Generator(device="cuda").manual_seed(B * H * D + S)
+    q, k, v = (torch.randn((B, S, H, D), generator=g,
+                           device="cuda").to(dtype) for _ in range(3))
+    before = flash_variant_counts()
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    took = [n for n, c in flash_variant_counts().items() if c != before[n]]
+    if took != [kind]:
+        fail(f"flash {mode} B={B} D={D}/{dtype} launched {took}, want "
+             f"{kind}")
+    err = maxabs(got, fa_ops._plain(q, k, v, True, None, D ** -0.5))
+    tol = TOL[("flash_attention", dtype)]
+    if not (err < tol and torch.isfinite(got).all()):
+        fail(f"flash {mode} B={B} D={D}/{dtype}: max abs {err} >= {tol}")
+    es = q.element_size()
+    nbytes = es * 4 * B * S * H * D
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    b_ms, b_by = bound(nbytes, {dtype: flops})
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return {
+        "name": "flash_attention", "model": model, "mode": mode,
+        "dtype": str(dtype).replace("torch.", ""), "variant": kind,
+        "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
+        else "32 rows",
+        "shape": f"B={B} S={S} H={H} Hkv={H} D={D}",
+        "key": [B, S, H, D], "max_abs_err": err, "tol": tol,
+        "ms": timed_ms(lambda: fa_ops.flash_attention(q, k, v)),
+        "plain_ms": timed_ms(
+            lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
+        "library_ms": timed_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_lane_shapes(lanes_by_rank):
+    """Phase 2 at the batched round's lane shapes, V from its largest
+    group per rank: f32 lora_matmul at V x 240 rows (train, forward and
+    closed-form backward) and V x 768 (local eval), flash at B = V·10
+    and V·32."""
+    rows = []
+    for r, V in sorted(lanes_by_rank.items()):
+        for mode, M in (("train lanes", TRAIN_B * TRAIN_S),
+                        ("local eval lanes", 32 * TRAIN_S)):
+            for linear, K, N in VIT_LINEARS:
+                rows.append(lora_train_row(mode, M, linear, K, N, r, L=V))
+    for V in sorted(set(lanes_by_rank.values())):
+        for mode, B in (("train lanes", V * TRAIN_B),
+                        ("local eval lanes", V * 32)):
+            rows.append(flash_train_row(mode, B, 12, 64, "vit-base-paper",
+                                        torch.float32))
     return rows
 
 
@@ -977,6 +1024,11 @@ def device_profile(fn, top=8):
 # 2-layer model and 3 Adam steps per vehicle (relative to the largest
 # entry of each merged delta; energy and latency relative)
 ROUND_TOL = 1e-4
+# full width, batched vs serial on the card: each lane's update within
+# SPREAD_FACTOR times the serial trainer's own card-vs-CPU spread on the
+# first CPU_LANES lanes of the same group (see group_budgets_agree)
+SPREAD_FACTOR = 2.0
+CPU_LANES = 3
 
 
 def dtype_name(dtype) -> str:
@@ -986,7 +1038,7 @@ def dtype_name(dtype) -> str:
 class ShapeCounter:
     """Counts the kernels' launches by shape and dtype while installed, by
     wrapping the wrappers' ``_launch`` (whose own counts stay as they
-    are)."""
+    are). lora_matmul keys on (lanes, rows, K, N, r, dtype)."""
 
     def __init__(self):
         self.lora, self.flash = {}, {}
@@ -996,8 +1048,8 @@ class ShapeCounter:
         lora_launch, flash_launch = self._orig
 
         def lora(x, w, t, b, scale, mask):
-            key = (x.shape[0] * x.shape[1], x.shape[2], w.shape[1],
-                   t.shape[-1], dtype_name(x.dtype))
+            key = tuple(x.shape) + (w.shape[1], t.shape[-1],
+                                    dtype_name(x.dtype))
             self.lora[key] = self.lora.get(key, 0) + 1
             return lora_launch(x, w, t, b, scale, mask)
 
@@ -1031,11 +1083,10 @@ def recording(sim, plans):
 
 
 def split_counts(sim):
-    """Accumulate both kernels' launches by variant under the trainer's
-    train steps and its evaluations; keep every step's loss."""
+    """Accumulate both kernels' launches by variant under train steps
+    (the serial trainer's per vehicle, the batched trainer's per group)
+    and evaluations (local and global); keep every step's loss."""
     split = {"train": {}, "eval": {}, "losses": [], "steps": 0, "evals": 0}
-    tr = sim.trainer
-    step, evaluate = tr.train_step, tr.evaluate
 
     def snap():
         return {**{f"lora_matmul.{k}": v
@@ -1047,21 +1098,24 @@ def split_counts(sim):
         for k, v in snap().items():
             split[kind][k] = split[kind].get(k, 0) + v - before[k]
 
-    def train_step(*a, **kw):
-        before = snap()
-        out = step(*a, **kw)
-        add("train", before)
-        split["steps"] += 1
-        split["losses"].append(out[2]["loss"])
-        return out
+    def wrap(obj, name, kind):
+        fn = getattr(obj, name)
 
-    def ev(*a, **kw):
-        before = snap()
-        out = evaluate(*a, **kw)
-        add("eval", before)
-        split["evals"] += 1
-        return out
-    tr.train_step, tr.evaluate = train_step, ev
+        def counted(*a, **kw):
+            before = snap()
+            out = fn(*a, **kw)
+            add(kind, before)
+            if kind == "train":
+                split["steps"] += 1
+                split["losses"].append(out[2]["loss"].reshape(-1))
+            else:
+                split["evals"] += 1
+            return out
+        setattr(obj, name, counted)
+    wrap(sim.trainer, "train_step", "train")
+    wrap(sim.trainer, "evaluate", "eval")
+    wrap(sim.batched_trainer, "train_step", "train")
+    wrap(sim.batched_trainer, "evaluate_lanes", "eval")
     return split
 
 
@@ -1077,27 +1131,51 @@ def step_grads(sim, ads, batch, rank):
     return loss.detach().cpu(), [g.cpu() for g in grads]
 
 
-def round_parity():
-    """Phase 5a: the reduced ViT (head dim 16) with the default SimConfig,
-    one seed, on the card and on the CPU."""
+def merged_rel_err(want_servers, got_merged, by_leaf=None):
+    """Largest |got - want| over the merged deltas of every task, relative
+    to each task's largest entry; per leaf into ``by_leaf``."""
+    worst = 0.0
+    for ti, (want, got) in enumerate(zip(want_servers, got_merged)):
+        err = top = 0.0
+        for path in tree_paths_delta(want):
+            w = tree_get(want, path)["delta"].cpu()
+            g = tree_get(got, path)["delta"].cpu()
+            e, m = maxabs(g, w), float(w.abs().max())
+            if by_leaf is not None:
+                by_leaf[f"{ti}/{'/'.join(map(str, path[2:]))}"] = (
+                    e / max(m, 1e-30))
+            err, top = max(err, e), max(top, m)
+        worst = max(worst, err / max(top, 1e-30))
+    return worst
+
+
+def round_parity(engine):
+    """Phase 5a: the reduced ViT (head dim 16) with the default SimConfig
+    under ``engine``, one seed, on the card and on the CPU."""
     sims, plans, recs = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        sims[dev] = IoVSimulator(SimConfig(), device=dev)
+        sims[dev] = IoVSimulator(SimConfig(engine=engine), device=dev)
         plans[dev] = []
         recording(sims[dev], plans[dev])
     cfg, lora = sims["cpu"].model_cfg, sims["cpu"].cfg.lora
-    # one local train step's loss and grads: fresh adapters with b off
-    # zero (with b = 0 every grad of a is exactly 0), a batch of task 0
-    ads = nontrivial(T.init_adapters(cfg, lora, seed=11, rank=8,
-                                     device="cpu"), 11)
-    d = sims["cpu"].task_data[0]
-    batch = {"tokens": d["tokens"][:TRAIN_B], "labels": d["labels"][:TRAIN_B]}
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = (step_grads(sims[dev], ads, batch, 8)
-                                      for dev in ("cuda", "cpu"))
-    loss_err = abs(float(l_gpu) - float(l_cpu))
-    grad_abs = max(maxabs(a, b) for a, b in zip(g_gpu, g_cpu))
-    if not (loss_err < ROUND_TOL and grad_abs < ROUND_TOL):
-        fail(f"train step card vs CPU: loss {loss_err}, grads {grad_abs}")
+    out = {"engine": engine}
+    if engine == "serial":
+        # one local train step's loss and grads: fresh adapters with b off
+        # zero (with b = 0 every grad of a is exactly 0), a batch of task 0
+        ads = nontrivial(T.init_adapters(cfg, lora, seed=11, rank=8,
+                                         device="cpu"), 11)
+        d = sims["cpu"].task_data[0]
+        batch = {"tokens": d["tokens"][:TRAIN_B],
+                 "labels": d["labels"][:TRAIN_B]}
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = (step_grads(sims[dev], ads, batch,
+                                                     8)
+                                          for dev in ("cuda", "cpu"))
+        loss_err = abs(float(l_gpu) - float(l_cpu))
+        grad_abs = max(maxabs(a, b) for a, b in zip(g_gpu, g_cpu))
+        if not (loss_err < ROUND_TOL and grad_abs < ROUND_TOL):
+            fail(f"train step card vs CPU: loss {loss_err}, grads "
+                 f"{grad_abs}")
+        out.update(step_loss_err=loss_err, step_grad_max_abs_err=grad_abs)
     # one round
     reset_counts()
     with ShapeCounter() as shapes:
@@ -1111,16 +1189,17 @@ def round_parity():
     recs["cpu"] = sims["cpu"].run_round()
     cpu_ms = (time.perf_counter() - t0) * 1e3
     if launched["lora_matmul"] == 0 or launched["flash_attention"] == 0:
-        fail(f"reduced round launched {launched}")
+        fail(f"reduced {engine} round launched {launched}")
     if plans["cuda"] != plans["cpu"]:
-        fail("round card vs CPU: active sets, ranks or departures differ")
+        fail(f"{engine} round card vs CPU: active sets, ranks or "
+             f"departures differ")
     rel = {}
     for gt, ct in zip(recs["cuda"]["tasks"], recs["cpu"]["tasks"]):
         for key in ("active", "departing", "fallbacks", "comm_params",
                     "mean_rank"):
             if gt[key] != ct[key]:
-                fail(f"round card vs CPU: task {gt['task']} {key} "
-                     f"{gt[key]} vs {ct[key]}")
+                fail(f"{engine} round card vs CPU: task {gt['task']} {key}"
+                     f" {gt[key]} vs {ct[key]}")
         for key in ("energy", "latency"):
             e = abs(gt[key] - ct[key]) / max(abs(ct[key]), 1e-12)
             rel[key] = max(rel.get(key, 0.0), e)
@@ -1128,60 +1207,93 @@ def round_parity():
     # their largest entry. Adam's first step is close to lr·sign(g), so an
     # entry of b whose gradient is near 0 moves by up to 2·lr apart on
     # the two devices; the leaf-by-leaf ratios are kept for the record
-    delta, by_leaf = 0.0, {}
-    from repro_torch.core.aggregation import tree_get, tree_paths_delta
-    for ti, (sg, sc) in enumerate(zip(sims["cuda"].servers,
-                                      sims["cpu"].servers)):
-        err = top = 0.0
-        for path in tree_paths_delta(sc.merged):
-            want = tree_get(sc.merged, path)["delta"]
-            got = tree_get(sg.merged, path)["delta"].cpu()
-            e, m = maxabs(got, want), float(want.abs().max())
-            by_leaf[f"{ti}/{'/'.join(map(str, path[2:]))}"] = e / max(m,
-                                                                     1e-30)
-            err, top = max(err, e), max(top, m)
-        delta = max(delta, err / max(top, 1e-30))
+    by_leaf = {}
+    delta = merged_rel_err([s.merged for s in sims["cpu"].servers],
+                           [s.merged for s in sims["cuda"].servers], by_leaf)
     if not (delta < ROUND_TOL and max(rel.values()) < ROUND_TOL):
-        fail(f"round card vs CPU: merged deltas {delta}, {rel}")
-    return {"config": f"SimConfig() defaults, train arch {cfg.name} "
-            f"({cfg.num_layers} layers, d {cfg.d_model}, head dim "
-            f"{cfg.resolved_head_dim}), f32", "tol": ROUND_TOL,
-            "step_loss_err": loss_err, "step_grad_max_abs_err": grad_abs,
-            "merged_delta_rel_err": delta,
-            "merged_delta_rel_err_by_leaf": by_leaf,
-            "energy_rel_err": rel["energy"],
-            "latency_rel_err": rel["latency"],
-            "ranks": sorted({r for _, _, rs, _ in plans["cpu"] for r in rs}),
-            "active": [t["active"] for t in recs["cpu"]["tasks"]],
-            "accuracy_card": recs["cuda"]["accuracy"],
-            "accuracy_cpu": recs["cpu"]["accuracy"],
-            "card_round_ms": card_ms, "cpu_round_ms": cpu_ms,
-            "launches": launched, "lora_matmul_variants": lora_v,
-            "flash_attention_variants": flash_v,
-            "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
-            "flash_attention_by_shape": shapes.by_shape(shapes.flash)}
+        fail(f"{engine} round card vs CPU: merged deltas {delta}, {rel}")
+    out.update({
+        "config": f"SimConfig(engine={engine!r}) defaults, train arch "
+        f"{cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, head dim "
+        f"{cfg.resolved_head_dim}), f32", "tol": ROUND_TOL,
+        "merged_delta_rel_err": delta,
+        "merged_delta_rel_err_by_leaf": by_leaf,
+        "energy_rel_err": rel["energy"], "latency_rel_err": rel["latency"],
+        "ranks": sorted({r for _, _, rs, _ in plans["cpu"] for r in rs}),
+        "active": [t["active"] for t in recs["cpu"]["tasks"]],
+        "accuracy_card": recs["cuda"]["accuracy"],
+        "accuracy_cpu": recs["cpu"]["accuracy"],
+        "card_round_ms": card_ms, "cpu_round_ms": cpu_ms,
+        "launches": launched, "lora_matmul_variants": lora_v,
+        "flash_attention_variants": flash_v,
+        "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
+        "flash_attention_by_shape": shapes.by_shape(shapes.flash)})
+    return out
 
 
-def full_rounds(n_rounds=2):
-    """Phase 5b: rounds at the full width of vit-base-paper on the card,
-    each under a profiler window, then one more without it."""
-    sim = IoVSimulator(SimConfig(method="ours", engine="serial",
+def check_dev_on_card():
+    """Phase 5a: one batched_check round of the reduced ViT on the card:
+    the serial trainer replayed on the batched engine's batches."""
+    sim = IoVSimulator(SimConfig(engine="batched_check"), device="cuda")
+    sim.run_round()
+    if not sim.engine_check_dev < ROUND_TOL:
+        fail(f"batched_check on the card: engine_check_dev "
+             f"{sim.engine_check_dev} >= {ROUND_TOL}")
+    return sim.engine_check_dev
+
+
+def round_groups(sim, round_plans):
+    """The batched engine's groups of one round, from its plans:
+    [(task, rank, lanes, train forwards)], the forwards being the
+    group's largest step budget (§IV-E: departing vehicles train
+    max(1, round(local_steps · departure_fraction)) steps)."""
+    cfg = sim.cfg
+    dep = max(1, int(round(cfg.local_steps * cfg.departure_fraction)))
+    groups = []
+    for ti, active, ranks, departing in round_plans:
+        by_rank = {}
+        for v, r in zip(active, ranks):
+            by_rank.setdefault(r, []).append(
+                dep if departing[v] else cfg.local_steps)
+        groups += [(sim.tasks[ti].name, r, len(st), max(st))
+                   for r, st in sorted(by_rank.items())]
+    return groups
+
+
+def full_rounds(engine, n_profiled):
+    """Phase 5b: rounds at the full width of vit-base-paper on the card
+    under ``engine``, each under a profiler window, then one more without
+    it. Keeps each round's plans, records and the servers' merged deltas
+    (under "_state", for :func:`engines_agree`)."""
+    sim = IoVSimulator(SimConfig(method="ours", engine=engine,
                                  train_arch=vit_base_paper.vit_base_paper()),
                        device="cuda")
     cfg = sim.model_cfg
+    nt = sim.cfg.num_tasks
+    # launches of each kernel per forward: one per LoRA linear, one flash
+    # per attention layer
+    per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
+        T.init_adapters(cfg, sim.cfg.lora, rank=2, device="cpu"))),
+        "flash_attention": cfg.num_layers}
+    plans = []
+    recording(sim, plans)
     split = split_counts(sim)
+    state = {"plans": [], "recs": [], "merged": []}
     out = []
     reset_counts()
-    for rnd in range(n_rounds):
+    for rnd in range(n_profiled):
         before = {"train": dict(split["train"]),
                   "eval": dict(split["eval"]),
-                  "steps": split["steps"], "evals": split["evals"]}
+                  "steps": split["steps"], "evals": split["evals"],
+                  "counts": counts()}
         recs = []
+        torch.cuda.reset_peak_memory_stats()
         with ShapeCounter() as shapes:
             prof = device_profile(lambda: recs.append(sim.run_round()),
                                   top=6)
+        peak = torch.cuda.max_memory_allocated()
         rec = recs[0]
-        losses = torch.stack(split["losses"]).cpu()
+        losses = torch.cat(split["losses"]).cpu()
         split["losses"] = []
         finite = (bool(torch.isfinite(losses).all())
                   and np.isfinite(rec["energy"])
@@ -1190,12 +1302,14 @@ def full_rounds(n_rounds=2):
                           np.isfinite(t["accuracy"])
                           for t in rec["tasks"]))
         if not finite:
-            fail(f"full-width round {rnd}: a loss, energy or accuracy is "
-                 f"not finite")
-        out.append({
+            fail(f"full-width {engine} round {rnd}: a loss, energy or "
+                 f"accuracy is not finite")
+        launched = {k: v - before["counts"][k] for k, v in counts().items()}
+        row = {
             "round": rnd, "wall_ms": prof["wall_ms"],
             "device_ms": prof["device_ms"],
             "busy_share": prof["busy_share"],
+            "peak_memory_bytes": peak,
             "kernels_in_trace": prof["kernels"],
             "port_kernels": prof["port_kernels"], "top": prof["top"],
             "train_steps": split["steps"] - before["steps"],
@@ -1203,38 +1317,273 @@ def full_rounds(n_rounds=2):
             "launches": {kind: {k: v - before[kind].get(k, 0)
                                 for k, v in split[kind].items()}
                          for kind in ("train", "eval")},
+            "launches_total": launched,
             "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
             "flash_attention_by_shape": shapes.by_shape(shapes.flash),
             "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
             "active": {t["task"]: t["active"] for t in rec["tasks"]},
             "energy": rec["energy"], "latency": rec["latency"],
             "accuracy": rec["accuracy"],
-            "loss_first_last": [float(losses[0]), float(losses[-1])]})
+            "loss_first_last": [float(losses[0]), float(losses[-1])]}
+        if engine != "serial":
+            # one forward per group step, one local eval per group, one
+            # global eval per task that kept an upload: any loop over
+            # vehicles would launch more
+            groups = round_groups(sim, plans[-nt:])
+            fwd = (sum(steps + 1 for *_, steps in groups)
+                   + sum(t["comm_params"] > 0 for t in rec["tasks"]))
+            want = {k: n * fwd for k, n in per_fwd.items()}
+            if {k: launched[k] for k in want} != want:
+                fail(f"full-width {engine} round {rnd}: launches "
+                     f"{launched}, the groups {groups} predict {want}")
+            row.update(groups=[list(g) for g in groups],
+                       predicted_launches=want)
+        out.append(row)
+        state["plans"].append(plans[-nt:])
+        state["recs"].append(rec)
+        state["merged"].append([s.merged for s in sim.servers])
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
     for name in ("lora_matmul", "flash_attention"):
         if launched[name] == 0:
-            fail(f"full-width rounds launched no {name}")
+            fail(f"full-width {engine} rounds launched no {name}")
     if lora_v["simt"] != launched["lora_matmul"] or \
             flash_v["simt"] != launched["flash_attention"]:
-        fail(f"full-width rounds: f32 launches off the simt kernels "
-             f"{lora_v} {flash_v}")
+        fail(f"full-width {engine} rounds: f32 launches off the simt "
+             f"kernels {lora_v} {flash_v}")
     # one more round, no profiler: the plain wall time
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rec = sim.run_round()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    return {"config": f"{cfg.name}, {cfg.num_layers} layers, d "
+    state["plans"].append(plans[-nt:])
+    state["recs"].append(rec)
+    state["merged"].append([s.merged for s in sim.servers])
+    return {"engine": engine,
+            "config": f"{cfg.name}, {cfg.num_layers} layers, d "
             f"{cfg.d_model}, {cfg.num_heads} heads of "
             f"{cfg.resolved_head_dim}, f32; SimConfig(method='ours', "
-            f"engine='serial') otherwise default",
+            f"engine={engine!r}) otherwise default",
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
-            "unprofiled_round": {"round": n_rounds, "wall_ms": plain_ms,
-                                 "energy": rec["energy"],
-                                 "accuracy": rec["accuracy"]}}
+            "unprofiled_round": {
+                "round": n_profiled, "wall_ms": plain_ms,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "energy": rec["energy"], "accuracy": rec["accuracy"]},
+            "_state": state}
+
+
+def update_spread(got, want, base, scale):
+    """Largest, over the LoRA targets, ||P_got - P_want||_F /
+    ||P_want - P_base||_F with P = scale·A·B per layer: the difference of
+    two trainings of one lane, over the update the second made. One
+    entry whose update took the other sign moves it little; a lane
+    trained on other gradients, or for other steps, moves it a lot."""
+    worst = 0.0
+    for path in tree_paths(want):
+        def prod(t):
+            ad = tree_get(t, path)
+            return scale * torch.einsum("lir,lro->lio", ad["a"].cuda(),
+                                        ad["b"].cuda())
+        pw = prod(want)
+        worst = max(worst, float((prod(got) - pw).norm()
+                                 / (pw - prod(base)).norm().clamp_min(
+                                     1e-30)))
+    return worst
+
+
+def merged_spread(want_servers, got_merged):
+    """Largest, over tasks and merged-delta leaves,
+    ||got - want||_F / ||want||_F."""
+    worst = 0.0
+    for want, got in zip(want_servers, got_merged):
+        for path in tree_paths_delta(want):
+            w = tree_get(want, path)["delta"]
+            g = tree_get(got, path)["delta"]
+            worst = max(worst, float((g - w).norm()
+                                     / w.norm().clamp_min(1e-30)))
+    return worst
+
+
+def group_budgets_agree():
+    """Phase 5b: task 0's first rank group of round 0 at full width, on
+    one round's pre-drawn batches and one shared adapter tree, through
+    the batched trainer (as the simulator calls it) and, vehicle by
+    vehicle, the serial trainer on the card; the serial trainer also on
+    the CPU for its first CPU_LANES vehicles.
+
+    Held:
+    - one local step's adapter gradients (b drawn off zero, so a's
+      gradients are not 0), batched against serial, within ROUND_TOL of
+      each leaf's largest entry: the two differ only in summation order;
+    - after the full step budgets, every lane's update (see
+      :func:`update_spread`), batched against serial on the card, within
+      SPREAD_FACTOR times the largest spread of the serial trainer
+      between the card and the CPU on the same lanes, read in this call;
+      the lanes' last live losses within ROUND_TOL relative;
+    - two planted faults of the batched trainer must break the
+      gradient or the update gate: the loss as a mean over all V·B rows
+      (each lane's gradient scaled by 1/V, so 1 - 1/V off) and a lane
+      past its budget left live.
+
+    Adam's first update is close to lr·sign(g), so an entry whose
+    gradient is within summation noise of 0 moves by up to 2·lr apart
+    on another summation order; the largest entry difference of a merged
+    delta is one such entry, the Frobenius spread is not
+    (``tools/batched_spread_probe.py`` counts them)."""
+    import dataclasses
+    from repro_torch.federated import batched_client as bc
+    from repro_torch.federated.client import LocalTrainer
+    sim = IoVSimulator(SimConfig(method="ours", engine="batched",
+                                 train_arch=vit_base_paper.vit_base_paper()),
+                       device="cuda")
+    sim.mobility.step()
+    plan = sim._plan_task(0)
+    ids = plan["active_ids"]
+    rank = min(int(plan["ranks"][v]) for v in ids)
+    idxs = [i for i, v in enumerate(ids) if int(plan["ranks"][v]) == rank]
+    steps = [plan["steps_list"][i] for i in idxs]
+    # one tree shared by every lane, as every round after the first
+    # distributes it (the trainer materialises it per lane)
+    ads = [plan["adapters_list"][idxs[0]]] * len(idxs)
+    batches = [bc.draw_batches(sim.client_data[0][ids[i]],
+                               plan["steps_list"][i], sim.cfg.local_steps)
+               for i in idxs]
+    evb = sim.local_eval[0]
+    V, scale = len(idxs), sim.cfg.lora.scale
+    lora_r = dataclasses.replace(sim.cfg.lora, rank=rank)
+    if not min(steps) < max(steps):
+        fail(f"full width: task 0's rank-{rank} group (budgets {steps}) "
+             f"has no departing lane")
+
+    # one step's gradients
+    def grads(ad, tok, lab, lanes=None):
+        adg = tree_map(lambda t: t.detach().requires_grad_(True), ad)
+        loss, _ = T.loss_fn(sim.params, adg, sim.model_cfg, lora_r,
+                            {"tokens": tok, "labels": lab}, lanes=lanes)
+        return torch.autograd.grad(loss, leaves(adg))
+    moved = [nontrivial(ad, 30 + j) for j, ad in enumerate(ads)]
+    tok = torch.as_tensor(np.stack([b["tokens"][0] for b in batches]),
+                          dtype=torch.int64, device=sim.device)
+    lab = torch.as_tensor(np.stack([b["labels"][0] for b in batches]),
+                          dtype=torch.int64, device=sim.device)
+    g_s = [grads(moved[j], tok[j], lab[j]) for j in range(V)]
+
+    def grad_err():
+        g_b = grads(bc.stack_trees(moved), tok.reshape(-1, tok.shape[-1]),
+                    lab.reshape(-1), lanes=V)
+        return max(maxabs(gb.select(-3, j), gs) / max(float(gs.abs().max()),
+                                                      1e-30)
+                   for j in range(V) for gb, gs in zip(g_b, g_s[j]))
+
+    def batched():
+        stacked, m = sim.batched_trainer.run_jobs(sim.params, [{
+            "adapters_list": ads, "batches_list": batches,
+            "step_counts": steps, "eval_batch": evb}])[0]
+        return bc.unstack_tree(stacked, V), m
+
+    def serial(trainer, params, n_lanes, dev):
+        return [trainer.finetune(
+            params, to(ad, dev), None, n, eval_batch=evb,
+            batches=[{k: a[si] for k, a in b.items()} for si in range(n)])
+            for ad, b, n in zip(ads[:n_lanes], batches, steps)]
+
+    def spreads(got, want):
+        return [update_spread(g, w, ad, scale)
+                for g, w, ad in zip(got, want, ads)]
+
+    def loss_errs(got, want):
+        return [abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want)]
+    ser = serial(sim.trainer, sim.params, V, "cuda")
+    cpu = serial(LocalTrainer(sim.model_cfg, sim.cfg.lora, lr=sim.cfg.lr,
+                              device="cpu"), to(sim.params, "cpu"),
+                 CPU_LANES, "cpu")
+    ser_ads, ser_loss = [a for a, _ in ser], [m["loss"] for _, m in ser]
+    card_cpu = spreads(ser_ads[:CPU_LANES], [a for a, _ in cpu])
+    card_cpu_loss = loss_errs(ser_loss, [m["loss"] for _, m in cpu])
+    limit = SPREAD_FACTOR * max(card_cpu)
+    lanes, m = batched()
+    out = {"task": sim.tasks[0].name, "rank": rank, "lanes": V,
+           "steps": steps, "one_step_grad_rel_err": grad_err(),
+           "cpu_lanes": CPU_LANES, "spread_factor": SPREAD_FACTOR,
+           "serial_card_vs_cpu_update_spread": card_cpu,
+           "serial_card_vs_cpu_loss_rel": card_cpu_loss,
+           "update_limit": limit,
+           "batched_vs_serial_update_spread": spreads(lanes, ser_ads),
+           "batched_vs_serial_loss_rel": loss_errs(
+               [float(x) for x in m["loss"]], ser_loss),
+           "eval_accuracy_batched": [float(x) for x in m["eval_accuracy"]],
+           "eval_accuracy_serial": [s["eval_accuracy"] for _, s in ser]}
+    if not out["one_step_grad_rel_err"] < ROUND_TOL:
+        fail(f"full width, one local step of {V} lanes: batched vs serial "
+             f"gradients {out['one_step_grad_rel_err']} >= {ROUND_TOL}")
+    if not (max(out["batched_vs_serial_update_spread"]) <= limit
+            and max(out["batched_vs_serial_loss_rel"]) < ROUND_TOL):
+        fail(f"full width, {V} lanes at budgets {steps}: batched vs serial "
+             f"updates {out['batched_vs_serial_update_spread']} (limit "
+             f"{limit}), losses {out['batched_vs_serial_loss_rel']} "
+             f"(tol {ROUND_TOL})")
+
+    # planted faults: each must break the gradient or the update gate
+    loss_fn, keep = T.loss_fn, bc._keep_frozen
+
+    def mean_over_rows(*a, lanes=None, **kw):
+        loss, mt = loss_fn(*a, lanes=lanes, **kw)
+        return (loss / lanes if lanes else loss), mt
+    planted = {}
+    for label, name, fake in (
+            ("mean over all V·B rows", "loss_fn", mean_over_rows),
+            ("lane past its budget left live", "_keep_frozen",
+             lambda live, new, old: new)):
+        owner = T if name == "loss_fn" else bc
+        setattr(owner, name, fake)
+        try:
+            got, _ = batched()
+            row = {"one_step_grad_rel_err": grad_err(),
+                   "update_spread": max(spreads(got, ser_ads))}
+        finally:
+            T.loss_fn, bc._keep_frozen = loss_fn, keep
+        if not (row["one_step_grad_rel_err"] >= ROUND_TOL
+                or row["update_spread"] > limit):
+            fail(f"full width: planted fault '{label}' passes the gates "
+                 f"{row}")
+        planted[label] = row
+    out["planted_faults"] = planted
+    return out, limit
+
+
+def engines_agree(serial, batched, limit):
+    """Phase 5b: the batched rounds against the serial rounds of the same
+    seed: active sets and ranks exact in every round both ran, energy and
+    latency within 1e-5 relative, and the merged deltas after round 0
+    (see :func:`merged_spread`) within ``limit``, the update limit that
+    :func:`group_budgets_agree` reads from the serial trainer's
+    card-vs-CPU spread. The largest entry difference is recorded."""
+    s, b = serial.pop("_state"), batched.pop("_state")
+    n = min(len(s["recs"]), len(b["recs"]))
+    rel = {}
+    for rnd in range(n):
+        if s["plans"][rnd] != b["plans"][rnd]:
+            fail(f"full width round {rnd}: batched and serial differ in "
+                 f"active sets, ranks or departures")
+        for st, bt in zip(s["recs"][rnd]["tasks"], b["recs"][rnd]["tasks"]):
+            for key in ("energy", "latency"):
+                e = abs(bt[key] - st[key]) / max(abs(st[key]), 1e-12)
+                rel[key] = max(rel.get(key, 0.0), e)
+    spread = merged_spread(s["merged"][0], b["merged"][0])
+    if not max(rel.values()) < 1e-5:
+        fail(f"full width batched vs serial: energy/latency {rel}")
+    if not spread <= limit:
+        fail(f"full width batched vs serial: merged deltas after round 0 "
+             f"{spread} > {limit}")
+    return {"rounds": n, "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"],
+            "merged_delta_spread_round0": spread, "limit": limit,
+            "merged_delta_rel_err_round0": merged_rel_err(s["merged"][0],
+                                                          b["merged"][0])}
 
 
 def main() -> int:
@@ -1351,58 +1700,129 @@ def main() -> int:
 
     # the round: each path driven with the counts set to 0 just before
     # it and read just after (inside round_parity and full_rounds)
-    par5 = round_parity()
-    print(f"[5a] {par5['config']}, card vs CPU: train step loss err "
-          f"{par5['step_loss_err']:.3g}, grads max abs "
-          f"{par5['step_grad_max_abs_err']:.3g}; one round: ranks "
-          f"{par5['ranks']}, active {par5['active']} equal, merged deltas "
-          f"rel {par5['merged_delta_rel_err']:.3g}, energy rel "
-          f"{par5['energy_rel_err']:.3g}, latency rel "
-          f"{par5['latency_rel_err']:.3g} (tol {ROUND_TOL}); accuracy card "
-          f"{par5['accuracy_card']:.4f}, CPU {par5['accuracy_cpu']:.4f}; "
-          f"round {par5['card_round_ms']:.0f} ms on the card, "
-          f"{par5['cpu_round_ms']:.0f} ms on the CPU; launches "
-          f"{par5['launches']}", flush=True)
-    full = full_rounds()
-    for rd in full["rounds"]:
-        print(f"[5b] {full['config']}: round {rd['round']} wall "
-              f"{rd['wall_ms']:.1f} ms (profiled), device "
-              f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}; "
-              f"{rd['train_steps']} train steps, {rd['evals']} evals; "
-              f"launches in train steps {rd['launches']['train']}, in "
-              f"evals {rd['launches']['eval']}; ranks {rd['ranks']}, "
-              f"active {rd['active']}; energy {rd['energy']:.2f} J, "
-              f"accuracy {rd['accuracy']:.4f}, loss "
-              f"{rd['loss_first_last'][0]:.4f} -> "
-              f"{rd['loss_first_last'][1]:.4f}; port kernels: "
-              + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
-                          for k, t in rd["port_kernels"].items())
-              + "; top: " + "; ".join(f"{t['kernel'][:40]} {t['ms']:.2f} "
-                                      f"ms x{t['count']}"
-                                      for t in rd["top"][:4]), flush=True)
-    up = full["unprofiled_round"]
-    print(f"[5b] round {up['round']} without the profiler: wall "
-          f"{up['wall_ms']:.1f} ms; launches over the profiled rounds "
-          f"{full['launches']}", flush=True)
-    for rd in full["rounds"]:
-        print(f"[5b] round {rd['round']} by shape: lora_matmul (rows x K "
-              f"x N x r x dtype) {rd['lora_matmul_by_shape']}; flash (B x "
-              f"S x H x D x dtype) {rd['flash_attention_by_shape']}",
-              flush=True)
-    round_paths = {"vit-tiny-paper round (5a)": par5["launches"],
-                   "vit-base-paper 2 rounds (5b)": full["launches"]}
-    # each phase-2 row's launches in each round: vit-base-paper's in
-    # rounds 0 and 1 of 5b, vit-tiny-paper's in 5a's one round (its
-    # round 0)
+    par5 = {e: round_parity(e) for e in ("serial", "batched")}
+    for engine, p5 in par5.items():
+        step = (f"train step loss err {p5['step_loss_err']:.3g}, grads max "
+                f"abs {p5['step_grad_max_abs_err']:.3g}; "
+                if "step_loss_err" in p5 else "")
+        print(f"[5a] {p5['config']}, card vs CPU: {step}one round: ranks "
+              f"{p5['ranks']}, active {p5['active']} equal, merged deltas "
+              f"rel {p5['merged_delta_rel_err']:.3g}, energy rel "
+              f"{p5['energy_rel_err']:.3g}, latency rel "
+              f"{p5['latency_rel_err']:.3g} (tol {ROUND_TOL}); accuracy "
+              f"card {p5['accuracy_card']:.4f}, CPU "
+              f"{p5['accuracy_cpu']:.4f}; round {p5['card_round_ms']:.0f} "
+              f"ms on the card, {p5['cpu_round_ms']:.0f} ms on the CPU; "
+              f"launches {p5['launches']}", flush=True)
+    check_dev = check_dev_on_card()
+    print(f"[5a] batched_check on the card: engine_check_dev "
+          f"{check_dev:.3g} (largest |batched - serial| adapter entry)",
+          flush=True)
+    fulls = {"serial": full_rounds("serial", 1),
+             "batched": full_rounds("batched", 2)}
+    g, limit = group_budgets_agree()
+    agree = engines_agree(fulls["serial"], fulls["batched"], limit)
+    for full in fulls.values():
+        for rd in full["rounds"]:
+            groups = (f"; groups (task, rank, lanes, steps) {rd['groups']}"
+                      if "groups" in rd else "")
+            print(f"[5b] {full['config']}: round {rd['round']} wall "
+                  f"{rd['wall_ms']:.1f} ms (profiled), device "
+                  f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}, "
+                  f"peak memory {rd['peak_memory_bytes'] / 2**30:.2f} GiB; "
+                  f"{rd['train_steps']} train steps, {rd['evals']} evals; "
+                  f"launches in train steps {rd['launches']['train']}, in "
+                  f"evals {rd['launches']['eval']}{groups}; ranks "
+                  f"{rd['ranks']}, active {rd['active']}; energy "
+                  f"{rd['energy']:.2f} J, accuracy {rd['accuracy']:.4f}, "
+                  f"loss {rd['loss_first_last'][0]:.4f} -> "
+                  f"{rd['loss_first_last'][1]:.4f}; port kernels: "
+                  + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                              for k, t in rd["port_kernels"].items())
+                  + "; top: " + "; ".join(
+                      f"{t['kernel'][:40]} {t['ms']:.2f} ms x{t['count']}"
+                      for t in rd["top"][:4]), flush=True)
+        up = full["unprofiled_round"]
+        print(f"[5b] {full['engine']} round {up['round']} without the "
+              f"profiler: wall {up['wall_ms']:.1f} ms, peak memory "
+              f"{up['peak_memory_bytes'] / 2**30:.2f} GiB; launches over "
+              f"the profiled rounds {full['launches']}", flush=True)
+        for rd in full["rounds"]:
+            print(f"[5b] {full['engine']} round {rd['round']} by shape: "
+                  f"lora_matmul (L x M x K x N x r x dtype) "
+                  f"{rd['lora_matmul_by_shape']}; flash (B x S x H x D x "
+                  f"dtype) {rd['flash_attention_by_shape']}", flush=True)
+    print(f"[5b] task {g['task']}'s rank-{g['rank']} group of round 0 at "
+          f"full width ({g['lanes']} lanes, step budgets {g['steps']}): one "
+          f"step's adapter gradients batched vs serial on the card rel "
+          f"{g['one_step_grad_rel_err']:.3g} (tol {ROUND_TOL}); after the "
+          f"budgets, each lane's update spread batched vs serial on the "
+          f"card max {max(g['batched_vs_serial_update_spread']):.3g}, "
+          f"serial card vs CPU ({g['cpu_lanes']} lanes) max "
+          f"{max(g['serial_card_vs_cpu_update_spread']):.3g}, limit "
+          f"{g['update_limit']:.3g} ({g['spread_factor']}x); last live "
+          f"losses rel max {max(g['batched_vs_serial_loss_rel']):.3g} "
+          f"(tol {ROUND_TOL}); planted faults: "
+          + "; ".join(f"{k}: gradients {v['one_step_grad_rel_err']:.3g}, "
+                      f"update spread {v['update_spread']:.3g}"
+                      for k, v in g["planted_faults"].items()), flush=True)
+    print(f"[5b] batched vs serial at full width over {agree['rounds']} "
+          f"rounds: ranks and active sets equal, energy rel "
+          f"{agree['energy_rel_err']:.3g}, latency rel "
+          f"{agree['latency_rel_err']:.3g} (tol 1e-5), merged deltas after "
+          f"round 0: spread {agree['merged_delta_spread_round0']:.3g} "
+          f"(limit {agree['limit']:.3g}), largest entry rel "
+          f"{agree['merged_delta_rel_err_round0']:.3g} (recorded); launches "
+          f"equal the groups' prediction in every batched round",
+          flush=True)
+
+    # phase 2 at the batched round's lane shapes: V from its largest
+    # group per rank
+    lanes_by_rank = {}
+    for rd in fulls["batched"]["rounds"]:
+        for _, r, lanes, _ in rd["groups"]:
+            lanes_by_rank[r] = max(lanes_by_rank.get(r, 0), lanes)
+    lane_rows = check_lane_shapes(lanes_by_rank)
+    for r in lane_rows:
+        extra = (f", kernel alone {r['kernel_ms']:.4f} ms"
+                 if r["name"] == "lora_matmul" else f", {r['block']}")
+        if "bwd_err" in r:
+            extra += (f", backward err {r['bwd_err']:.3g} (tol "
+                      f"{r['bwd_tol']}), backward {r['bwd_ms']:.4f} ms "
+                      f"(autograd of the plain version "
+                      f"{r['autograd_plain_bwd_ms']:.4f}, bound "
+                      f"{r['bwd_bound_ms']:.4f})")
+        print(f"[2] {r['mode']} {r['name']} {r['model']} "
+              f"{r.get('linear', '')} {r['variant']} {r['dtype']} "
+              f"{r['shape']}: err {r['max_abs_err']:.3g} (tol {r['tol']}), "
+              f"ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){extra}", flush=True)
+    train_rows += lane_rows
+
+    round_paths = {
+        "vit-tiny-paper serial round (5a)": par5["serial"]["launches"],
+        "vit-tiny-paper batched round (5a)": par5["batched"]["launches"],
+        "vit-base-paper serial round (5b)": fulls["serial"]["launches"],
+        "vit-base-paper 2 batched rounds (5b)":
+            fulls["batched"]["launches"]}
+    # each phase-2 row's launches in each round: vit-base-paper's in the
+    # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
+    # round 0), by engine
     per_round = {}
-    for model, rounds in (("vit-base-paper", full["rounds"]),
-                          ("vit-tiny-paper", [dict(par5, round=0)])):
+    for model, engine, rounds in (
+            ("vit-base-paper", "serial", fulls["serial"]["rounds"]),
+            ("vit-base-paper", "batched", fulls["batched"]["rounds"]),
+            ("vit-tiny-paper", "serial", [dict(par5["serial"], round=0)]),
+            ("vit-tiny-paper", "batched",
+             [dict(par5["batched"], round=0)])):
         for rd in rounds:
             for name in ("lora_matmul", "flash_attention"):
                 for k, v in rd[f"{name}_by_shape"].items():
                     *dims, dt = k.split("x")
                     key = (model, name, dt) + tuple(int(x) for x in dims)
-                    per_round.setdefault(key, {})[f"round {rd['round']}"] = v
+                    per_round.setdefault(key, {})[
+                        f"{engine} round {rd['round']}"] = v
     for r in train_rows:
         r["launches_by_round"] = per_round.get(
             (r["model"], r["name"], r["dtype"]) + tuple(r["key"]), {})
@@ -1413,6 +1833,7 @@ def main() -> int:
                   f"{k} {v}" for k, v in r["launches_by_round"].items())
                   or "none") for r in train_rows), flush=True)
     rows += train_rows
+    round_runs = list(par5.values()) + list(fulls.values())
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
@@ -1433,16 +1854,14 @@ def main() -> int:
         extra = {}
         if name == "lora_matmul":
             extra["launches_by_variant"] = {
-                k: sum(run["lora_matmul_variants"][k] for run in runs)
-                + par5["lora_matmul_variants"][k]
-                + full["lora_matmul_variants"][k]
+                k: sum(run["lora_matmul_variants"][k]
+                       for run in runs + round_runs)
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
         if name == "flash_attention":
             extra["launches_by_variant"] = {
-                k: sum(run["flash_attention_variants"][k] for run in runs)
-                + par5["flash_attention_variants"][k]
-                + full["flash_attention_variants"][k]
+                k: sum(run["flash_attention_variants"][k]
+                       for run in runs + round_runs)
                 for k in fa_ops.launches_by_variant}
             extra["block"] = head["block"]
         if name == "wkv6":
@@ -1465,7 +1884,9 @@ def main() -> int:
                    "build_seconds": secs, "shared_memory_bytes": smem,
                    "wkv6_chunk_steps": steps, "kernels": entries,
                    "parity": pars, "served": runs, "round_parity": par5,
-                   "full_rounds": full}, fh, indent=1)
+                   "engine_check_dev": check_dev, "full_rounds": fulls,
+                   "full_batched_vs_serial": agree,
+                   "full_group_budgets": g}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -5,9 +5,10 @@ All operations act on adapter trees whose leaves are
 {"a": (..., d_in, r_v), "b": (..., r_v, d_out)} with client-dependent
 r_v. The server keeps the global adapter as merged deltas Δθ
 (..., d_in, d_out) per target linear, which it SVDs and redistributes.
-The grouped, padded and segmented aggregators, the RSU partials, the
-upload buffer, HetLoRA's and FedRA's aggregators wait for the batched
-and fused slices of the port.
+The batched engine's groups arrive stacked on the lane axis
+((L, V, d_in, r), see ``federated/batched_client.py``). The padded and
+segmented aggregators, the RSU partials, the upload buffer, HetLoRA's
+and FedRA's aggregators wait for later slices of the port.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.svd import default_omega, randomized_svd, sketch_width
+from repro_torch.interop import tree_map
 
 
 def _paths(tree: Any, leaf_key: Tuple[str, ...]) -> List[Tuple]:
@@ -85,6 +87,58 @@ def aggregate_merged(client_adapters: Sequence[Any], weights: Sequence[float],
             ad = tree_get(ad_tree, path)
             d = lora_lib.merge_delta({"a": ad["a"].float(),
                                       "b": ad["b"].float()}, scale) * w[ci]
+            delta = d if delta is None else delta + d
+        out = tree_set(out, path, {"delta": delta})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Stacked (lane-axis) aggregation, for the batched round engine: each
+# group holds the adapters of its same-rank clients stacked on the lane
+# axis, so the server merges a whole group with one contraction per
+# LoRA target instead of a loop over clients.
+# ---------------------------------------------------------------------------
+
+def _skeleton(stacked: Any) -> Any:
+    """Lane-0 view of a stacked tree (structure donor for tree_set)."""
+    return tree_map(lambda x: x.select(-3, 0), stacked)
+
+
+def _wvec(w) -> torch.Tensor:
+    """A group's weights as an f32 vector on the CPU."""
+    return torch.as_tensor(w, dtype=torch.float32).reshape(-1).cpu()
+
+
+def _group_weight_norm(groups: Sequence[Tuple[Any, Any]]) -> torch.Tensor:
+    return torch.clamp(sum(torch.sum(_wvec(w)) for _, w in groups),
+                       min=1e-12)
+
+
+def aggregate_merged_grouped(groups: Sequence[Tuple[Any, Any]],
+                             scale: float) -> Any:
+    """Merged-delta aggregation over stacked per-rank groups.
+
+    groups: [(stacked_adapters, weights)]; stacked leaves carry the lane
+    axis third from the end ((L, n_g, d_in, r)), weights are (n_g,). The
+    weights are normalised in f32 over all groups. Equal to
+    :func:`aggregate_merged` over the concatenated clients up to float
+    reassociation; each group contracts its lanes in one einsum per
+    leaf."""
+    if not groups:
+        raise ValueError("aggregate_merged_grouped needs a group")
+    wsum = _group_weight_norm(groups)
+    out = _skeleton(groups[0][0])
+    device = tree_get(out, tree_paths(out)[0])["a"].device
+    # each group's normalised weights, on the device once
+    wls = [(_wvec(w) / wsum).to(device).reshape(-1, 1, 1)
+           for _, w in groups]
+    for path in tree_paths(out):
+        delta = None
+        for (stacked, _), wl in zip(groups, wls):
+            ad = tree_get(stacked, path)
+            a = ad["a"].float() * wl
+            d = scale * torch.einsum("...vir,...vro->...io", a,
+                                     ad["b"].float())
             delta = d if delta is None else delta + d
         out = tree_set(out, path, {"delta": delta})
     return out

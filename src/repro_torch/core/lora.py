@@ -104,12 +104,19 @@ def apply_lora_linear(base: Dict[str, torch.Tensor],
         y = y + base["b"]
     if adapter is not None:
         # adapters are kept in f32 (they are trained); compute the
-        # low-rank path in f32 and cast back to the base compute dtype
-        lo1 = x.to(adapter["a"].dtype) @ adapter["a"]
+        # low-rank path in f32 and cast back to the base compute dtype.
+        # Lane-batched adapters (3-D) take x's rows lane-major, as
+        # _kernel_linear does: one row per lane in decode, B·S in the
+        # batched trainer
+        xl = x.to(adapter["a"].dtype)
+        if adapter["a"].dim() == 3:
+            xl = xl.reshape(adapter["a"].shape[0], -1, x.shape[-1])
+        lo1 = xl @ adapter["a"]
         if rank_mask is not None:
             lo1 = lo1 * _per_lane(rank_mask, lo1, 1)
         lo = lo1 @ adapter["b"]
-        y = y + (_per_lane(scale, lo, 0) * lo).to(y.dtype)
+        lo = (_per_lane(scale, lo, 0) * lo).reshape(y.shape)
+        y = y + lo.to(y.dtype)
     return y
 
 

@@ -1,5 +1,5 @@
 """RSU-side server for the paper's method, port of
-``repro/federated/server.py`` (``method="ours"``, list path).
+``repro/federated/server.py`` (``method="ours"``, list and grouped paths).
 
 The server state is the merged global delta tree Δθ per LoRA target;
 distribution ships truncated-SVD factors at each vehicle's chosen rank;
@@ -7,7 +7,8 @@ aggregation is the data-weighted sum of the clients' scale·A·B products
 (paper §III-B). HomoLoRA, HetLoRA and FedRA, non-trivial RSU tiers and
 semi-synchronous participation raise ``NotImplementedError``; residual
 aggregation has no parameter here yet. ROADMAP Queue 1, item 6 lists
-them.
+them. :meth:`RSUServer.aggregate_grouped` takes the batched engine's
+stacked groups.
 
 Two draws come from ``jax.random`` in the reference: the fresh adapters
 of the first round and the SVD sketch Ω. Both are injectable here
@@ -19,7 +20,7 @@ the same run on the card and on the CPU.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -110,6 +111,20 @@ class RSUServer:
         if client_adapters:
             self.merged = agg.aggregate_merged(client_adapters, weights,
                                                self.lora.scale)
+        self.round += 1
+
+    def aggregate_grouped(self, groups: Sequence[Dict[str, Any]]) -> None:
+        """Batched-engine aggregation over stacked per-rank groups, equal
+        to :meth:`aggregate` over the concatenated clients.
+
+        groups: dicts with ``adapters`` (a tree stacked on the lane axis,
+        (L, n_g, ...)) and ``weights`` (n_g,) data sizes; other keys
+        (``indices``, ``masks``, ``assoc``) are not read by ``ours`` on
+        the trivial tier. No group keeps the state."""
+        pairs = [(g["adapters"], g["weights"]) for g in groups]
+        if pairs:
+            self.merged = agg.aggregate_merged_grouped(pairs,
+                                                       self.lora.scale)
         self.round += 1
 
     # ------------------------------------------------------------------

@@ -318,7 +318,8 @@ def _ce_of(params, cfg, h_blk, lab_blk, mask_blk):
 
 
 def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
-            batch: Dict, *, ce_chunk: int = 0, scale=None
+            batch: Dict, *, ce_chunk: int = 0, scale=None,
+            lanes: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE, or classification CE when ``labels`` has rank 1.
 
@@ -328,10 +329,21 @@ def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     over sequence chunks of that size, each recomputed in the backward
     pass (torch.utils.checkpoint), so at most B x chunk x V logits live at
     once. Returns (loss + aux, {"loss", "aux", "accuracy"}).
+
+    lanes=V: the batch holds V lanes of equal size, lane-major (rows
+    v·B/V … (v+1)·B/V − 1 are lane v), against lane-batched adapters
+    (leaves (L, V, ...)). Each lane's loss and accuracy are over its own
+    rows, and the metrics come back as (V,) tensors. The returned scalar
+    is the SUM of the lanes' losses, so lane v's adapters get the
+    gradient of lane v's loss alone (a mean over all rows would scale
+    every gradient by 1/V, which Adam's ε makes visible). ce_chunk does
+    not apply with lanes.
     """
     hidden, aux = forward_hidden(params, adapters, cfg, lora, batch,
                                  scale=scale)
     labels = batch["labels"]
+    if lanes is not None:
+        return _lane_loss(params, cfg, hidden, labels, aux, lanes)
     if labels.dim() == 1:
         cls_logits = _lm_head(params, cfg, hidden[:, -1, :])
         lp = torch.log_softmax(cls_logits.float(), dim=-1)
@@ -360,3 +372,29 @@ def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     loss = loss_sum / denom
     acc = hit_sum / denom
     return loss + aux, {"loss": loss, "aux": aux, "accuracy": acc}
+
+
+def _lane_loss(params, cfg, hidden, labels, aux, lanes: int):
+    """:func:`loss_fn`'s per-lane reduction (see its ``lanes``)."""
+    if labels.dim() == 1:
+        logits = _lm_head(params, cfg, hidden[:, -1, :])
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(lp, -1, labels[:, None])[:, 0]
+        loss = -torch.mean(ll.reshape(lanes, -1), dim=1)
+        acc = torch.mean((torch.argmax(logits, -1) == labels).float()
+                         .reshape(lanes, -1), dim=1)
+    else:
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:, :]
+        mask = (labels >= 0).float()
+        logits = _lm_head(params, cfg, hidden)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(lp, -1, torch.clamp(labels, min=0)[..., None]
+                          )[..., 0]
+        hit = (torch.argmax(logits, -1) == labels).float()
+        denom = torch.clamp(torch.sum(mask.reshape(lanes, -1), dim=1),
+                            min=1.0)
+        loss = -torch.sum((ll * mask).reshape(lanes, -1), dim=1) / denom
+        acc = torch.sum((hit * mask).reshape(lanes, -1), dim=1) / denom
+    aux = aux.expand(lanes)
+    return torch.sum(loss + aux), {"loss": loss, "aux": aux,
+                                   "accuracy": acc}

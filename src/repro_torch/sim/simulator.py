@@ -1,5 +1,5 @@
 """IoV multi-task federated fine-tuning simulator (paper §V), port of
-``repro/sim/simulator.py`` with the serial engine.
+``repro/sim/simulator.py`` with the serial and batched engines.
 
 Per communication round:
   1. vehicle mobility (trajectory step, RSU coverage, departure prediction),
@@ -12,14 +12,20 @@ Per communication round:
 
 Training runs on ``device`` (``cuda`` by default; ``cpu`` when asked):
 every LoRA-targeted linear of the model launches ``lora_matmul`` and
-every attention ``flash_attention`` on a card. Cost accounting reads the
-full paper backbone's dimensions (``cost_arch_id``), whatever model
-trains. The host state (mobility, channel, data, the numpy ``rng``) is
-the reference's, drawn in the reference's order, so one seed gives the
-reference's fleet, data and channel bit for bit.
+every attention ``flash_attention`` on a card. The engine
+(``SimConfig.engine``, else ``$REPRO_SIM_ENGINE``, else ``"batched"``)
+trains either one vehicle at a time (``"serial"``) or each (task, rank)
+group of vehicles as one stack of lanes (``"batched"``;
+``"batched_check"`` also replays the serial trainer on the same batches
+and records the largest adapter deviation in ``engine_check_dev``).
+Cost accounting reads the full paper backbone's dimensions
+(``cost_arch_id``), whatever model trains. The host state (mobility,
+channel, data, the numpy ``rng``) is the reference's, drawn in the
+reference's order, so one seed gives the reference's fleet, data and
+channel bit for bit.
 
-What the port does not run yet raises (ROADMAP Queue 1): the batched and
-fused engines and ``run_scanned`` (items 7, 8), checkpoints (item 9),
+What the port does not run yet raises (ROADMAP Queue 1): the fused
+engines and ``run_scanned`` (items 8, 12), checkpoints (item 9),
 trace replay (item 10), every method but ``ours`` (the baselines, the
 ablations and residual aggregation), multi-RSU tiers and semi-sync
 participation (item 6).
@@ -27,8 +33,9 @@ participation (item 6).
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +50,14 @@ from repro_torch.core import ucb_dual
 from repro_torch.data import (ClientDataset, DEFAULT_TASKS,
                               dirichlet_partition, make_task)
 from repro_torch.federated.baselines import METHODS
+from repro_torch.federated.batched_client import (BatchedLocalTrainer,
+                                                  draw_batches, take_lanes)
 from repro_torch.federated.client import LocalTrainer
 from repro_torch.federated.server import RSUServer
 from repro_torch.interop import tree_map
 from repro_torch.models import transformer as T
 from repro_torch.models.runmode import resolve_device
+from repro_torch.optim.adam import leaves
 from repro_torch.sim.channel import ChannelConfig, ChannelModel
 from repro_torch.sim.mobility_model import MobilityModel, MobilitySimConfig
 
@@ -77,14 +87,16 @@ class SimConfig:
     channel: ChannelConfig = field(default_factory=ChannelConfig)
     departure_fraction: float = 0.5   # fraction of local steps done at exit
     bytes_per_param: int = 4
-    # round engine: the port has "serial" only; None resolves to it
+    # round engine (ENGINES); None: $REPRO_SIM_ENGINE, else "batched"
     engine: Optional[str] = None
     shard: ShardSpec = field(default_factory=ShardSpec)
     checkpoint: CheckpointSpec = field(default_factory=CheckpointSpec)
     scenario: Optional[str] = None
 
 
-ENGINES = ("serial",)
+ENGINES = ("serial", "batched", "batched_check")
+# the reference's other engines, which the port does not run yet
+UNPORTED_ENGINES = ("fused", "fused_check", "fused_sharded")
 
 
 class IoVSimulator:
@@ -117,6 +129,10 @@ class IoVSimulator:
                                params)
         self.trainer = LocalTrainer(self.model_cfg, cfg.lora, lr=cfg.lr,
                                     device=self.device)
+        self.batched_trainer = BatchedLocalTrainer(
+            self.model_cfg, cfg.lora, lr=cfg.lr, max_steps=cfg.local_steps,
+            device=self.device)
+        self.engine_check_dev = 0.0   # batched_check: max |batched − serial|
 
         # --- cost model (full-dimension backbone) ---
         self.cost_cfg = get_arch(cfg.cost_arch_id)
@@ -194,11 +210,15 @@ class IoVSimulator:
     # ------------------------------------------------------------------
     @staticmethod
     def _resolve_engine(cfg: SimConfig) -> str:
-        engine = cfg.engine or "serial"
-        if engine not in ENGINES:
+        engine = (cfg.engine or os.environ.get("REPRO_SIM_ENGINE")
+                  or "batched")
+        if engine in UNPORTED_ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet; the port runs "
-                f"{ENGINES} (ROADMAP Queue 1, items 7, 8 and 12)")
+                f"{ENGINES} (ROADMAP Queue 1, items 8 and 12)")
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; have "
+                             f"{ENGINES + UNPORTED_ENGINES}")
         return engine
 
     @staticmethod
@@ -241,7 +261,7 @@ class IoVSimulator:
         accuracies = np.zeros(cfg.num_tasks)
 
         plans = [self._plan_task(ti) for ti in range(cfg.num_tasks)]
-        trains = [self._train_serial(p) for p in plans]
+        trains = self._train_plans(plans)
         for ti, (plan, tr) in enumerate(zip(plans, trains)):
             trec = self._finish_task(plan, tr, budgets[ti])
             consumed[ti] = trec["energy"]
@@ -302,7 +322,85 @@ class IoVSimulator:
             ads.append(ad)
             accs.append(metrics.get("eval_accuracy",
                                     metrics.get("accuracy", 0.0)))
-        return {"ads_list": ads, "accs": np.asarray(accs, np.float32)}
+        return {"ads_list": ads, "groups": None,
+                "accs": np.asarray(accs, np.float32)}
+
+    # ------------------------------------------------------------------
+    def _train_plans(self, plans: Sequence[Dict[str, Any]]
+                     ) -> List[Dict[str, Any]]:
+        """Phase 2 for every task, by engine.
+
+        serial: the per-vehicle loop, task by task.
+        batched: every (task, rank) group is one job of the batched
+            trainer; the results stay stacked for grouped aggregation.
+        batched_check: batched, then the serial trainer replays every
+            vehicle on the same pre-drawn batches, and the largest
+            adapter deviation goes to ``engine_check_dev``.
+        """
+        cfg = self.cfg
+        if self.engine == "serial":
+            return [self._train_serial(p) for p in plans]
+        results: List[Dict[str, Any]] = []
+        jobs: List[Dict[str, Any]] = []
+        slots: List[Tuple[int, int, List[int]]] = []
+        for pi, plan in enumerate(plans):
+            ti = plan["ti"]
+            n = len(plan["active_ids"])
+            results.append({"ads_list": None, "groups": {},
+                            "accs": np.zeros(n, np.float32)})
+            if n == 0:
+                continue
+            # every vehicle's batches, drawn in the serial engine's order
+            # from its shard's own RNG stream
+            plan["batches"] = [
+                draw_batches(self.client_data[ti][v], plan["steps_list"][i],
+                             cfg.local_steps)
+                for i, v in enumerate(plan["active_ids"])]
+            by_rank: Dict[int, List[int]] = {}
+            for i, v in enumerate(plan["active_ids"]):
+                by_rank.setdefault(int(plan["ranks"][v]), []).append(i)
+            for r in sorted(by_rank):
+                idxs = by_rank[r]
+                jobs.append({
+                    "adapters_list": [plan["adapters_list"][i]
+                                      for i in idxs],
+                    "batches_list": [plan["batches"][i] for i in idxs],
+                    "step_counts": [plan["steps_list"][i] for i in idxs],
+                    "eval_batch": self.local_eval[ti]})
+                slots.append((pi, r, idxs))
+        outs = self.batched_trainer.run_jobs(self.params, jobs)
+        for (pi, r, idxs), (stacked, marr) in zip(slots, outs):
+            res = results[pi]
+            res["groups"][r] = (stacked, idxs)
+            res["accs"][idxs] = marr["eval_accuracy"]
+        if self.engine == "batched_check":
+            self._check_against_serial(plans, results)
+        return results
+
+    # ------------------------------------------------------------------
+    def _check_against_serial(self, plans, results) -> None:
+        """batched_check: replay the serial trainer on the same pre-drawn
+        batches and record the largest |batched − serial| adapter
+        entry."""
+        dev = 0.0
+        for plan, res in zip(plans, results):
+            lanes = {i: (stacked, j)
+                     for stacked, idxs in res["groups"].values()
+                     for j, i in enumerate(idxs)}
+            for i in range(len(plan["active_ids"])):
+                steps = plan["steps_list"][i]
+                per_step = [{k: arr[si] for k, arr in
+                             plan["batches"][i].items()}
+                            for si in range(steps)]
+                ref_ad, _ = self.trainer.finetune(
+                    self.params, plan["adapters_list"][i], None, steps,
+                    eval_batch=self.local_eval[plan["ti"]],
+                    batches=per_step)
+                stacked, j = lanes[i]
+                for a, b in zip(leaves(stacked), leaves(ref_ad)):
+                    dev = max(dev, float(torch.max(torch.abs(
+                        a.select(-3, j) - b))))
+        self.engine_check_dev = max(self.engine_check_dev, dev)
 
     # ------------------------------------------------------------------
     def _finish_task(self, plan: Dict[str, Any], tr: Dict[str, Any],
@@ -322,8 +420,8 @@ class IoVSimulator:
             np.asarray([p.tx_power for p in self.dev_profiles]),
             plan["distances"], self.shadow, active_ids)
 
+        kept_idx: List[int] = []        # positions within the active list
         kept_weights: List[float] = []
-        kept_adapters: List[Any] = []
         per_v_reward = np.zeros(cfg.num_vehicles, np.float32)
         per_v_energy = np.zeros(cfg.num_vehicles, np.float32)
         costs_list: List[cm.RoundCosts] = []
@@ -370,16 +468,16 @@ class IoVSimulator:
             costs_list.append(costs)
             if contribute:
                 comm_params += payload
+                kept_idx.append(i)
                 kept_weights.append(float(len(self.client_data[ti][v])))
-                kept_adapters.append(tr["ads_list"][i])
 
-        agg_costs = cm.rsu_agg_costs(self.rsu_profile, len(kept_adapters))
+        agg_costs = cm.rsu_agg_costs(self.rsu_profile, len(kept_idx))
         summary = cm.task_round_summary(costs_list, agg_costs)
-        server.aggregate(kept_adapters, kept_weights or [1.0])
+        self._aggregate_task(server, tr, kept_idx, kept_weights)
 
         # global accuracy on the held-out task eval set
         gad = server.eval_adapters()
-        if gad is not None and kept_adapters:
+        if gad is not None and kept_idx:
             acc = self.trainer.evaluate(self.params, gad,
                                         self.eval_batches[ti])["accuracy"]
         else:
@@ -408,6 +506,30 @@ class IoVSimulator:
                 "fallbacks": dict(n_fallback),
                 "comm_params": int(comm_params),
                 "budget": float(budget)}
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _aggregate_task(server, tr, kept_idx, kept_weights) -> None:
+        """Upload and aggregation: the serial engine's per-client list,
+        or the batched engine's stacked rank groups (one lane gather per
+        group)."""
+        if tr["groups"] is None or not kept_idx:
+            server.aggregate([tr["ads_list"][i] for i in kept_idx],
+                             kept_weights or [1.0])
+            return
+        w_of = dict(zip(kept_idx, kept_weights))
+        gspecs = []
+        for r in sorted(tr["groups"]):
+            stacked, idxs = tr["groups"][r]
+            lanes = [j for j, i in enumerate(idxs) if i in w_of]
+            if not lanes:
+                continue
+            gspecs.append({
+                "adapters": (stacked if len(lanes) == len(idxs)
+                             else take_lanes(stacked, lanes)),
+                "weights": np.asarray([w_of[idxs[j]] for j in lanes],
+                                      np.float32)})
+        server.aggregate_grouped(gspecs)
 
     # ------------------------------------------------------------------
     def run_scanned(self, rounds: Optional[int] = None):

@@ -27,6 +27,8 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.launch.adapter_cache import PagedAdapter
 from repro_torch.launch.serve import ServeEngine, make_prefill_step
+from repro_torch.federated.batched_client import (BatchedLocalTrainer,
+                                                  draw_batches)
 from repro_torch.federated.client import LocalTrainer
 from repro_torch.models import transformer as T
 from repro_torch.sim.simulator import IoVSimulator, SimConfig
@@ -541,9 +543,12 @@ def test_flash_head_dim_16(cuda_device, B, S, H, Hkv, window, dtype, tol):
 @pytest.mark.parametrize("shape", [(1, 240, 768, 768, 2),
                                    (1, 240, 768, 3072, 32),
                                    (1, 240, 3072, 768, 4),
-                                   (2, 100, 70, 50, 8), (4, 1, 96, 200, 16)],
+                                   (2, 100, 70, 50, 8), (4, 1, 96, 200, 16),
+                                   (10, 240, 3072, 768, 4),
+                                   (10, 240, 768, 3072, 2)],
                          ids=["train_768", "train_up", "train_down",
-                              "lanes_ragged", "decode_lanes"])
+                              "lanes_ragged", "decode_lanes",
+                              "batched_train_down", "batched_train_up"])
 def test_lora_matmul_closed_form_backward_on_card(cuda_device, shape):
     """The closed-form backward (every operand asks for a grad) against
     autograd of the plain version on the card, within 1e-4 of each
@@ -622,5 +627,65 @@ def test_round_on_card_matches_cpu(cuda_device):
                         "mean_rank"):
                 assert tg[key] == tc[key], key
             for key in ("energy", "latency", "accuracy"):
+                assert abs(tg[key] - tc[key]) <= 1e-4 * max(1.0,
+                                                            abs(tc[key]))
+
+
+def test_batched_group_on_card_matches_cpu(cuda_device):
+    """One batched group of the reduced ViT (3 lanes, step budgets 2, 1
+    and 2, then the local eval) on the card and on the CPU: adapters and
+    metrics within 1e-4, with one launch per linear and per attention per
+    forward of the whole group (2 train forwards + 1 eval)."""
+    from repro_torch.data import ClientDataset
+    cfg = vit_base_paper.reduced()
+    lora = LoRAConfig(rank=4, max_rank=32)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ads = [_nontrivial(T.init_adapters(cfg, lora, seed=i, rank=4,
+                                       device="cpu"), 10 + i)
+           for i in range(3)]
+    rng = np.random.default_rng(5)
+    batches, counts = [], [2, 1, 2]
+    for i, c in enumerate(counts):
+        ds = ClientDataset(rng.integers(0, cfg.vocab_size, (40, 24)),
+                           rng.integers(0, 6, (40,)), 10, seed=i)
+        batches.append(draw_batches(ds, c, 2))
+    evb = {"tokens": rng.integers(0, cfg.vocab_size, (32, 24)),
+           "labels": rng.integers(0, 6, (32,))}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tr = BatchedLocalTrainer(cfg, lora, lr=5e-3, max_steps=2, device=dev)
+        lm0, fa0 = lm_ops.launches, fa_ops.launches
+        stacked, m = tr.finetune_group_stacked(
+            _to(params, dev), [_to(a, dev) for a in ads], batches, counts,
+            eval_batch=evb)
+        out[str(dev)] = (stacked, m, lm_ops.launches - lm0,
+                         fa_ops.launches - fa0)
+    st_g, m_g, lm_n, fa_n = out[str(cuda_device)]
+    st_c, m_c, _, _ = out["cpu"]
+    assert lm_n == 3 * 6 * cfg.num_layers and fa_n == 3 * cfg.num_layers
+    for k in m_c:
+        assert np.abs(m_g[k] - m_c[k]).max() < 1e-4, k
+    for seg_g, seg_c in zip(st_g["segments"], st_c["segments"]):
+        for blk in seg_c:
+            for n in seg_c[blk]:
+                for f in ("a", "b"):
+                    assert float((seg_g[blk][n][f].cpu()
+                                  - seg_c[blk][n][f]).abs().max()) < 1e-4
+
+
+def test_batched_round_on_card_matches_cpu(cuda_device):
+    """Two batched rounds, 6 vehicles and 2 tasks, on the card and on the
+    CPU from one seed: the same records (integers exactly; energy and
+    latency within 1e-4 relative)."""
+    kw = dict(method="ours", engine="batched", num_vehicles=6, num_tasks=2,
+              local_steps=2)
+    hist = {dev: IoVSimulator(SimConfig(**kw), device=dev).run(2)
+            for dev in ("cpu", "cuda")}
+    for rc, rg in zip(hist["cpu"], hist["cuda"]):
+        for tc, tg in zip(rc["tasks"], rg["tasks"]):
+            for key in ("active", "departing", "fallbacks", "comm_params",
+                        "mean_rank"):
+                assert tg[key] == tc[key], key
+            for key in ("energy", "latency"):
                 assert abs(tg[key] - tc[key]) <= 1e-4 * max(1.0,
                                                             abs(tc[key]))

@@ -2,11 +2,14 @@
 against the reference's, on the CPU.
 
 One config, ``SimConfig(method="ours", engine="serial", num_vehicles=6,
-num_tasks=2, local_steps=2)``, in both packages. The reference's
-``jax.random`` draws are handed to the port: the base weights
-(``params=``), each server's fresh adapters (``server_draws``) and the SVD
-sketch Ω (``draw_omega``); everything else is the same numpy streams in
-both. Round 1 redistributes round 0's merged deltas through the SVD.
+num_tasks=2, local_steps=2)``, in both packages; the port also runs it
+under ``engine="batched"``, held to the same reference run (the
+reference's own suite pins its batched engine to its serial one). The
+reference's ``jax.random`` draws are handed to the port: the base
+weights (``params=``), each server's fresh adapters (``server_draws``)
+and the SVD sketch Ω (``draw_omega``); everything else is the same numpy
+streams in both. Round 1 redistributes round 0's merged deltas through
+the SVD.
 
 Tolerances: ranks, active sets, departures, fallbacks and comm_params
 exactly equal; energy and latency 1e-5 relative (host float64 over the
@@ -36,6 +39,18 @@ from repro_torch.sim.simulator import IoVSimulator, SimConfig
 ROUNDS = 2
 KW = dict(method="ours", engine="serial", num_vehicles=6, num_tasks=2,
           local_steps=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The reduced ViT's tensors are tiny; with the suite's parallel
+    workers each running a full intra-op thread pool, the workers'
+    threads spin on oversubscribed cores. One thread per worker,
+    restored afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _np(tree):
@@ -80,23 +95,36 @@ def _omega_ref():
     return draw
 
 
+def _port_run(jsim, omega, **change):
+    """The port's run of KW (with ``change``) on the reference's draws."""
+    jcfg, jlora = jvit.reduced(), jsim.cfg.lora
+    sim = IoVSimulator(
+        SimConfig(**dict(KW, **change)), device="cpu",
+        params=interop.params_from_jax(_np(jsim.params), device="cpu"),
+        server_draws=[_server_draw(7 * t, jcfg, jlora)
+                      for t in range(KW["num_tasks"])],
+        draw_omega=omega)
+    plans = []
+    _recording(sim, plans)
+    return sim, sim.run(ROUNDS), plans
+
+
 @pytest.fixture(scope="module")
-def runs():
+def reference_and_omega():
     jsim = JSimulator(JSimConfig(**KW))
     jplans = []
     _recording(jsim, jplans)
     jhist = [jsim.run_round() for _ in range(ROUNDS)]
-    jcfg, jlora = jvit.reduced(), jsim.cfg.lora
-    sim = IoVSimulator(
-        SimConfig(**KW), device="cpu",
-        params=interop.params_from_jax(_np(jsim.params), device="cpu"),
-        server_draws=[_server_draw(7 * t, jcfg, jlora)
-                      for t in range(KW["num_tasks"])],
-        draw_omega=_omega_ref())
-    plans = []
-    _recording(sim, plans)
-    hist = sim.run(ROUNDS)
-    return jsim, jhist, jplans, sim, hist, plans
+    return jsim, jhist, jplans, _omega_ref()
+
+
+@pytest.fixture(scope="module", params=["serial", "batched"])
+def runs(request, reference_and_omega):
+    """The port under each engine it runs, against the reference's serial
+    run: the same draws, the same tolerances."""
+    jsim, jhist, jplans, omega = reference_and_omega
+    return (jsim, jhist, jplans) + _port_run(jsim, omega,
+                                              engine=request.param)
 
 
 def test_active_sets_ranks_and_departures_are_exact(runs):
@@ -108,9 +136,11 @@ def test_active_sets_ranks_and_departures_are_exact(runs):
     assert {r for _, _, ranks, _ in plans[2:] for r in ranks} <= {4}
 
 
-@pytest.mark.parametrize("key", ["active", "departing", "handoffs",
-                                 "fallbacks", "comm_params", "mean_rank",
-                                 "task", "budget"])
+ROUND_KEYS = ["active", "departing", "handoffs", "fallbacks",
+              "comm_params", "mean_rank", "task", "budget"]
+
+
+@pytest.mark.parametrize("key", ROUND_KEYS)
 def test_round_counts_are_exact(runs, key):
     _, jhist, _, _, hist, _ = runs
     for jrec, rec in zip(jhist, hist):
@@ -176,8 +206,7 @@ def test_summary_and_history_shape(runs):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change", [
-    {"engine": "batched"}, {"engine": "fused"}, {"engine": "batched_check"},
-    {"engine": "fused_sharded"}, {"method": "hetlora"},
+    {"engine": "fused"}, {"engine": "fused_sharded"}, {"method": "hetlora"},
     {"method": "homolora"}, {"method": "fedra"}, {"method": "ours_residual"},
     {"method": "ours_no_energy"}, {"method": "ours_no_mobility"},
     {"rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
@@ -186,7 +215,7 @@ def test_summary_and_history_shape(runs):
     {"shard": ShardSpec(num_shards=2)},
     {"checkpoint": CheckpointSpec(interval=2, dir="ck")},
     {"mobility_sim": MobilitySimConfig(trace=TraceSpec())},
-], ids=["batched", "fused", "batched_check", "fused_sharded", "hetlora",
+], ids=["fused", "fused_sharded", "hetlora",
         "homolora", "fedra", "ours_residual", "ours_no_energy",
         "ours_no_mobility", "two_rsus", "sync_period_3",
         "semi_sync", "two_shards", "checkpoint", "trace"])
@@ -202,10 +231,34 @@ def test_run_scanned_raises():
         sim.run_scanned(2)
 
 
-def test_engine_none_resolves_to_serial():
+def test_engine_none_resolves_to_serial(monkeypatch):
+    """None takes $REPRO_SIM_ENGINE first, as in the reference."""
+    monkeypatch.setenv("REPRO_SIM_ENGINE", "serial")
     sim = IoVSimulator(SimConfig(num_vehicles=4, num_tasks=1), device="cpu")
     assert sim.engine == "serial"
     assert SimConfig().engine is None
+
+
+def test_engine_none_resolves_to_batched(monkeypatch):
+    monkeypatch.delenv("REPRO_SIM_ENGINE", raising=False)
+    cfg = SimConfig(num_vehicles=4, num_tasks=1)
+    assert IoVSimulator(cfg, device="cpu").engine == "batched"
+    assert cfg.engine is None   # resolved on the simulator, not the config
+    assert (JSimulator._resolve_engine(JSimConfig(num_vehicles=4))
+            == "batched")
+
+
+@pytest.mark.parametrize("engine", ["fused", "fused_check",
+                                    "fused_sharded"])
+def test_unported_engine_from_the_environment_raises(monkeypatch, engine):
+    monkeypatch.setenv("REPRO_SIM_ENGINE", engine)
+    with pytest.raises(NotImplementedError, match="item"):
+        IoVSimulator(SimConfig(**dict(KW, engine=None)), device="cpu")
+
+
+def test_unknown_engine_raises():
+    with pytest.raises(ValueError, match="unknown engine"):
+        IoVSimulator(SimConfig(**dict(KW, engine="vmap")), device="cpu")
 
 
 def test_default_device_without_a_card_raises():
