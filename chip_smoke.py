@@ -44,9 +44,9 @@ nothing is caught):
    qwen2-0.5b prefill must take the tensor-core route. Then a
    torch.profiler window over a prefill and 4 steps.
 5. The federated round of the paper's method, through ``IoVSimulator``,
-   under both engines that the port runs: ``serial`` (one vehicle at a
-   time) and ``batched`` (each (task, rank) group of vehicles one stack
-   of lanes). (a) At the reduced ViT (head dim 16) with the default
+   under the three engines that the port runs: ``serial`` (one vehicle
+   at a time), ``batched`` (each (task, rank) group of vehicles one stack
+   of lanes) and ``fused`` (below, (c)). (a) At the reduced ViT (head dim 16) with the default
    ``SimConfig`` (24 vehicles, 3 tasks, 3 local steps), per engine one
    round from one seed on the card and on the CPU, held together (ranks,
    active and departing counts, fallbacks and comm_params exactly;
@@ -70,10 +70,27 @@ nothing is caught):
    update within twice the serial trainer's own card-vs-CPU spread on
    the same lanes (Adam's sign-like first update lets single entries
    part by 2·lr, so the largest entry difference is recorded, not
-   held); two planted faults must break these gates. Then phase 2's
-   rows at the batched round's lane shapes, V from its largest group
+   held); two planted faults must break these gates. (c) The fused
+   engine (the round as one program over the rank-padded fleet, captured
+   on its first round as two CUDA graphs around the two eager SVDs, then
+   replayed): at the reduced ViT one round card against CPU as in (a),
+   and one ``fused_check`` round on the card (``engine_check_dev`` <
+   1e-4); at full width two profiled rounds and one without the
+   profiler, the first timing its eager warm-up and its capture apart:
+   one capture over all rounds, the launches counted at capture and the
+   profiler's kernel records of each replayed round equal to 15
+   forwards' (1,080 ``lora_matmul``, 180 flash, all ``simt``); ranks and
+   active sets equal to the batched rounds', energy and latency within
+   1e-5; round-0 merged deltas within the serial spread limit of (b);
+   two replayed rounds equal to the same rounds run eagerly on the card
+   (``capture=False``) within 1e-6 of each leaf's largest entry, at full
+   width and at the reduced ViT, where a planted fault (an input buffer
+   left as the first round staged it) must break that gate. Then phase
+   2's rows at the batched round's lane shapes, V from its largest group
    per rank: f32 ``lora_matmul`` at V x 240 rows (with the closed-form
-   backward) and V x 768, flash at B = V·10 and V·32.
+   backward) and V x 768, flash at B = V·10 and V·32; and at the fused
+   round's: 24 lanes rank-padded to 32 with mixed lane ranks, 24 x 240
+   (with the backward) and 24 x 768 rows, flash at B 240 and 768.
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -117,6 +134,7 @@ from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E
                                       make_decode_step)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.interop import tree_map  # noqa: E402
+from repro_torch.federated.fused_engine import FusedRoundEngine  # noqa: E402
 from repro_torch.optim.adam import leaves  # noqa: E402
 from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
 
@@ -667,8 +685,10 @@ def check_lora_train():
     return rows
 
 
-def lora_train_row(mode, M, linear, K, N, r, L=1):
-    """One f32 lora_matmul row: L lanes of M rows against one W."""
+def lora_train_row(mode, M, linear, K, N, r, L=1, lane_ranks=None):
+    """One f32 lora_matmul row: L lanes of M rows against one W; with
+    ``lane_ranks`` the lanes are rank-padded to r, each masked at its own
+    rank with scale 16 / rank (the fused engine's fleet)."""
     g = torch.Generator(device="cuda").manual_seed(L * M + K + N + r)
     x = torch.randn((L, M, K), generator=g, device="cuda")
     w = torch.randn((K, N), generator=g, device="cuda") / K ** 0.5
@@ -676,6 +696,10 @@ def lora_train_row(mode, M, linear, K, N, r, L=1):
     b = 0.1 * torch.randn((L, r, N), generator=g, device="cuda")
     scale = torch.full((L,), 16.0 / r, device="cuda")
     mask = torch.ones((L, r), device="cuda")
+    if lane_ranks is not None:
+        ranks = torch.as_tensor(lane_ranks, device="cuda")
+        mask = rank_arange_mask(ranks, r)
+        scale = 16.0 / ranks.float()
     args = (x, w, a, b, scale, mask)
     got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
     err = maxabs(got, lora_matmul_ref(*args))
@@ -696,7 +720,9 @@ def lora_train_row(mode, M, linear, K, N, r, L=1):
     row = {"name": "lora_matmul", "model": "vit-base-paper",
            "linear": linear, "mode": mode, "variant": kind,
            "dtype": "float32", "rank": r,
-           "shape": f"L={L} M={M} K={K} N={N} r={r}",
+           "shape": f"L={L} M={M} K={K} N={N} r={r}" + (
+               "" if lane_ranks is None else " (lane ranks "
+               f"{sorted(set(lane_ranks))})"),
            "key": [L, M, K, N, r],
            "max_abs_err": err, "tol": tol, "rank_pin": None,
            "deterministic": None,
@@ -707,7 +733,7 @@ def lora_train_row(mode, M, linear, K, N, r, L=1):
            "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
            "library_ms": timed_ms(library),
            "bound_ms": b_ms, "bound_by": b_by}
-    if not mode.startswith("train"):
+    if "eval" in mode:
         return row
     gy = torch.randn((L, M, N), generator=g, device="cuda")
     # the frozen base: x, a and b ask for grads, W does not
@@ -809,6 +835,27 @@ def check_lane_shapes(lanes_by_rank):
                         ("local eval lanes", V * 32)):
             rows.append(flash_train_row(mode, B, 12, 64, "vit-base-paper",
                                         torch.float32))
+    return rows
+
+
+def check_fused_shapes(V, candidates):
+    """Phase 2 at the fused round's shapes: the whole fleet of V lanes,
+    rank-padded to the slot (the largest candidate) with lane ranks
+    cycling over the candidates: f32 lora_matmul at V x 240 rows (train,
+    forward and closed-form backward) and V x 768 (local eval), flash at
+    B = V·10 and V·32."""
+    r = max(candidates)
+    ranks = [candidates[v % len(candidates)] for v in range(V)]
+    rows = []
+    for mode, M in (("fused train lanes", TRAIN_B * TRAIN_S),
+                    ("fused local eval lanes", 32 * TRAIN_S)):
+        for linear, K, N in VIT_LINEARS:
+            rows.append(lora_train_row(mode, M, linear, K, N, r, L=V,
+                                       lane_ranks=ranks))
+    for mode, B in (("fused train lanes", V * TRAIN_B),
+                    ("fused local eval lanes", V * 32)):
+        rows.append(flash_train_row(mode, B, 12, 64, "vit-base-paper",
+                                    torch.float32))
     return rows
 
 
@@ -986,17 +1033,27 @@ def served(cfg, lora):
     }
 
 
+# seconds the profiler's window waits before and after the profiled call
+SETTLE_S = 0.5
+
+
 def device_profile(fn, top=8):
     """Device time by kernel over one fn() (torch.profiler, CUDA activity
     only), and the share of the wall time the device was busy. The
-    profiler's own overhead lengthens the wall time a little."""
+    profiler's own overhead lengthens the wall time a little. The window
+    pauses SETTLE_S before and after fn() (outside the timed wall): the
+    activity records of CUDA-graph kernels arrive late, and without the
+    pauses a replayed round's profile lost up to 53% of its kernel
+    records (PERF.md, Findings)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(SETTLE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(SETTLE_S)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
@@ -1070,7 +1127,32 @@ class ShapeCounter:
 
 def recording(sim, plans):
     """Wrap the simulator's planner to keep each task's active set, ranks
-    and departures."""
+    and departures. The fused engine plans in its round program: its
+    active sets and departures come from the staged inputs, its ranks
+    from the arm each vehicle's UCB-DUAL count moved on."""
+    if sim.fused is not None:
+        eng, staged = sim.fused, []
+        stage, run_round = eng._stage_round, sim.run_round
+
+        def stage_spy(*a, **kw):
+            out = stage(*a, **kw)
+            staged.append(out[0])
+            return out
+
+        def rr():
+            before = [st.counts.clone() for st in sim.ucb_states]
+            rec = run_round()
+            x, cand = staged[-1], sim.cfg.lora.candidate_ranks
+            for ti in range(sim.cfg.num_tasks):
+                ids = np.where(x["active"][ti])[0]
+                arms = torch.argmax(sim.ucb_states[ti].counts - before[ti],
+                                    -1)
+                plans.append((ti, ids.tolist(),
+                              [int(cand[int(arms[v])]) for v in ids],
+                              x["departing"][ti].astype(bool).tolist()))
+            return rec
+        eng._stage_round, sim.run_round = stage_spy, rr
+        return
     plan_task = sim._plan_task
 
     def plan(ti):
@@ -1224,6 +1306,8 @@ def round_parity(engine):
         "accuracy_card": recs["cuda"]["accuracy"],
         "accuracy_cpu": recs["cpu"]["accuracy"],
         "card_round_ms": card_ms, "cpu_round_ms": cpu_ms,
+        "captures": (sims["cuda"].fused.captures
+                     if sims["cuda"].fused is not None else None),
         "launches": launched, "lora_matmul_variants": lora_v,
         "flash_attention_variants": flash_v,
         "lora_matmul_by_shape": shapes.by_shape(shapes.lora),
@@ -1231,13 +1315,14 @@ def round_parity(engine):
     return out
 
 
-def check_dev_on_card():
-    """Phase 5a: one batched_check round of the reduced ViT on the card:
-    the serial trainer replayed on the batched engine's batches."""
-    sim = IoVSimulator(SimConfig(engine="batched_check"), device="cuda")
+def check_dev_on_card(engine):
+    """Phases 5a and 5c: one ``batched_check`` or ``fused_check`` round of
+    the reduced ViT on the card: the serial trainer replayed on the
+    engine's batches (and, fused, its distributed lanes)."""
+    sim = IoVSimulator(SimConfig(engine=engine), device="cuda")
     sim.run_round()
     if not sim.engine_check_dev < ROUND_TOL:
-        fail(f"batched_check on the card: engine_check_dev "
+        fail(f"{engine} on the card: engine_check_dev "
              f"{sim.engine_check_dev} >= {ROUND_TOL}")
     return sim.engine_check_dev
 
@@ -1562,7 +1647,7 @@ def engines_agree(serial, batched, limit):
     (see :func:`merged_spread`) within ``limit``, the update limit that
     :func:`group_budgets_agree` reads from the serial trainer's
     card-vs-CPU spread. The largest entry difference is recorded."""
-    s, b = serial.pop("_state"), batched.pop("_state")
+    s, b = serial["_state"], batched["_state"]
     n = min(len(s["recs"]), len(b["recs"]))
     rel = {}
     for rnd in range(n):
@@ -1584,6 +1669,248 @@ def engines_agree(serial, batched, limit):
             "merged_delta_spread_round0": spread, "limit": limit,
             "merged_delta_rel_err_round0": merged_rel_err(s["merged"][0],
                                                           b["merged"][0])}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the fused round (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# a replayed fused round against the same round run eagerly on the card:
+# the same kernels on the same inputs, so the bits agree; the limit is of
+# each merged-delta leaf's largest entry and each record value
+REPLAY_TOL = 1e-6
+
+
+def fused_rounds(n_profiled):
+    """Phase 5c: fused rounds at the full width of vit-base-paper on the
+    card, each under a profiler window, then one more without it. The
+    first round warms the program up eagerly and captures it (both timed
+    apart); every round replays. Holds one capture over all rounds and,
+    per replayed round, the profiler's kernel records against the
+    launches counted at capture (one per LoRA linear and per attention of
+    15 forwards)."""
+    sim = IoVSimulator(SimConfig(method="ours", engine="fused",
+                                 train_arch=vit_base_paper.vit_base_paper()),
+                       device="cuda")
+    eng, cfg, nt = sim.fused, sim.model_cfg, sim.cfg.num_tasks
+    per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
+        T.init_adapters(cfg, sim.cfg.lora, rank=2, device="cpu"))),
+        "flash_attention": cfg.num_layers}
+    forwards = nt * (sim.cfg.local_steps + 2)
+    want = {k: n * forwards for k, n in per_fwd.items()}
+    plans = []
+    recording(sim, plans)
+    first = {}
+
+    def timed(name, fn):
+        def run():
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            if name == "capture":
+                with ShapeCounter() as shapes:
+                    fn()
+                first["lora_matmul_by_shape"] = shapes.by_shape(shapes.lora)
+                first["flash_attention_by_shape"] = shapes.by_shape(
+                    shapes.flash)
+            else:
+                fn()
+            torch.cuda.synchronize()
+            first[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            first[f"{name}_launches"] = {k: v - before[k]
+                                         for k, v in counts().items()}
+        return run
+    eng._warm_up = timed("warm_up", eng._warm_up)
+    eng._capture = timed("capture", eng._capture)
+    state = {"plans": [], "recs": [], "merged": [], "ucb": []}
+    out = []
+    reset_counts()
+
+    def keep(rec):
+        state["plans"].append(plans[-nt:])
+        state["recs"].append(rec)
+        state["merged"].append([srv.merged for srv in sim.servers])
+        state["ucb"].append([tuple(x.clone() for x in st)
+                             for st in sim.ucb_states])
+    for rnd in range(n_profiled):
+        recs = []
+        torch.cuda.reset_peak_memory_stats()
+        prof = device_profile(lambda: recs.append(sim.run_round()), top=6)
+        rec = recs[0]
+        if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])
+                and all(np.isfinite(t["energy"]) and
+                        np.isfinite(t["accuracy"]) for t in rec["tasks"])):
+            fail(f"full-width fused round {rnd}: an energy or accuracy is "
+                 f"not finite")
+        ours = prof["port_kernels"]
+        replayed = {"lora_matmul": ours.get("lora_mm_kernel", {}).get(
+            "count", 0), "flash_attention": ours.get("fa_kernel", {}).get(
+            "count", 0)}
+        # round 0 runs the program twice: the eager warm-up and the first
+        # replay; every later round once
+        runs = 2 if rnd == 0 else 1
+        if (replayed != {k: runs * v for k, v in want.items()}
+                or set(ours) != {"lora_mm_kernel", "fa_kernel"}):
+            fail(f"full-width fused round {rnd}: the profiler saw {ours}, "
+                 f"{runs} x {want} predicted, all simt")
+        out.append({
+            "round": len(state["recs"]), "wall_ms": prof["wall_ms"],
+            "device_ms": prof["device_ms"], "busy_share": prof["busy_share"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "kernels_in_trace": prof["kernels"], "port_kernels": ours,
+            "top": prof["top"], "program_runs": runs,
+            "launches_per_run_by_profiler": {k: v // runs
+                                             for k, v in replayed.items()},
+            "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
+            "active": {t["task"]: t["active"] for t in rec["tasks"]},
+            "energy": rec["energy"], "latency": rec["latency"],
+            "accuracy": rec["accuracy"], "captures": eng.captures})
+        keep(rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = sim.run_round()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    keep(rec)
+    launched = counts()
+    lora_v, flash_v = variant_counts(), flash_variant_counts()
+    if eng.captures != 1:
+        fail(f"full-width fused: {eng.captures} captures over "
+             f"{len(state['recs'])} rounds")
+    caught = {k: first["capture_launches"][k] for k in want}
+    if caught != want:
+        fail(f"full-width fused: {caught} launches at capture, {want} "
+             f"predicted")
+    if lora_v["simt"] != launched["lora_matmul"] or \
+            flash_v["simt"] != launched["flash_attention"]:
+        fail(f"full-width fused rounds: f32 launches off the simt kernels "
+             f"{lora_v} {flash_v}")
+    return {"engine": "fused",
+            "config": f"{cfg.name}, {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_heads} heads of "
+            f"{cfg.resolved_head_dim}, f32; SimConfig(method='ours', "
+            f"engine='fused') otherwise default",
+            "rounds": out, "launches": launched,
+            "lora_matmul_variants": lora_v,
+            "flash_attention_variants": flash_v,
+            "predicted_launches_per_round": want,
+            "captures": eng.captures, "segments": eng.segments,
+            "first_round": first,
+            "unprofiled_round": {
+                "round": len(state["recs"]) - 1, "wall_ms": plain_ms,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "energy": rec["energy"], "accuracy": rec["accuracy"]},
+            "_state": state}
+
+
+def fused_state_diff(got, want, rounds):
+    """Largest difference of two fused runs over their first ``rounds``
+    rounds: each task's record values relative to their size, each
+    merged-delta leaf relative to its largest entry, the UCB-DUAL state
+    relative to each leaf's largest entry."""
+    worst = 0.0
+    for rnd in range(rounds):
+        for gt, wt in zip(got["recs"][rnd]["tasks"],
+                          want["recs"][rnd]["tasks"]):
+            for key in ("accuracy", "energy", "latency", "lambda",
+                        "mean_rank", "comm_params", "budget"):
+                worst = max(worst, abs(gt[key] - wt[key])
+                            / max(abs(wt[key]), 1e-30))
+        for g, w in zip(got["merged"][rnd], want["merged"][rnd]):
+            for path in tree_paths_delta(w):
+                a = tree_get(g, path)["delta"]
+                b = tree_get(w, path)["delta"]
+                worst = max(worst, maxabs(a, b)
+                            / max(float(b.abs().max()), 1e-30))
+        for g, w in zip(got["ucb"][rnd], want["ucb"][rnd]):
+            for a, b in zip(g, w):
+                worst = max(worst, maxabs(a, b)
+                            / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def fused_run(arch, rounds, capture=True, fault=False):
+    """``rounds`` fused rounds from one seed on the card: captured and
+    replayed, or (``capture=False``) the same functions run eagerly.
+    ``fault`` plants a static input left un-refreshed: after the first
+    round the integer inputs (coverage, budgets, batches) stay as they
+    were staged for it. Returns the records, merged deltas and UCB-DUAL
+    states of every round."""
+    kw = {} if arch is None else {"train_arch": arch}
+    sim = IoVSimulator(SimConfig(method="ours", engine="fused", **kw),
+                       device="cuda")
+    if not capture:
+        sim.fused = FusedRoundEngine(sim, capture=False)
+    if fault:
+        eng, upload, calls = sim.fused, sim.fused._upload, []
+
+        def stale(ints, f32s, fresh):
+            if calls:
+                ints = eng.int_in.cpu().numpy()
+            calls.append(1)
+            upload(ints, f32s, fresh)
+        eng._upload = stale
+    state = {"recs": [], "merged": [], "ucb": []}
+    for _ in range(rounds):
+        state["recs"].append(sim.run_round())
+        state["merged"].append([srv.merged for srv in sim.servers])
+        state["ucb"].append([tuple(x.clone() for x in st)
+                             for st in sim.ucb_states])
+    return state
+
+
+def replay_gates(full_state, rounds):
+    """Phase 5c: a replayed round against the same round run eagerly on
+    the card, at full width (the rounds of :func:`fused_rounds`) and at
+    the reduced ViT, where a planted fault (an input buffer left as the
+    first round staged it) must break the same gate."""
+    eager = fused_run(vit_base_paper.vit_base_paper(), rounds,
+                      capture=False)
+    full = fused_state_diff(full_state, eager, rounds)
+    del eager
+    small_eager = fused_run(None, rounds, capture=False)
+    small = fused_state_diff(fused_run(None, rounds), small_eager, rounds)
+    planted = fused_state_diff(fused_run(None, rounds, fault=True),
+                               small_eager, rounds)
+    if not (full <= REPLAY_TOL and small <= REPLAY_TOL):
+        fail(f"fused replay vs eager: full width {full}, reduced {small} "
+             f"> {REPLAY_TOL}")
+    if not planted > REPLAY_TOL:
+        fail(f"planted fault (un-refreshed input) passes the replay gate: "
+             f"{planted}")
+    return {"rounds": rounds, "tol": REPLAY_TOL, "full_width": full,
+            "reduced": small, "planted_unrefreshed_input": planted}
+
+
+def fused_agrees(fused, batched, serial, limit):
+    """Phase 5c: the fused rounds against the batched rounds of the same
+    seed (active sets and ranks exact, energy and latency within 1e-5
+    relative) and its round-0 merged deltas against the serial engine's,
+    as a Frobenius spread within ``limit`` (:func:`group_budgets_agree`);
+    the largest entry difference is recorded."""
+    f, b, s = fused["_state"], batched["_state"], serial["_state"]
+    n = min(len(f["recs"]), len(b["recs"]))
+    rel = {}
+    for rnd in range(n):
+        if f["plans"][rnd] != b["plans"][rnd]:
+            fail(f"full width round {rnd}: fused and batched differ in "
+                 f"active sets, ranks or departures")
+        for ft, bt in zip(f["recs"][rnd]["tasks"], b["recs"][rnd]["tasks"]):
+            for key in ("energy", "latency"):
+                e = abs(ft[key] - bt[key]) / max(abs(bt[key]), 1e-12)
+                rel[key] = max(rel.get(key, 0.0), e)
+    spread = merged_spread(s["merged"][0], f["merged"][0])
+    if not max(rel.values()) < 1e-5:
+        fail(f"full width fused vs batched: energy/latency {rel}")
+    if not spread <= limit:
+        fail(f"full width fused vs serial: merged deltas after round 0 "
+             f"{spread} > {limit}")
+    return {"rounds": n, "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"],
+            "merged_delta_spread_round0_vs_serial": spread, "limit": limit,
+            "merged_delta_rel_err_round0_vs_serial": merged_rel_err(
+                s["merged"][0], f["merged"][0])}
 
 
 def main() -> int:
@@ -1700,7 +2027,7 @@ def main() -> int:
 
     # the round: each path driven with the counts set to 0 just before
     # it and read just after (inside round_parity and full_rounds)
-    par5 = {e: round_parity(e) for e in ("serial", "batched")}
+    par5 = {e: round_parity(e) for e in ("serial", "batched", "fused")}
     for engine, p5 in par5.items():
         step = (f"train step loss err {p5['step_loss_err']:.3g}, grads max "
                 f"abs {p5['step_grad_max_abs_err']:.3g}; "
@@ -1713,15 +2040,27 @@ def main() -> int:
               f"card {p5['accuracy_card']:.4f}, CPU "
               f"{p5['accuracy_cpu']:.4f}; round {p5['card_round_ms']:.0f} "
               f"ms on the card, {p5['cpu_round_ms']:.0f} ms on the CPU; "
-              f"launches {p5['launches']}", flush=True)
-    check_dev = check_dev_on_card()
+              f"launches {p5['launches']}"
+              + (f"; captures {p5['captures']}" if p5["captures"] else ""),
+              flush=True)
+    check_dev = check_dev_on_card("batched_check")
     print(f"[5a] batched_check on the card: engine_check_dev "
           f"{check_dev:.3g} (largest |batched - serial| adapter entry)",
           flush=True)
+    fused_check_dev = check_dev_on_card("fused_check")
+    print(f"[5c] fused_check on the card: engine_check_dev "
+          f"{fused_check_dev:.3g} (largest |fused - serial| adapter entry; "
+          f"tol {ROUND_TOL})", flush=True)
     fulls = {"serial": full_rounds("serial", 1),
              "batched": full_rounds("batched", 2)}
+    fused = fused_rounds(2)
     g, limit = group_budgets_agree()
     agree = engines_agree(fulls["serial"], fulls["batched"], limit)
+    fagree = fused_agrees(fused, fulls["batched"], fulls["serial"], limit)
+    for run in fulls.values():
+        run.pop("_state")
+    torch.cuda.empty_cache()
+    replay = replay_gates(fused.pop("_state"), 2)
     for full in fulls.values():
         for rd in full["rounds"]:
             groups = (f"; groups (task, rank, lanes, steps) {rd['groups']}"
@@ -1776,6 +2115,51 @@ def main() -> int:
           f"equal the groups' prediction in every batched round",
           flush=True)
 
+    fr = fused["first_round"]
+    print(f"[5c] {fused['config']}: first round: eager warm-up "
+          f"{fr['warm_up_ms']:.1f} ms, capture {fr['capture_ms']:.1f} ms "
+          f"({fused['segments']} graphs; launches counted at capture "
+          f"{fr['capture_launches']}, predicted "
+          f"{fused['predicted_launches_per_round']}); "
+          f"captures after {fused['unprofiled_round']['round'] + 1} "
+          f"rounds: {fused['captures']}", flush=True)
+    for rd in fused["rounds"]:
+        print(f"[5c] fused round {rd['round']} wall {rd['wall_ms']:.1f} ms "
+              f"(profiled; {rd['program_runs']} run(s) of the program), "
+              f"device {rd['device_ms']:.1f} ms, busy "
+              f"{rd['busy_share']:.3f}, peak memory "
+              f"{rd['peak_memory_bytes'] / 2**30:.2f} GiB; launches per "
+              f"run by the profiler {rd['launches_per_run_by_profiler']}, "
+              f"all simt; ranks {rd['ranks']}, active {rd['active']}; "
+              f"energy {rd['energy']:.2f} J, accuracy "
+              f"{rd['accuracy']:.4f}; port kernels: "
+              + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                          for k, t in rd["port_kernels"].items())
+              + "; top: " + "; ".join(
+                  f"{t['kernel'][:40]} {t['ms']:.2f} ms x{t['count']}"
+                  for t in rd["top"][:4]), flush=True)
+    up = fused["unprofiled_round"]
+    print(f"[5c] fused round {up['round']} without the profiler: wall "
+          f"{up['wall_ms']:.1f} ms, peak memory "
+          f"{up['peak_memory_bytes'] / 2**30:.2f} GiB; by shape at capture:"
+          f" lora_matmul {fr['lora_matmul_by_shape']}; flash "
+          f"{fr['flash_attention_by_shape']}", flush=True)
+    print(f"[5c] fused vs batched at full width over {fagree['rounds']} "
+          f"rounds: ranks and active sets equal, energy rel "
+          f"{fagree['energy_rel_err']:.3g}, latency rel "
+          f"{fagree['latency_rel_err']:.3g} (tol 1e-5); merged deltas after "
+          f"round 0 vs serial: spread "
+          f"{fagree['merged_delta_spread_round0_vs_serial']:.3g} (limit "
+          f"{fagree['limit']:.3g}), largest entry rel "
+          f"{fagree['merged_delta_rel_err_round0_vs_serial']:.3g} "
+          f"(recorded)", flush=True)
+    print(f"[5c] replay vs eager on the card over {replay['rounds']} "
+          f"rounds: full width {replay['full_width']:.3g}, reduced ViT "
+          f"{replay['reduced']:.3g} (tol {replay['tol']}); planted fault "
+          f"(an input buffer left as round 0 staged it): "
+          f"{replay['planted_unrefreshed_input']:.3g}, fails the gate",
+          flush=True)
+
     # phase 2 at the batched round's lane shapes: V from its largest
     # group per rank
     lanes_by_rank = {}
@@ -1783,6 +2167,9 @@ def main() -> int:
         for _, r, lanes, _ in rd["groups"]:
             lanes_by_rank[r] = max(lanes_by_rank.get(r, 0), lanes)
     lane_rows = check_lane_shapes(lanes_by_rank)
+    # and at the fused round's: the whole fleet, rank-padded
+    lane_rows += check_fused_shapes(SimConfig().num_vehicles, list(
+        SimConfig().lora.candidate_ranks))
     for r in lane_rows:
         extra = (f", kernel alone {r['kernel_ms']:.4f} ms"
                  if r["name"] == "lora_matmul" else f", {r['block']}")
@@ -1805,7 +2192,10 @@ def main() -> int:
         "vit-tiny-paper batched round (5a)": par5["batched"]["launches"],
         "vit-base-paper serial round (5b)": fulls["serial"]["launches"],
         "vit-base-paper 2 batched rounds (5b)":
-            fulls["batched"]["launches"]}
+            fulls["batched"]["launches"],
+        "vit-tiny-paper fused round (5c)": par5["fused"]["launches"],
+        "vit-base-paper 3 fused rounds, warm-up and capture (5c)":
+            fused["launches"]}
     # each phase-2 row's launches in each round: vit-base-paper's in the
     # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
     # round 0), by engine
@@ -1815,7 +2205,9 @@ def main() -> int:
             ("vit-base-paper", "batched", fulls["batched"]["rounds"]),
             ("vit-tiny-paper", "serial", [dict(par5["serial"], round=0)]),
             ("vit-tiny-paper", "batched",
-             [dict(par5["batched"], round=0)])):
+             [dict(par5["batched"], round=0)]),
+            ("vit-base-paper", "fused",
+             [dict(fr, round="each")])):
         for rd in rounds:
             for name in ("lora_matmul", "flash_attention"):
                 for k, v in rd[f"{name}_by_shape"].items():
@@ -1833,7 +2225,7 @@ def main() -> int:
                   f"{k} {v}" for k, v in r["launches_by_round"].items())
                   or "none") for r in train_rows), flush=True)
     rows += train_rows
-    round_runs = list(par5.values()) + list(fulls.values())
+    round_runs = list(par5.values()) + list(fulls.values()) + [fused]
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
@@ -1858,6 +2250,11 @@ def main() -> int:
                        for run in runs + round_runs)
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
+        if name != "wkv6":
+            # the fused rounds replay what one capture launched: the
+            # profiler's kernel records per replayed round
+            extra["launches_per_fused_round_by_profiler"] = \
+                fused["rounds"][-1]["launches_per_run_by_profiler"][name]
         if name == "flash_attention":
             extra["launches_by_variant"] = {
                 k: sum(run["flash_attention_variants"][k]
@@ -1884,7 +2281,10 @@ def main() -> int:
                    "build_seconds": secs, "shared_memory_bytes": smem,
                    "wkv6_chunk_steps": steps, "kernels": entries,
                    "parity": pars, "served": runs, "round_parity": par5,
-                   "engine_check_dev": check_dev, "full_rounds": fulls,
+                   "engine_check_dev": check_dev,
+                   "fused_check_dev": fused_check_dev,
+                   "full_rounds": fulls, "fused_rounds": fused,
+                   "fused_agreement": fagree, "fused_replay": replay,
                    "full_batched_vs_serial": agree,
                    "full_group_budgets": g}, fh, indent=1)
     print(smi())

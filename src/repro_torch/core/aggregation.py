@@ -6,9 +6,11 @@ All operations act on adapter trees whose leaves are
 r_v. The server keeps the global adapter as merged deltas Δθ
 (..., d_in, d_out) per target linear, which it SVDs and redistributes.
 The batched engine's groups arrive stacked on the lane axis
-((L, V, d_in, r), see ``federated/batched_client.py``). The padded and
-segmented aggregators, the RSU partials, the upload buffer, HetLoRA's
-and FedRA's aggregators wait for later slices of the port.
+((L, V, d_in, r), see ``federated/batched_client.py``); the fused
+engine's whole fleet too, every adapter zero-padded to max_rank (the
+rank-padded functions at the end). The segmented aggregator, the RSU
+partials, the upload buffer, HetLoRA's and FedRA's aggregators wait for
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -179,4 +181,116 @@ def hetlora_truncate(adapters: Any, rank: int) -> Any:
         ad = tree_get(out, path)
         out = tree_set(out, path, {"a": ad["a"][..., :rank],
                                    "b": ad["b"][..., :rank, :]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank-padded fleet aggregation and redistribution, for the fused round
+# engine: every adapter of the fleet sits in a max_rank-wide slot whose
+# tail is zero (core.lora's rank-padding invariant), so the fleet is one
+# stacked tree and no shape depends on the round's ranks. Nothing here
+# reads a tensor on the host, so a CUDA graph can capture it.
+# ---------------------------------------------------------------------------
+
+def aggregate_merged_padded(stacked: Any, weights: torch.Tensor,
+                            scale: float) -> Any:
+    """Merged-delta aggregation over a rank-padded fleet-stacked tree.
+
+    stacked: adapter tree with the fleet on the lane axis ((L, V, d_in,
+    R), zero rank tails contribute nothing to A·B); weights: (V,) f32 on
+    the tree's device, 0 for a lane that does not contribute, which makes
+    it an exact no-op. Normalised in f32 as :func:`aggregate_merged`
+    does, which this equals over the per-client list up to summation
+    order."""
+    w = weights.to(torch.float32)
+    wn = (w / torch.clamp(torch.sum(w), min=1e-12)).reshape(-1, 1, 1)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        delta = scale * torch.einsum("...vir,...vro->...io",
+                                     ad["a"].float() * wn, ad["b"].float())
+        out = tree_set(out, path, {"delta": delta})
+    return out
+
+
+def svd_omega_shapes(merged: Any, max_rank: int) -> List[Tuple]:
+    """(path, d2, r) of the sketch Ω that :func:`merged_svd` takes for
+    each merged delta of the tree (r from :func:`sketch_width` at
+    min(max_rank, d1, d2))."""
+    out = []
+    for path in tree_paths_delta(merged):
+        d1, d2 = tree_get(merged, path)["delta"].shape[-2:]
+        out.append((path, d2, sketch_width(min(max_rank, d1, d2), d1, d2)))
+    return out
+
+
+def draw_omegas(merged: Any, max_rank: int, seed: int,
+                draw_omega: Optional[OmegaFn] = None) -> Any:
+    """The sketches of one :func:`merged_svd` call, drawn on the host as
+    :func:`redistribute` draws them at ``seed``: a tree of {"omega"} with
+    the merged tree's structure. Drawing is a pure function of the seed."""
+    out = merged
+    for path, d2, r in svd_omega_shapes(merged, max_rank):
+        out = tree_set(out, path,
+                       {"omega": (draw_omega or default_omega)(seed, d2, r)})
+    return out
+
+
+def merged_svd(merged: Any, max_rank: int, omegas: Any) -> Any:
+    """Shared truncated SVD of every merged delta (one per target, for
+    the whole fleet). omegas: :func:`draw_omegas`'s tree, as tensors on
+    the delta's device (the reference takes a seed and draws in-program).
+    Returns a tree of {"u", "s", "vt"} zero-padded to ``max_rank`` where
+    min(d1, d2) < max_rank, so no later shape depends on the width."""
+    out = merged
+    for path in tree_paths_delta(merged):
+        delta = tree_get(merged, path)["delta"]
+        d1, d2 = delta.shape[-2:]
+        mr = min(max_rank, d1, d2)
+        u, s, vt = randomized_svd(delta, mr,
+                                  omega=tree_get(omegas, path)["omega"])
+        pad = max_rank - mr
+        if pad:
+            u = torch.nn.functional.pad(u, (0, pad))
+            s = torch.nn.functional.pad(s, (0, pad))
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+        out = tree_set(out, path, {"u": u, "s": s, "vt": vt})
+    return out
+
+
+def tree_paths_svd(tree: Any) -> List[Tuple]:
+    """Paths to SVD-factor dicts (nodes holding 'u' and 'vt')."""
+    return _paths(tree, ("u", "vt"))
+
+
+def factors_for_ranks(svd_tree: Any, rank_mask: torch.Tensor,
+                      scale: float) -> Any:
+    """Per-lane rank-padded factors from one shared SVD.
+
+    rank_mask: (V, max_rank) 0/1, each lane's rank as a column mask.
+    Returns a fleet-stacked adapter tree (lanes on the lane axis): a_v =
+    (U·Σ)/scale with columns ≥ η_v zeroed, b_v = Vᵀ with rows ≥ η_v
+    zeroed, each lane equal to :func:`redistribute` at its rank, padded
+    to max_rank."""
+    m = rank_mask.to(torch.float32)
+    V, R = m.shape
+    out = svd_tree
+    for path in tree_paths_svd(svd_tree):
+        f = tree_get(svd_tree, path)
+        a1 = (f["u"] * f["s"][..., None, :]) / scale        # (..., d1, R)
+        a = a1.unsqueeze(-3) * m.reshape(V, 1, R)           # (..., V, d1, R)
+        b = f["vt"].unsqueeze(-3) * m.reshape(V, R, 1)      # (..., V, R, d2)
+        out = tree_set(out, path, {"a": a, "b": b})
+    return out
+
+
+def factors_full(svd_tree: Any, scale: float) -> Any:
+    """One full-rank adapter from a :func:`merged_svd` result (a = U·Σ /
+    scale, b = Vᵀ at max_rank): the fused engine's in-program
+    ``RSUServer.eval_adapters``."""
+    out = svd_tree
+    for path in tree_paths_svd(svd_tree):
+        f = tree_get(svd_tree, path)
+        out = tree_set(out, path, {"a": (f["u"] * f["s"][..., None, :])
+                                   / scale, "b": f["vt"]})
     return out

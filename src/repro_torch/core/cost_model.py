@@ -9,8 +9,8 @@ g(η) = 1 + (LoRA fwd+bwd FLOPs at rank η) / (frozen-base FLOPs) derived
 from the actual model dimensions (instead of an opaque fitted g).
 
 Port of ``repro/core/cost_model.py``: host floats, unchanged, with the
-model dimensions read from the port's own transformer. The vectorized
-fleet twin ``vehicle_round_costs_vec`` waits for the fused engine.
+model dimensions read from the port's own transformer, and the fleet
+twin ``vehicle_round_costs_vec`` in f32 tensors for the fused engine.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.config import LoRAConfig, ModelConfig
 
@@ -116,6 +117,36 @@ def vehicle_round_costs(dev: DeviceProfile, rsu: RSUProfile, *,
     e_up = dev.tx_power * tau_up
     return RoundCosts(tau_down=tau_down, tau_comp=tau_comp, tau_up=tau_up,
                       e_down=e_down, e_comp=e_comp, e_up=e_up)
+
+
+def vehicle_round_costs_vec(*, freq, comp_power, tx_power, flops_per_sample,
+                            rsu_tx_power, payload_params, bytes_per_param,
+                            rate_down, rate_up, num_samples, g
+                            ) -> Dict[str, torch.Tensor]:
+    """f32 tensor twin of :func:`vehicle_round_costs` over a fleet axis.
+
+    Every argument broadcasts to the (V,) fleet shape (Python scalars
+    too). comp_power is κ·f³ (W), folded by the caller on the host in
+    float64: the cube of a >1e12 FLOP/s frequency overflows float32.
+    Returns a dict of (V,) tensors with :class:`RoundCosts`' stage split
+    plus ``latency`` and ``energy``; no host reads, so the fused round
+    can capture it."""
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32)
+    bits = f32(payload_params) * float(bytes_per_param) * 8.0
+    rd = torch.clamp(f32(rate_down), min=1e-9)
+    ru = torch.clamp(f32(rate_up), min=1e-9)
+    tau_down = bits / rd
+    e_down = rsu_tx_power * tau_down
+    tau_comp = (f32(flops_per_sample) * f32(num_samples) * f32(g)
+                / f32(freq))
+    e_comp = f32(comp_power) * tau_comp
+    tau_up = bits / ru
+    e_up = f32(tx_power) * tau_up
+    return {"tau_down": tau_down, "tau_comp": tau_comp, "tau_up": tau_up,
+            "e_down": e_down, "e_comp": e_comp, "e_up": e_up,
+            "latency": tau_down + tau_comp + tau_up,
+            "energy": e_down + e_comp + e_up}
 
 
 def handoff_costs(handoff_latency: float, handoff_energy: float, handoffs):

@@ -6,8 +6,9 @@ Every Q rounds the cloud recomputes
     μ_t = E_t / Ē_t                         (utilization, Eq. 6)
     w_t = h_t^ζ · μ_t                       (priority, Eq. 7)
 and redistributes the reclaimed budget in proportion to w_t under a
-per-task cap. float32 tensors on the CPU in the reference's order (T is
-tiny).
+per-task cap. float32 tensors in the reference's order (T is tiny): on
+the CPU for the serial and batched engines; on the fused engine's device,
+through :func:`step_scan`, whose round counter is a tensor.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ F32 = torch.float32
 class AllocState(NamedTuple):
     budgets: torch.Tensor       # (T,) Ē_t^m
     difficulty: torch.Tensor    # (T,) h_t
-    round: int
+    round: int          # a () int tensor in step_scan's state
 
 
 def init_alloc(cfg: EnergyAllocConfig, num_tasks: int) -> AllocState:
@@ -70,3 +71,19 @@ def step(state: AllocState, cfg: EnergyAllocConfig, consumed, accuracy
         budgets, difficulty, w = _realloc(state, cfg, consumed, accuracy)
         info = {"reallocated": True, "weights": w, "difficulty": difficulty}
     return AllocState(budgets=budgets, difficulty=difficulty, round=m), info
+
+
+def step_scan(state: AllocState, cfg: EnergyAllocConfig, consumed, accuracy
+              ) -> AllocState:
+    """:func:`step` with a () int tensor round counter and no Python
+    branch on it (the fused round program): the every-Q-rounds trigger
+    is a ``torch.where``, so the reallocation is computed every round and
+    kept on the rounds :func:`step` would take it. Equal to :func:`step`
+    on both kinds of round."""
+    m = state.round + 1
+    do = torch.remainder(m, cfg.warmup_q) == 0
+    budgets, difficulty, _ = _realloc(state, cfg, consumed, accuracy)
+    return AllocState(budgets=torch.where(do, budgets, state.budgets),
+                      difficulty=torch.where(do, difficulty,
+                                             state.difficulty),
+                      round=m)

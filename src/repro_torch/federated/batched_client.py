@@ -157,16 +157,19 @@ class BatchedLocalTrainer:
 
     # ------------------------------------------------------------------
     def train_step(self, params, adapters, opt_state, batch, layer_masks,
-                   lanes: int) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+                   lanes: int, scale=None
+                   ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
         """One local update of every lane. adapters: stacked tree;
         batch: tokens (V·B, S), labels lane-major; layer_masks: (L, V)
-        multipliers or None. Returns (adapters, opt_state, metrics) with
-        (V,) metrics, all detached; the caller freezes lanes past their
-        budget."""
+        multipliers or None; scale: None (α over the tree's rank, every
+        lane) or the fused engine's ``(scale (V,), rank_mask (V, R))``
+        for rank-padded lanes at their own ranks. Returns (adapters,
+        opt_state, metrics) with (V,) metrics, all detached; the caller
+        freezes lanes past their budget."""
         lora_r = self._lora_at(tree_rank(adapters))
         ad = tree_map(lambda t: t.detach().requires_grad_(True), adapters)
         loss, metrics = T.loss_fn(params, ad, self.cfg, lora_r, batch,
-                                  lanes=lanes)
+                                  lanes=lanes, scale=scale)
         grads = torch.autograd.grad(loss, leaves(ad))
         if layer_masks is not None:
             # FedRA: each lane trains only its allocated layers
@@ -179,15 +182,52 @@ class BatchedLocalTrainer:
                 {k: v.detach() for k, v in metrics.items()})
 
     def evaluate_lanes(self, params, adapters, eval_batch: Dict,
-                       lanes: int) -> torch.Tensor:
-        """(V,) accuracy of each lane's adapters on one eval batch."""
-        ev = self._eval_batch(eval_batch)
+                       lanes: int, scale=None) -> torch.Tensor:
+        """(V,) accuracy of each lane's adapters on one eval batch (a
+        host dict, copied once and cached, or int64 tensors already on
+        the device); scale as in :meth:`train_step`."""
+        ev = eval_batch
+        if not all(isinstance(v, torch.Tensor) for v in ev.values()):
+            ev = self._eval_batch(eval_batch)
         batch = {k: _repeat_lanes(v, lanes) for k, v in ev.items()}
         with torch.no_grad():
             _, m = T.loss_fn(params, adapters, self.cfg,
                              self._lora_at(tree_rank(adapters)), batch,
-                             lanes=lanes)
+                             lanes=lanes, scale=scale)
         return m["accuracy"]
+
+    def train_lanes(self, params, adapters, tokens, labels, counts,
+                    steps: int, layer_masks=None, scale=None
+                    ) -> Tuple[Any, torch.Tensor]:
+        """``steps`` local updates of every lane from fresh Adam moments;
+        a lane past its budget keeps its adapters and moments. tokens (V,
+        ≥ steps, B, S) and labels (V, ≥ steps, B) on the device; counts:
+        (V,) step budgets on the device; layer_masks and scale as in
+        :meth:`train_step`. Reads nothing back to the host (the fused
+        engine captures it in a CUDA graph). Returns (adapters, metrics
+        as rows TRAIN_METRICS × lanes, each lane's last live step)."""
+        n = tokens.shape[0]
+        opt_state = self.opt.init(adapters)
+        last = None
+        for si in range(steps):
+            batch = {"tokens": tokens[:, si].reshape(
+                         (-1,) + tuple(tokens.shape[3:])),
+                     "labels": labels[:, si].reshape(
+                         (-1,) + tuple(labels.shape[3:]))}
+            new_ad, new_os, m = self.train_step(params, adapters, opt_state,
+                                                batch, layer_masks, n,
+                                                scale=scale)
+            live = counts > si
+            adapters = _keep_frozen(live, new_ad, adapters)
+            opt_state = AdamState(step=new_os.step,
+                                  mu=_keep_frozen(live, new_os.mu,
+                                                  opt_state.mu),
+                                  nu=_keep_frozen(live, new_os.nu,
+                                                  opt_state.nu))
+            # each lane reports its last live step
+            row = torch.stack([m[k] for k in TRAIN_METRICS])
+            last = row if last is None else torch.where(live, row, last)
+        return adapters, last
 
     # ------------------------------------------------------------------
     def _run_group(self, params, adapters_list: Sequence[Any],
@@ -230,23 +270,8 @@ class BatchedLocalTrainer:
             adapters = _broadcast_lanes(adapters_list[0], n)
         else:
             adapters = stack_trees(adapters_list)
-        opt_state = self.opt.init(adapters)
-        last = None
-        for si in range(steps):
-            batch = {"tokens": tokens[:, si].reshape((-1,) + tok.shape[3:]),
-                     "labels": labels[:, si].reshape((-1,) + lab.shape[3:])}
-            new_ad, new_os, m = self.train_step(params, adapters, opt_state,
-                                                batch, masks, n)
-            live = counts > si
-            adapters = _keep_frozen(live, new_ad, adapters)
-            opt_state = AdamState(step=new_os.step,
-                                  mu=_keep_frozen(live, new_os.mu,
-                                                  opt_state.mu),
-                                  nu=_keep_frozen(live, new_os.nu,
-                                                  opt_state.nu))
-            # each lane reports its last live step
-            row = torch.stack([m[k] for k in TRAIN_METRICS])
-            last = row if last is None else torch.where(live, row, last)
+        adapters, last = self.train_lanes(params, adapters, tokens, labels,
+                                          counts, steps, layer_masks=masks)
         if eval_batch is not None:
             last = torch.cat([last, self.evaluate_lanes(
                 params, adapters, eval_batch, n)[None]])

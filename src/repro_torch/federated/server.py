@@ -8,7 +8,9 @@ aggregation is the data-weighted sum of the clients' scale·A·B products
 semi-synchronous participation raise ``NotImplementedError``; residual
 aggregation has no parameter here yet. ROADMAP Queue 1, item 6 lists
 them. :meth:`RSUServer.aggregate_grouped` takes the batched engine's
-stacked groups.
+stacked groups; :meth:`RSUServer.fresh_padded` stages the fused
+engine's first-round adapters and :meth:`RSUServer.load_merged` adopts
+its merged deltas.
 
 Two draws come from ``jax.random`` in the reference: the fresh adapters
 of the first round and the SVD sketch Ω. Both are injectable here
@@ -87,6 +89,22 @@ class RSUServer:
         if rank == self.lora.max_rank:
             return full
         return agg.hetlora_truncate(full, rank)
+
+    def fresh_padded(self, n: int):
+        """Draw ``n`` max_rank adapter trees from the fresh-adapter
+        stream exactly as ``n`` :meth:`_fresh` calls would (the injected
+        ``draw_adapters`` too), stacked on the lane axis (L, n, ...), on
+        the server's device. The fused engine scatters them into its
+        fleet and rank-masks them in its round program."""
+        from repro_torch.federated.batched_client import stack_trees
+        return stack_trees([self._fresh(self.lora.max_rank)
+                            for _ in range(n)])
+
+    def load_merged(self, merged, round_: int) -> None:
+        """Adopt server state computed off-host (the fused engine's
+        carry), so that eval_adapters and distribute stay coherent."""
+        self.merged = merged
+        self.round = int(round_)
 
     def distribute(self, ranks: Sequence[int]) -> List[Any]:
         """One adapter tree per participating vehicle."""

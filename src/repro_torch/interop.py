@@ -17,16 +17,19 @@ import torch
 from repro_torch.models.runmode import resolve_device
 
 
-def tree_map(fn, tree: Any) -> Any:
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
     """fn over the leaves of a tree of dicts, lists and tuples (None
-    leaves stay None)."""
+    leaves stay None); with ``rest``, over the matching leaves of trees
+    of the same structure, matched by key (dict order may differ)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, *rs)
+                          for v, *rs in zip(tree, *rest))
     if tree is None:
         return None
-    return fn(tree)
+    return fn(tree, *rest)
 
 
 def _to_numpy(leaf) -> np.ndarray:

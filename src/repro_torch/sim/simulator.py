@@ -1,5 +1,5 @@
 """IoV multi-task federated fine-tuning simulator (paper §V), port of
-``repro/sim/simulator.py`` with the serial and batched engines.
+``repro/sim/simulator.py`` with the serial, batched and fused engines.
 
 Per communication round:
   1. vehicle mobility (trajectory step, RSU coverage, departure prediction),
@@ -14,21 +14,26 @@ Training runs on ``device`` (``cuda`` by default; ``cpu`` when asked):
 every LoRA-targeted linear of the model launches ``lora_matmul`` and
 every attention ``flash_attention`` on a card. The engine
 (``SimConfig.engine``, else ``$REPRO_SIM_ENGINE``, else ``"batched"``)
-trains either one vehicle at a time (``"serial"``) or each (task, rank)
+trains either one vehicle at a time (``"serial"``), each (task, rank)
 group of vehicles as one stack of lanes (``"batched"``;
 ``"batched_check"`` also replays the serial trainer on the same batches
-and records the largest adapter deviation in ``engine_check_dev``).
-Cost accounting reads the full paper backbone's dimensions
-(``cost_arch_id``), whatever model trains. The host state (mobility,
-channel, data, the numpy ``rng``) is the reference's, drawn in the
-reference's order, so one seed gives the reference's fleet, data and
-channel bit for bit.
+and records the largest adapter deviation in ``engine_check_dev``), or
+runs the whole round as one program over the rank-padded fleet
+(``"fused"``, see ``federated/fused_engine.py``: CUDA graphs captured on
+the first round and replayed after on a card, the same functions eagerly
+on the CPU; ``"fused_check"`` replays the serial trainer on its lanes).
+:meth:`IoVSimulator.run_scanned` runs several fused rounds with the host
+staging them all first. Cost accounting reads the full paper backbone's
+dimensions (``cost_arch_id``), whatever model trains. The host state
+(mobility, channel, data, the numpy ``rng``) is the reference's, drawn
+in the reference's order, so one seed gives the reference's fleet, data
+and channel bit for bit.
 
-What the port does not run yet raises (ROADMAP Queue 1): the fused
-engines and ``run_scanned`` (items 8, 12), checkpoints (item 9),
-trace replay (item 10), every method but ``ours`` (the baselines, the
-ablations and residual aggregation), multi-RSU tiers and semi-sync
-participation (item 6).
+What the port does not run yet raises (ROADMAP Queue 1): the sharded
+fused engine (item 12), checkpoints and the checkpoint-chunked
+``run_scanned`` (item 9), trace replay (item 10), every method but
+``ours`` (the baselines, the ablations and residual aggregation),
+multi-RSU tiers and semi-sync participation (item 6).
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ from repro_torch.federated.baselines import METHODS
 from repro_torch.federated.batched_client import (BatchedLocalTrainer,
                                                   draw_batches, take_lanes)
 from repro_torch.federated.client import LocalTrainer
+from repro_torch.federated.fused_engine import (FusedRoundEngine,
+                                                supports_method)
 from repro_torch.federated.server import RSUServer
 from repro_torch.interop import tree_map
 from repro_torch.models import transformer as T
@@ -94,9 +101,10 @@ class SimConfig:
     scenario: Optional[str] = None
 
 
-ENGINES = ("serial", "batched", "batched_check")
-# the reference's other engines, which the port does not run yet
-UNPORTED_ENGINES = ("fused", "fused_check", "fused_sharded")
+ENGINES = ("serial", "batched", "batched_check", "fused", "fused_check")
+FUSED_ENGINES = ("fused", "fused_check")
+# the reference's other engine, which the port does not run yet
+UNPORTED_ENGINES = ("fused_sharded",)
 
 
 class IoVSimulator:
@@ -207,6 +215,12 @@ class IoVSimulator:
         self.alloc = energy_alloc.init_alloc(cfg.energy, cfg.num_tasks)
         self.history: List[Dict[str, Any]] = []
 
+        # --- fused engine (the round as one program; see fused_engine) ---
+        self.fused = None
+        if self.engine in FUSED_ENGINES:
+            self.fused = FusedRoundEngine(
+                self, check=(self.engine == "fused_check"))
+
     # ------------------------------------------------------------------
     @staticmethod
     def _resolve_engine(cfg: SimConfig) -> str:
@@ -215,10 +229,16 @@ class IoVSimulator:
         if engine in UNPORTED_ENGINES:
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet; the port runs "
-                f"{ENGINES} (ROADMAP Queue 1, items 8 and 12)")
+                f"{ENGINES} (ROADMAP Queue 1, item 12)")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; have "
                              f"{ENGINES + UNPORTED_ENGINES}")
+        if engine in FUSED_ENGINES and not supports_method(cfg.method):
+            if cfg.engine is None:   # chosen by the environment: fall back
+                return "batched"
+            raise ValueError(
+                f"engine={engine!r} does not support method "
+                f"{cfg.method!r}; use engine='batched' or 'serial'")
         return engine
 
     @staticmethod
@@ -254,6 +274,8 @@ class IoVSimulator:
         task. The channel's fading stream is drawn only in the finish
         phase, in the reference's order."""
         cfg = self.cfg
+        if self.fused is not None:
+            return self.fused.run_round()
         self.mobility.step()
         budgets = self.alloc.budgets.numpy()
         rec: Dict[str, Any] = {"round": len(self.history), "tasks": []}
@@ -532,10 +554,19 @@ class IoVSimulator:
         server.aggregate_grouped(gspecs)
 
     # ------------------------------------------------------------------
-    def run_scanned(self, rounds: Optional[int] = None):
-        raise NotImplementedError(
-            "run_scanned needs the fused engine, which the port has not "
-            "taken over yet (ROADMAP Queue 1, item 8)")
+    def run_scanned(self, rounds: Optional[int] = None
+                    ) -> List[Dict[str, Any]]:
+        """Fused engines only: ``rounds`` communication rounds with every
+        round's mobility, channel draws and data batches staged on the
+        host first (the same RNG streams as per-round execution), then
+        run on the device without the host between rounds (see
+        :meth:`FusedRoundEngine.run_scanned`). Appends to and returns the
+        new part of ``history``. Checkpoint chunking waits for ROADMAP
+        Queue 1, item 9 (an enabled checkpoint raises at construction)."""
+        if self.fused is None:
+            raise ValueError("run_scanned requires engine='fused' "
+                             f"(engine={self.engine!r})")
+        return self.fused.run_scanned(rounds or self.cfg.rounds)
 
     def run(self, rounds: Optional[int] = None, log_every: int = 0
             ) -> List[Dict[str, Any]]:

@@ -31,6 +31,7 @@ from repro_torch.federated.batched_client import (BatchedLocalTrainer,
                                                   draw_batches)
 from repro_torch.federated.client import LocalTrainer
 from repro_torch.models import transformer as T
+from repro_torch.optim.adam import leaves
 from repro_torch.sim.simulator import IoVSimulator, SimConfig
 
 pytestmark = pytest.mark.cuda
@@ -689,3 +690,41 @@ def test_batched_round_on_card_matches_cpu(cuda_device):
             for key in ("energy", "latency"):
                 assert abs(tg[key] - tc[key]) <= 1e-4 * max(1.0,
                                                             abs(tc[key]))
+
+
+FUSED_KW = dict(method="ours", engine="fused", num_vehicles=6, num_tasks=2,
+                local_steps=2)
+
+
+def _fused_state(sim, rounds):
+    recs = [sim.run_round() for _ in range(rounds)]
+    return recs, [leaves(s.merged) for s in sim.servers]
+
+
+def test_fused_round_captures_once_and_replays_as_eager(cuda_device):
+    """Three fused rounds of the reduced ViT on the card: one capture of
+    the round (two graphs), and the replayed rounds equal to the same
+    rounds run eagerly on the card (records and merged deltas), the
+    same kernels on the same inputs."""
+    from repro_torch.federated.fused_engine import FusedRoundEngine
+    graph = IoVSimulator(SimConfig(**FUSED_KW), device="cuda")
+    eager = IoVSimulator(SimConfig(**FUSED_KW), device="cuda")
+    eager.fused = FusedRoundEngine(eager, capture=False)
+    assert graph.fused.capture and not eager.fused.capture
+    g_recs, g_merged = _fused_state(graph, 3)
+    e_recs, e_merged = _fused_state(eager, 3)
+    assert graph.fused.captures == 1 and graph.fused.segments == 2
+    assert eager.fused.captures == 0
+    assert g_recs == e_recs
+    for gs, es in zip(g_merged, e_merged):
+        for g, e in zip(gs, es):
+            assert torch.equal(g, e)
+
+
+def test_fused_run_scanned_on_card_equals_run_round(cuda_device):
+    """run_scanned on the card (one host copy of every round's inputs,
+    device copies between replays) gives the per-round records."""
+    a = IoVSimulator(SimConfig(**FUSED_KW), device="cuda")
+    b = IoVSimulator(SimConfig(**FUSED_KW), device="cuda")
+    assert a.run(2) == b.run_scanned(2)
+    assert b.fused.captures == 1

@@ -3,8 +3,9 @@ against the reference's, on the CPU.
 
 One config, ``SimConfig(method="ours", engine="serial", num_vehicles=6,
 num_tasks=2, local_steps=2)``, in both packages; the port also runs it
-under ``engine="batched"``, held to the same reference run (the
-reference's own suite pins its batched engine to its serial one). The
+under ``engine="batched"`` and ``engine="fused"`` (eager on the CPU),
+each held to the same reference run (the reference's own suite pins its
+batched and fused engines to its serial one). The
 reference's ``jax.random`` draws are handed to the port: the base
 weights (``params=``), each server's fresh adapters (``server_draws``)
 and the SVD sketch Ω (``draw_omega``); everything else is the same numpy
@@ -59,7 +60,12 @@ def _np(tree):
 
 def _recording(sim, plans):
     """Wrap the simulator's planner to keep each task's active set and
-    ranks."""
+    ranks. The fused engine has no host planner: its active sets and
+    departures come from the staged inputs, its ranks from the arm each
+    vehicle's UCB-DUAL count moved on."""
+    if getattr(sim, "fused", None) is not None:
+        _recording_fused(sim, plans)
+        return
     plan_task = sim._plan_task
 
     def plan(ti):
@@ -69,6 +75,30 @@ def _recording(sim, plans):
                       np.asarray(p["departing"]).tolist()))
         return p
     sim._plan_task = plan
+
+
+def _recording_fused(sim, plans):
+    eng, staged = sim.fused, []
+    stage, run_round = eng._stage_round, sim.run_round
+
+    def stage_spy(*a, **kw):
+        out = stage(*a, **kw)
+        staged.append(out[0])
+        return out
+    eng._stage_round = stage_spy
+
+    def rr():
+        before = [s.counts.clone() for s in sim.ucb_states]
+        rec = run_round()
+        x, cand = staged[-1], sim.cfg.lora.candidate_ranks
+        for ti in range(sim.cfg.num_tasks):
+            ids = np.where(x["active"][ti])[0]
+            arms = torch.argmax(sim.ucb_states[ti].counts - before[ti], -1)
+            plans.append((ti, ids.tolist(),
+                          [int(cand[int(arms[v])]) for v in ids],
+                          x["departing"][ti].astype(bool).tolist()))
+        return rec
+    sim.run_round = rr
 
 
 def _server_draw(seed, cfg, lora):
@@ -118,7 +148,7 @@ def reference_and_omega():
     return jsim, jhist, jplans, _omega_ref()
 
 
-@pytest.fixture(scope="module", params=["serial", "batched"])
+@pytest.fixture(scope="module", params=["serial", "batched", "fused"])
 def runs(request, reference_and_omega):
     """The port under each engine it runs, against the reference's serial
     run: the same draws, the same tolerances."""
@@ -206,7 +236,8 @@ def test_summary_and_history_shape(runs):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change", [
-    {"engine": "fused"}, {"engine": "fused_sharded"}, {"method": "hetlora"},
+    {"engine": "fused", "rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
+    {"engine": "fused_sharded"}, {"method": "hetlora"},
     {"method": "homolora"}, {"method": "fedra"}, {"method": "ours_residual"},
     {"method": "ours_no_energy"}, {"method": "ours_no_mobility"},
     {"rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
@@ -226,8 +257,9 @@ def test_unported_options_raise(change):
 
 
 def test_run_scanned_raises():
+    """run_scanned needs a fused engine, as in the reference."""
     sim = IoVSimulator(SimConfig(**KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="fused"):
+    with pytest.raises(ValueError, match="fused"):
         sim.run_scanned(2)
 
 
@@ -251,9 +283,15 @@ def test_engine_none_resolves_to_batched(monkeypatch):
 @pytest.mark.parametrize("engine", ["fused", "fused_check",
                                     "fused_sharded"])
 def test_unported_engine_from_the_environment_raises(monkeypatch, engine):
+    """fused_sharded is not ported; fused and fused_check are, on the
+    trivial RSU tier only, so from the environment they raise with a
+    tier."""
     monkeypatch.setenv("REPRO_SIM_ENGINE", engine)
+    change = {} if engine == "fused_sharded" else {
+        "rsu_tier": RSUTierSpec(num_rsus_per_task=2)}
     with pytest.raises(NotImplementedError, match="item"):
-        IoVSimulator(SimConfig(**dict(KW, engine=None)), device="cpu")
+        IoVSimulator(SimConfig(**dict(KW, engine=None, **change)),
+                     device="cpu")
 
 
 def test_unknown_engine_raises():
