@@ -43,8 +43,9 @@ nothing is caught):
    and every one of the decode a split-K one; every flash launch of the
    qwen2-0.5b prefill must take the tensor-core route. Then a
    torch.profiler window over a prefill and 4 steps.
-5. The federated round of the paper's method, through ``IoVSimulator``,
-   under the three engines that the port runs: ``serial`` (one vehicle
+5. The federated round, through ``IoVSimulator``, of the paper's method
+   under the three engines that the port runs (and, in (d), of every
+   other method): ``serial`` (one vehicle
    at a time), ``batched`` (each (task, rank) group of vehicles one stack
    of lanes) and ``fused`` (below, (c)). (a) At the reduced ViT (head dim 16) with the default
    ``SimConfig`` (24 vehicles, 3 tasks, 3 local steps), per engine one
@@ -75,11 +76,12 @@ nothing is caught):
    on its first round as two CUDA graphs around the two eager SVDs, then
    replayed): at the reduced ViT one round card against CPU as in (a),
    and one ``fused_check`` round on the card (``engine_check_dev`` <
-   1e-4); at full width two profiled rounds and one without the
-   profiler, the first timing its eager warm-up and its capture apart:
-   one capture over all rounds, the launches counted at capture and the
-   profiler's kernel records of each replayed round equal to 15
-   forwards' (1,080 ``lora_matmul``, 180 flash, all ``simt``); ranks and
+   1e-4); at full width three rounds: the first without the profiler,
+   timing its eager warm-up and its capture apart, then one profiled and
+   one without: one capture over all rounds, the launches counted at
+   capture and the profiler's kernel records of the profiled replayed
+   round equal to 15 forwards' (1,080 ``lora_matmul``, 180 flash, all
+   ``simt``); ranks and
    active sets equal to the batched rounds', energy and latency within
    1e-5; round-0 merged deltas within the serial spread limit of (b);
    two replayed rounds equal to the same rounds run eagerly on the card
@@ -91,13 +93,36 @@ nothing is caught):
    backward) and V x 768, flash at B = V·10 and V·32; and at the fused
    round's: 24 lanes rank-padded to 32 with mixed lane ranks, 24 x 240
    (with the backward) and 24 x 768 rows, flash at B 240 and 768.
+   (d) The paper's baselines (HomoLoRA, HetLoRA, FedRA), ablations
+   (``ours_no_energy``, ``ours_no_mobility``) and ``ours_residual``. At
+   the reduced ViT with the default SimConfig, each method under
+   ``serial`` and ``batched`` (the ablations also ``fused``) two rounds
+   from one seed on the card and on the CPU, the second round on the
+   card started from the CPU's state: ranks, active and departing
+   counts, fallbacks and comm_params exactly; energy, latency and the
+   servers' states (merged deltas, or the baselines' global adapters)
+   within 1e-4. Then one ``batched_check`` round per method and one
+   ``fused_check`` round per ablation on the card: ``engine_check_dev``
+   recorded, each lane's update spread against the serial replay held
+   within 2x the serial trainer's card-vs-CPU spread (a replay one step
+   short must fail). At full width, each
+   method's batched rounds (the first profiled; launches held to the
+   groups' prediction in both; every launch ``simt``, every loss,
+   energy and accuracy finite); FedRA's left-out layers bit-identical
+   after local training, which a planted fault (the mask applied after
+   the optimizer step) must break; and each ablation's fused rounds (a
+   capture, then a replayed round with 1,080 / 180 kernel records) held
+   to its batched rounds (ranks and active sets exactly, energy and
+   latency within 1e-5). Then phase 2's rows at HetLoRA's largest lane
+   group per rank.
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
 ``lora_matmul`` (simt) for 768->768, 768->3072 and 3072->768 at a train
-step's 240 rows (B 10 x S 24; ranks 2, 4 and 32, with the closed-form
-backward against autograd of the plain version), a local eval's 768
-(ranks 2 and 4) and the largest global eval's 8064 (rank 32); flash
+step's 240 rows (B 10 x S 24; ranks 2, 4, 8, 16 and 32, with the
+closed-form backward against autograd of the plain version), a local
+eval's 768 (ranks 2 and 4) and the largest global eval's 8064 (ranks 8
+and 32); flash
 attention at S 24 in f32 and bf16 at a train step's B 10 with head dim
 16 (4 heads) and 64 (12 heads), and in f32 at the evals' B 32 and 336.
 
@@ -120,9 +145,12 @@ import torch  # noqa: E402
 
 from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
 from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
+from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
 from repro_torch.core.aggregation import (  # noqa: E402
     tree_get, tree_paths, tree_paths_delta)
-from repro_torch.core.lora import pad_adapter_tree, rank_arange_mask  # noqa: E402
+from repro_torch.core.lora import (  # noqa: E402
+    pad_adapter_tree, rank_arange_mask, truncate_adapter_tree)
+from repro_torch.federated.client import LocalTrainer  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.lora_matmul import ops as lm_ops  # noqa: E402
@@ -134,7 +162,8 @@ from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E
                                       make_decode_step)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.interop import tree_map  # noqa: E402
-from repro_torch.federated.fused_engine import FusedRoundEngine  # noqa: E402
+from repro_torch.federated.fused_engine import (  # noqa: E402
+    FusedRoundEngine, _copy_tree)
 from repro_torch.optim.adam import leaves  # noqa: E402
 from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
 
@@ -661,13 +690,14 @@ def grad_err(got, want) -> float:
 
 
 # the rows each kind of lora_matmul call of a vit-base-paper round takes,
-# and the ranks it runs there: a train step's batch (rank 2 in round 0,
-# 4 in round 1; 32 is the slot), a vehicle's local eval (32 samples) and
-# the server's global eval at max_rank (the largest task's eval split,
-# 336 samples)
-LORA_TRAIN_CASES = (("train", TRAIN_B * TRAIN_S, (2, 4, 32)),
+# and the ranks it runs there: a train step's batch (ours: rank 2 in
+# round 0, 4 in round 1; HomoLoRA and FedRA 8; HetLoRA 2-32; 32 is the
+# slot), a vehicle's local eval (32 samples) and the server's global
+# eval (the largest task's eval split, 336 samples) at max_rank, or at 8
+# for HomoLoRA's and FedRA's global adapters
+LORA_TRAIN_CASES = (("train", TRAIN_B * TRAIN_S, (2, 4, 8, 16, 32)),
                     ("local eval", 32 * TRAIN_S, (2, 4)),
-                    ("global eval", 336 * TRAIN_S, (32,)))
+                    ("global eval", 336 * TRAIN_S, (8, 32)))
 
 
 VIT_LINEARS = (("q/k/v/o", 768, 768), ("up", 768, 3072),
@@ -819,20 +849,20 @@ def flash_train_row(mode, B, H, D, model, dtype, S=TRAIN_S):
         "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_lane_shapes(lanes_by_rank):
+def check_lane_shapes(lanes_by_rank, label=""):
     """Phase 2 at the batched round's lane shapes, V from its largest
     group per rank: f32 lora_matmul at V x 240 rows (train, forward and
     closed-form backward) and V x 768 (local eval), flash at B = V·10
-    and V·32."""
+    and V·32. ``label`` prefixes the rows' mode (the method)."""
     rows = []
     for r, V in sorted(lanes_by_rank.items()):
-        for mode, M in (("train lanes", TRAIN_B * TRAIN_S),
-                        ("local eval lanes", 32 * TRAIN_S)):
+        for mode, M in ((f"{label}train lanes", TRAIN_B * TRAIN_S),
+                        (f"{label}local eval lanes", 32 * TRAIN_S)):
             for linear, K, N in VIT_LINEARS:
                 rows.append(lora_train_row(mode, M, linear, K, N, r, L=V))
     for V in sorted(set(lanes_by_rank.values())):
-        for mode, B in (("train lanes", V * TRAIN_B),
-                        ("local eval lanes", V * 32)):
+        for mode, B in ((f"{label}train lanes", V * TRAIN_B),
+                        (f"{label}local eval lanes", V * 32)):
             rows.append(flash_train_row(mode, B, 12, 64, "vit-base-paper",
                                         torch.float32))
     return rows
@@ -1047,6 +1077,7 @@ def device_profile(fn, top=8):
     records (PERF.md, Findings)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_in = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(SETTLE_S)
         t0 = time.perf_counter()
@@ -1068,6 +1099,7 @@ def device_profile(fn, top=8):
             t["count"] += n
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
+            "window_s": time.perf_counter() - t_in,
             "kernels": len(rows), "port_kernels": ours,
             "top": [{"kernel": k[:100], "ms": ms, "count": n}
                     for k, ms, n in rows[:top]]}
@@ -1345,14 +1377,20 @@ def round_groups(sim, round_plans):
     return groups
 
 
-def full_rounds(engine, n_profiled):
-    """Phase 5b: rounds at the full width of vit-base-paper on the card
-    under ``engine``, each under a profiler window, then one more without
-    it. Keeps each round's plans, records and the servers' merged deltas
-    (under "_state", for :func:`engines_agree`)."""
-    sim = IoVSimulator(SimConfig(method="ours", engine=engine,
+def full_rounds(engine, n_profiled, method="ours", hook=None):
+    """Phases 5b and 5d: rounds of ``method`` at the full width of
+    vit-base-paper on the card under ``engine``, each under a profiler
+    window, then one more without it; every batched round's launches
+    held to its groups' prediction. ``hook(sim)`` runs before the first
+    round. Keeps each round's plans, records and the servers' states
+    (merged deltas, or the baselines' global adapters; under "_state",
+    for :func:`engines_agree`)."""
+    t_start = time.perf_counter()
+    sim = IoVSimulator(SimConfig(method=method, engine=engine,
                                  train_arch=vit_base_paper.vit_base_paper()),
                        device="cuda")
+    if hook is not None:
+        hook(sim)
     cfg = sim.model_cfg
     nt = sim.cfg.num_tasks
     # launches of each kernel per forward: one per LoRA linear, one flash
@@ -1397,6 +1435,7 @@ def full_rounds(engine, n_profiled):
             "peak_memory_bytes": peak,
             "kernels_in_trace": prof["kernels"],
             "port_kernels": prof["port_kernels"], "top": prof["top"],
+            "profiler_window_s": prof["window_s"],
             "train_steps": split["steps"] - before["steps"],
             "evals": split["evals"] - before["evals"],
             "launches": {kind: {k: v - before[kind].get(k, 0)
@@ -1411,31 +1450,16 @@ def full_rounds(engine, n_profiled):
             "accuracy": rec["accuracy"],
             "loss_first_last": [float(losses[0]), float(losses[-1])]}
         if engine != "serial":
-            # one forward per group step, one local eval per group, one
-            # global eval per task that kept an upload: any loop over
-            # vehicles would launch more
-            groups = round_groups(sim, plans[-nt:])
-            fwd = (sum(steps + 1 for *_, steps in groups)
-                   + sum(t["comm_params"] > 0 for t in rec["tasks"]))
-            want = {k: n * fwd for k, n in per_fwd.items()}
-            if {k: launched[k] for k in want} != want:
-                fail(f"full-width {engine} round {rnd}: launches "
-                     f"{launched}, the groups {groups} predict {want}")
+            groups, want = predicted_launches(sim, plans[-nt:], rec,
+                                              launched, per_fwd)
             row.update(groups=[list(g) for g in groups],
                        predicted_launches=want)
         out.append(row)
         state["plans"].append(plans[-nt:])
         state["recs"].append(rec)
-        state["merged"].append([s.merged for s in sim.servers])
+        state["merged"].append(server_states(sim))
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
-    for name in ("lora_matmul", "flash_attention"):
-        if launched[name] == 0:
-            fail(f"full-width {engine} rounds launched no {name}")
-    if lora_v["simt"] != launched["lora_matmul"] or \
-            flash_v["simt"] != launched["flash_attention"]:
-        fail(f"full-width {engine} rounds: f32 launches off the simt "
-             f"kernels {lora_v} {flash_v}")
     # one more round, no profiler: the plain wall time
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1443,22 +1467,60 @@ def full_rounds(engine, n_profiled):
     rec = sim.run_round()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    total = counts()
+    if engine != "serial":
+        predicted_launches(sim, plans[-nt:], rec, {
+            k: v - launched[k] for k, v in total.items()}, per_fwd)
+    for name in ("lora_matmul", "flash_attention"):
+        if launched[name] == 0:
+            fail(f"full-width {method} {engine} rounds launched no {name}")
+    if variant_counts()["simt"] != total["lora_matmul"] or \
+            flash_variant_counts()["simt"] != total["flash_attention"]:
+        fail(f"full-width {method} {engine} rounds: f32 launches off the "
+             f"simt kernels {variant_counts()} {flash_variant_counts()}")
+    if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])):
+        fail(f"full-width {method} {engine} unprofiled round: energy or "
+             f"accuracy not finite")
     state["plans"].append(plans[-nt:])
     state["recs"].append(rec)
-    state["merged"].append([s.merged for s in sim.servers])
-    return {"engine": engine,
+    state["merged"].append(server_states(sim))
+    return {"engine": engine, "method": method,
             "config": f"{cfg.name}, {cfg.num_layers} layers, d "
             f"{cfg.d_model}, {cfg.num_heads} heads of "
-            f"{cfg.resolved_head_dim}, f32; SimConfig(method='ours', "
+            f"{cfg.resolved_head_dim}, f32; SimConfig(method={method!r}, "
             f"engine={engine!r}) otherwise default",
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
+            "seconds": time.perf_counter() - t_start,
             "unprofiled_round": {
                 "round": n_profiled, "wall_ms": plain_ms,
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "energy": rec["energy"], "accuracy": rec["accuracy"]},
             "_state": state}
+
+
+def predicted_launches(sim, round_plans, rec, launched, per_fwd):
+    """A batched round's launches against its groups' prediction: one
+    forward per group step, one local eval per group, one global eval
+    per task that kept an upload (any loop over vehicles would launch
+    more). Returns (groups, predicted launches)."""
+    groups = round_groups(sim, round_plans)
+    fwd = (sum(steps + 1 for *_, steps in groups)
+           + sum(t["comm_params"] > 0 for t in rec["tasks"]))
+    want = {k: n * fwd for k, n in per_fwd.items()}
+    if {k: launched[k] for k in want} != want:
+        fail(f"full-width {sim.cfg.method} {sim.engine} round "
+             f"{len(sim.history) - 1}: launches {launched}, the groups "
+             f"{groups} predict {want}")
+    return groups, want
+
+
+def server_states(sim):
+    """Each task's server state: the merged deltas of the ``ours``
+    family, the global adapters of the baselines."""
+    return [srv.merged if srv.method == "ours" else srv.global_adapters
+            for srv in sim.servers]
 
 
 def update_spread(got, want, base, scale):
@@ -1681,15 +1743,19 @@ def engines_agree(serial, batched, limit):
 REPLAY_TOL = 1e-6
 
 
-def fused_rounds(n_profiled):
-    """Phase 5c: fused rounds at the full width of vit-base-paper on the
-    card, each under a profiler window, then one more without it. The
-    first round warms the program up eagerly and captures it (both timed
-    apart); every round replays. Holds one capture over all rounds and,
-    per replayed round, the profiler's kernel records against the
-    launches counted at capture (one per LoRA linear and per attention of
-    15 forwards)."""
-    sim = IoVSimulator(SimConfig(method="ours", engine="fused",
+def fused_rounds(n_profiled, method="ours", unprofiled=True):
+    """Phases 5c and 5d: fused rounds of ``method`` at the full width of
+    vit-base-paper on the card: the first round, which warms the program
+    up eagerly and captures it (both timed apart) before its first
+    replay, without the profiler (a window over it took 74-79 s of the
+    profiler's own processing, my chip run, PR 18); then ``n_profiled``
+    replayed rounds, each under a profiler window; then (with
+    ``unprofiled``) one more without it. Holds one capture over all
+    rounds and, per profiled round, the profiler's kernel records
+    against the launches counted at capture (one per LoRA linear and
+    per attention of 15 forwards)."""
+    t_start = time.perf_counter()
+    sim = IoVSimulator(SimConfig(method=method, engine="fused",
                                  train_arch=vit_base_paper.vit_base_paper()),
                        device="cuda")
     eng, cfg, nt = sim.fused, sim.model_cfg, sim.cfg.num_tasks
@@ -1729,10 +1795,21 @@ def fused_rounds(n_profiled):
     def keep(rec):
         state["plans"].append(plans[-nt:])
         state["recs"].append(rec)
-        state["merged"].append([srv.merged for srv in sim.servers])
+        state["merged"].append(server_states(sim))
         state["ucb"].append([tuple(x.clone() for x in st)
                              for st in sim.ucb_states])
-    for rnd in range(n_profiled):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = sim.run_round()
+    torch.cuda.synchronize()
+    first["round_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    first["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])):
+        fail(f"full-width {method} fused round 0: energy or accuracy not "
+             f"finite")
+    keep(rec)
+    for rnd in range(1, n_profiled + 1):
         recs = []
         torch.cuda.reset_peak_memory_stats()
         prof = device_profile(lambda: recs.append(sim.run_round()), top=6)
@@ -1740,62 +1817,61 @@ def fused_rounds(n_profiled):
         if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])
                 and all(np.isfinite(t["energy"]) and
                         np.isfinite(t["accuracy"]) for t in rec["tasks"])):
-            fail(f"full-width fused round {rnd}: an energy or accuracy is "
-                 f"not finite")
+            fail(f"full-width {method} fused round {rnd}: an energy or "
+                 f"accuracy is not finite")
         ours = prof["port_kernels"]
         replayed = {"lora_matmul": ours.get("lora_mm_kernel", {}).get(
             "count", 0), "flash_attention": ours.get("fa_kernel", {}).get(
             "count", 0)}
-        # round 0 runs the program twice: the eager warm-up and the first
-        # replay; every later round once
-        runs = 2 if rnd == 0 else 1
-        if (replayed != {k: runs * v for k, v in want.items()}
+        if (replayed != want
                 or set(ours) != {"lora_mm_kernel", "fa_kernel"}):
-            fail(f"full-width fused round {rnd}: the profiler saw {ours}, "
-                 f"{runs} x {want} predicted, all simt")
+            fail(f"full-width {method} fused round {rnd}: the profiler saw "
+                 f"{ours}, {want} predicted, all simt")
         out.append({
             "round": len(state["recs"]), "wall_ms": prof["wall_ms"],
             "device_ms": prof["device_ms"], "busy_share": prof["busy_share"],
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "kernels_in_trace": prof["kernels"], "port_kernels": ours,
-            "top": prof["top"], "program_runs": runs,
-            "launches_per_run_by_profiler": {k: v // runs
-                                             for k, v in replayed.items()},
+            "top": prof["top"], "profiler_window_s": prof["window_s"],
+            "launches_per_run_by_profiler": replayed,
             "ranks": {t["task"]: t["mean_rank"] for t in rec["tasks"]},
             "active": {t["task"]: t["active"] for t in rec["tasks"]},
             "energy": rec["energy"], "latency": rec["latency"],
             "accuracy": rec["accuracy"], "captures": eng.captures})
         keep(rec)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rec = sim.run_round()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    keep(rec)
+    plain_ms = None
+    if unprofiled:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = sim.run_round()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        keep(rec)
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
     if eng.captures != 1:
-        fail(f"full-width fused: {eng.captures} captures over "
+        fail(f"full-width {method} fused: {eng.captures} captures over "
              f"{len(state['recs'])} rounds")
     caught = {k: first["capture_launches"][k] for k in want}
     if caught != want:
-        fail(f"full-width fused: {caught} launches at capture, {want} "
-             f"predicted")
+        fail(f"full-width {method} fused: {caught} launches at capture, "
+             f"{want} predicted")
     if lora_v["simt"] != launched["lora_matmul"] or \
             flash_v["simt"] != launched["flash_attention"]:
-        fail(f"full-width fused rounds: f32 launches off the simt kernels "
-             f"{lora_v} {flash_v}")
-    return {"engine": "fused",
+        fail(f"full-width {method} fused rounds: f32 launches off the simt "
+             f"kernels {lora_v} {flash_v}")
+    return {"engine": "fused", "method": method,
             "config": f"{cfg.name}, {cfg.num_layers} layers, d "
             f"{cfg.d_model}, {cfg.num_heads} heads of "
-            f"{cfg.resolved_head_dim}, f32; SimConfig(method='ours', "
+            f"{cfg.resolved_head_dim}, f32; SimConfig(method={method!r}, "
             f"engine='fused') otherwise default",
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
             "predicted_launches_per_round": want,
             "captures": eng.captures, "segments": eng.segments,
+            "seconds": time.perf_counter() - t_start,
             "first_round": first,
             "unprofiled_round": {
                 "round": len(state["recs"]) - 1, "wall_ms": plain_ms,
@@ -1911,6 +1987,485 @@ def fused_agrees(fused, batched, serial, limit):
             "merged_delta_spread_round0_vs_serial": spread, "limit": limit,
             "merged_delta_rel_err_round0_vs_serial": merged_rel_err(
                 s["merged"][0], f["merged"][0])}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5d: the paper's baselines and ablations
+# ---------------------------------------------------------------------------
+
+# the methods of this phase (``ours`` runs in 5a-5c) and the ablations,
+# which also run under the fused engine
+METHODS_5D = ("homolora", "hetlora", "fedra", "ours_no_energy",
+              "ours_no_mobility", "ours_residual")
+ABLATIONS = ("ours_no_energy", "ours_no_mobility")
+PARITY_ROUNDS = 2
+# fused vs batched rounds at full width, energy and latency (relative)
+ENGINE_TOL = 1e-5
+
+
+def state_rel_err(want_states, got_states):
+    """Largest |got - want| over each task's server state (merged deltas
+    or adapters), relative to that task's largest entry."""
+    worst = 0.0
+    for want, got in zip(want_states, got_states):
+        if (want is None) != (got is None):
+            fail("a server state is set on one device only")
+        if want is None:
+            continue
+        err = top = 0.0
+        for path in tree_paths_delta(want) or tree_paths(want):
+            for k, w in tree_get(want, path).items():
+                w = w.cpu()
+                err = max(err, maxabs(tree_get(got, path)[k].cpu(), w))
+                top = max(top, float(w.abs().max()))
+        worst = max(worst, err / max(top, 1e-30))
+    return worst
+
+
+def adopt_state(dst, src):
+    """Give the card's simulator ``dst`` what the CPU's ``src`` learned
+    in its last round: each server's merged deltas or global adapters,
+    the UCB-DUAL states and the allocator (the host streams, mobility,
+    channel and data, are equal already), so that the next round starts
+    from one state on both devices."""
+    for d, s_ in zip(dst.servers, src.servers):
+        d.merged, d.global_adapters = (
+            None if t is None else to(t, dst.device)
+            for t in (s_.merged, s_.global_adapters))
+    dst.ucb_states = [ucb_dual.UCBDualState(*(t.clone() for t in st))
+                      for st in src.ucb_states]
+    dst.alloc = energy_alloc.AllocState(
+        budgets=src.alloc.budgets.clone(),
+        difficulty=src.alloc.difficulty.clone(), round=src.alloc.round)
+    if dst.fused is not None:
+        dst.fused.reset_carry()
+
+
+def product_rel_err(want, got):
+    """Largest |A·B| difference over two adapter trees, relative to the
+    largest entry of want's A·B."""
+    err = top = 0.0
+    for path in tree_paths(want):
+        w, g = tree_get(want, path), tree_get(got, path)
+        pw = w["a"].float().cuda() @ w["b"].float().cuda()
+        err = max(err, maxabs(g["a"].float().cuda() @ g["b"].float().cuda(),
+                              pw))
+        top = max(top, float(pw.abs().max()))
+    return err / max(top, 1e-30)
+
+
+def share_distribution(card, cpu):
+    """For the next round of the ``ours`` family: hand the card's servers
+    (serial, batched) or fused engine the SVD redistribution the CPU
+    computes from the same merged deltas, so that the round trains from
+    one set of adapters on both devices. The two devices' SVDs differ in
+    summation order, and a round of Adam from their factors parts the
+    merged deltas by 1.1e-4 to 5.4e-4 of their largest entry (my chip
+    run, PR 18). Returns a list that receives the largest product
+    difference of the card's own distribution against the CPU's."""
+    errs = []
+    if cpu.fused is not None:
+        c_svd = cpu.fused.dist_svd
+        dist_svd = card.fused._dist_svd
+
+        def from_cpu():
+            dist_svd()
+            with torch.no_grad():
+                for mine, theirs in zip(card.fused.dist_svd, c_svd):
+                    _copy_tree(mine, theirs)
+        card.fused._dist_svd = from_cpu
+        return errs
+    for c_srv, srv in zip(cpu.servers, card.servers):
+        if srv.method != "ours":
+            continue
+        c_dist, dist = c_srv.distribute, srv.distribute
+
+        def cpu_side(ranks, c_dist=c_dist, srv=srv):
+            out = c_dist(ranks)
+            moved = {}
+            srv.shared = [moved.setdefault(id(t), to(t, "cuda"))
+                          for t in out]
+            return out
+
+        def card_side(ranks, dist=dist, srv=srv):
+            own = dist(ranks)
+            errs.extend(product_rel_err(w, g)
+                        for w, g in zip(srv.shared, own))
+            srv._distributed = srv.shared
+            return srv.shared
+        c_srv.distribute, srv.distribute = cpu_side, card_side
+    return errs
+
+
+def method_parity(method, engine):
+    """Phase 5d (a): PARITY_ROUNDS rounds of ``method`` under ``engine``
+    at the reduced ViT with the default SimConfig, from one seed, on the
+    CPU and on the card. Every round after the first starts on the card
+    from the CPU's state (:func:`adopt_state`) and, for the ``ours``
+    family, trains from the CPU's SVD redistribution of it
+    (:func:`share_distribution`): two runs 1e-5 apart after a round part
+    by 1e-4 to 1e-2 after the next (ROADMAP, "What one round can be held
+    to"), so every round is held from one state. Held: active sets,
+    ranks and departures, and per round and task the active and
+    departing counts, fallbacks, comm_params and mean rank exactly;
+    energy, latency and the servers' states (merged deltas or global
+    adapters, after every round) within ROUND_TOL. The card's own
+    redistribution against the CPU's is recorded."""
+    sims, plans, recs, states = {}, {}, {}, {}
+    ms = {"cuda": 0.0, "cpu": 0.0}
+    for dev in ("cuda", "cpu"):
+        sims[dev] = IoVSimulator(SimConfig(method=method, engine=engine),
+                                 device=dev)
+        plans[dev], recs[dev], states[dev] = [], [], []
+        recording(sims[dev], plans[dev])
+    reset_counts()
+    dist_errs = []
+    for rnd in range(PARITY_ROUNDS):
+        if rnd:
+            adopt_state(sims["cuda"], sims["cpu"])
+            dist_errs = share_distribution(sims["cuda"], sims["cpu"])
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            recs[dev].append(sims[dev].run_round())
+            states[dev].append(server_states(sims[dev]))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms[dev] += (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    what = f"5d {method} {engine}"
+    if launched["lora_matmul"] == 0 or launched["flash_attention"] == 0:
+        fail(f"{what}: the card's rounds launched {launched}")
+    if plans["cuda"] != plans["cpu"]:
+        fail(f"{what} card vs CPU: active sets, ranks or departures differ")
+    rel = {"energy": 0.0, "latency": 0.0}
+    for gr, cr in zip(recs["cuda"], recs["cpu"]):
+        for gt, ct in zip(gr["tasks"], cr["tasks"]):
+            for key in ("active", "departing", "fallbacks", "comm_params",
+                        "mean_rank"):
+                if gt[key] != ct[key]:
+                    fail(f"{what} card vs CPU: round {gr['round']} task "
+                         f"{gt['task']} {key} {gt[key]} vs {ct[key]}")
+            for key in rel:
+                rel[key] = max(rel[key], abs(gt[key] - ct[key])
+                               / max(abs(ct[key]), 1e-12))
+    state = [state_rel_err(c, g) for c, g in zip(states["cpu"],
+                                                 states["cuda"])]
+    if not (max(state) < ROUND_TOL and max(rel.values()) < ROUND_TOL):
+        fail(f"{what} card vs CPU: server states {state}, {rel}")
+    cpu_recs = recs["cpu"]
+    return {
+        "method": method, "engine": engine, "rounds": PARITY_ROUNDS,
+        "tol": ROUND_TOL, "state_rel_err_by_round": state,
+        "energy_rel_err": rel["energy"], "latency_rel_err": rel["latency"],
+        "card_own_distribution_rel_err": max(dist_errs, default=None),
+        "ranks": sorted({r for _, _, rs, _ in plans["cpu"] for r in rs}),
+        "fallbacks": [[t["fallbacks"] for t in r["tasks"]]
+                      for r in cpu_recs],
+        "comm_params": [[t["comm_params"] for t in r["tasks"]]
+                        for r in cpu_recs],
+        "accuracy_card": [r["accuracy"] for r in recs["cuda"]],
+        "accuracy_cpu": [r["accuracy"] for r in cpu_recs],
+        "card_ms": ms["cuda"], "cpu_ms": ms["cpu"], "launches": launched,
+        "captures": (sims["cuda"].fused.captures
+                     if sims["cuda"].fused is not None else None)}
+
+
+def check_round(method, engine):
+    """Phase 5d: one ``batched_check`` or ``fused_check`` round of
+    ``method`` at the reduced ViT on the card, the serial trainer
+    replayed on the engine's batches from each lane's given adapters.
+    ``engine_check_dev``, the largest entry of any lane's difference, is
+    recorded: Adam's first update lr·g/(|g| + 1e-8) turns a gradient
+    within summation noise of 1e-8 into a difference of a good part of
+    lr, whichever engine is right (PR 16; ``tools/
+    batched_spread_probe.py``). Held instead, as in 5b: every lane's
+    update spread (:func:`update_spread`) between the engine and the
+    serial replay on the card within SPREAD_FACTOR times the largest
+    spread of the serial trainer between the card and the CPU on the
+    same lanes, read in this call; a planted fault (one lane's replay
+    one step short) must break it."""
+    sim = IoVSimulator(SimConfig(method=method, engine=engine),
+                       device="cuda")
+    calls, got = [], []
+    finetune = sim.trainer.finetune
+
+    def replay(params, adapters, dataset, steps, **kw):
+        out = finetune(params, adapters, dataset, steps, **kw)
+        calls.append((adapters, steps, kw, out[0]))
+        return out
+    sim.trainer.finetune = replay
+    if sim.fused is not None:
+        run_check = sim.fused._run_check
+
+        def lanes_of(x, mid):
+            for t in range(sim.cfg.num_tasks):
+                ranks = mid["ranks"][t].cpu().numpy()
+                for v in np.where(x["active"][t])[0]:
+                    got.append(truncate_adapter_tree(tree_map(
+                        lambda a: a.select(-3, int(v)), mid["new"][t]),
+                        int(ranks[v])))
+            return run_check(x, mid)
+        sim.fused._run_check = lanes_of
+    else:
+        check = sim._check_against_serial
+
+        def lanes_of(plans, results):
+            for plan, res in zip(plans, results):
+                lanes = {i: (st, j) for st, idxs in res["groups"].values()
+                         for j, i in enumerate(idxs)}
+                for i in range(len(plan["active_ids"])):
+                    st, j = lanes[i]
+                    got.append(tree_map(lambda a: a.select(-3, j), st))
+            return check(plans, results)
+        sim._check_against_serial = lanes_of
+    sim.run_round()
+    if len(got) != len(calls) or not calls:
+        fail(f"{method} {engine}: {len(got)} lanes, {len(calls)} replays")
+    cpu = LocalTrainer(sim.model_cfg, sim.cfg.lora, lr=sim.cfg.lr,
+                       device="cpu")
+    params_cpu = tree_map(lambda t: t.cpu(), sim.params)
+    engine_spread, card_cpu = [], []
+    for (given, steps, kw, serial), lane in zip(calls, got):
+        engine_spread.append(update_spread(lane, serial, given, 1.0))
+        ref, _ = cpu.finetune(params_cpu, tree_map(lambda t: t.cpu(), given),
+                              None, steps, batches=kw["batches"],
+                              layer_mask=kw.get("layer_mask"))
+        card_cpu.append(update_spread(serial, ref, given, 1.0))
+    limit = SPREAD_FACTOR * max(card_cpu)
+    given, steps, kw, serial = next(c for c in calls if c[1] > 1)
+    short, _ = finetune(sim.params, given, None, steps - 1,
+                        batches=kw["batches"][:steps - 1],
+                        layer_mask=kw.get("layer_mask"))
+    planted = update_spread(short, serial, given, 1.0)
+    if not max(engine_spread) <= limit:
+        fail(f"{method} {engine} on the card: update spread "
+             f"{max(engine_spread)} > {limit}")
+    if not planted > limit:
+        fail(f"{method} {engine}: a replay one step short passes the "
+             f"update-spread gate ({planted} <= {limit})")
+    return {"engine_check_dev": sim.engine_check_dev, "lanes": len(calls),
+            "update_spread": max(engine_spread),
+            "serial_card_vs_cpu_spread": max(card_cpu), "limit": limit,
+            "planted_one_step_short": planted}
+
+
+def fedra_spy(box):
+    """A full_rounds hook: keep the inputs and the trained lanes of the
+    first group the batched trainer runs (FedRA: one rank-8 group per
+    task, every lane given the same tree and its own layer mask)."""
+    def hook(sim):
+        trainer = sim.batched_trainer
+        run_group = trainer._run_group
+
+        def spy(params, adapters_list, batches_list, step_counts,
+                eval_batch=None, layer_masks=None):
+            out = run_group(params, adapters_list, batches_list,
+                            step_counts, eval_batch=eval_batch,
+                            layer_masks=layer_masks)
+            if not box:
+                box.update(trainer=trainer, run_group=run_group,
+                           params=params, given=list(adapters_list),
+                           batches=batches_list, steps=list(step_counts),
+                           masks=[np.asarray(m, np.float32)
+                                  for m in layer_masks], trained=out[0])
+            return out
+        trainer._run_group = spy
+    return hook
+
+
+def masked_layers_kept(given, stacked, masks):
+    """Per lane: whether every leaf of the lane equals, bit for bit, the
+    tree the lane was given on the layers its mask leaves out."""
+    kept = []
+    for v, (tree, m) in enumerate(zip(given, masks)):
+        off = torch.as_tensor(np.asarray(m) == 0)
+        same = True
+        for path in tree_paths(tree):
+            for k in ("a", "b"):
+                g = tree_get(tree, path)[k]
+                t = tree_get(stacked, path)[k].select(-3, v)
+                same = same and torch.equal(t[off.to(t.device)],
+                                            g[off.to(g.device)])
+        kept.append(bool(same))
+    return kept
+
+
+def fedra_gate(box):
+    """Phase 5d (b), FedRA at full width on the card: after local
+    training every lane's adapter on the layers its mask leaves out is
+    bit-identical to the adapter it was given (masked gradients are
+    exactly 0, so Adam's update is exactly 0), and on every trained
+    layer it moved. A planted fault must break the gate: a copy of the
+    lanes trained without the mask on the gradients, the mask applied
+    to the adapters after the optimizer's steps instead."""
+    given, masks = box["given"], box["masks"]
+    kept = masked_layers_kept(given, box["trained"], masks)
+    moved = [not k for k in masked_layers_kept(
+        given, box["trained"], [1.0 - m for m in masks])]
+    if not (all(kept) and all(moved)):
+        fail(f"FedRA masked layers at full width: kept {kept}, trained "
+             f"layers moved {moved}")
+    fault, _ = box["run_group"](box["params"], given, box["batches"],
+                                box["steps"], layer_masks=None)
+    m = torch.as_tensor(np.stack(masks))          # (V, L)
+    fault = tree_map(lambda x: x * m.t().to(x.device).reshape(
+        m.shape[1], m.shape[0], 1, 1), fault)
+    planted = masked_layers_kept(given, fault, masks)
+    if any(planted):
+        fail(f"planted fault (mask after the optimizer step) passes the "
+             f"FedRA gate: {planted}")
+    return {"lanes": len(given), "layers": int(masks[0].shape[0]),
+            "trained_layers_per_lane": [int(x.sum()) for x in masks],
+            "steps": box["steps"], "left_out_layers_exact": kept,
+            "trained_layers_moved": moved,
+            "planted_mask_after_step_exact": planted}
+
+
+def fused_vs_batched(fused, batched):
+    """Phase 5d (b): an ablation's fused rounds against its batched
+    rounds of the same seed: active sets, ranks and departures exactly,
+    energy and latency within ENGINE_TOL relative."""
+    f, b = fused["_state"], batched["_state"]
+    n = min(len(f["recs"]), len(b["recs"]))
+    rel = {"energy": 0.0, "latency": 0.0}
+    for rnd in range(n):
+        if f["plans"][rnd] != b["plans"][rnd]:
+            fail(f"5d {fused['method']} round {rnd}: fused and batched "
+                 f"differ in active sets, ranks or departures")
+        for ft, bt in zip(f["recs"][rnd]["tasks"], b["recs"][rnd]["tasks"]):
+            for key in rel:
+                rel[key] = max(rel[key], abs(ft[key] - bt[key])
+                               / max(abs(bt[key]), 1e-12))
+    if not max(rel.values()) < ENGINE_TOL:
+        fail(f"5d {fused['method']} fused vs batched: {rel}")
+    return {"rounds": n, "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"], "tol": ENGINE_TOL}
+
+
+def phase_5d():
+    """Phase 5d: (a) card vs CPU at the reduced ViT, every method of
+    METHODS_5D under serial and batched (with batched_check on the
+    card), the ablations also under fused (fused_check on the card);
+    (b) full width: each method's batched rounds (the first profiled),
+    FedRA's masked-layer gate, the ablations' fused rounds (a capture,
+    then a replayed round) against their batched rounds. Each path is
+    driven with the counts set to 0 just before it and read just after
+    (inside method_parity, full_rounds and fused_rounds)."""
+    t0 = time.perf_counter()
+    parity, check = {}, {}
+    for m in METHODS_5D:
+        for engine in ("serial", "batched") + (
+                ("fused",) if m in ABLATIONS else ()):
+            parity[f"{m} {engine}"] = method_parity(m, engine)
+        for engine in ("batched_check",) + (
+                ("fused_check",) if m in ABLATIONS else ()):
+            check[f"{m} {engine}"] = check_round(m, engine)
+    parity_s = time.perf_counter() - t0
+    box = {}
+    batched = {m: full_rounds("batched", 1, method=m,
+                              hook=fedra_spy(box) if m == "fedra" else None)
+               for m in METHODS_5D}
+    fedra = fedra_gate(box)
+    box.clear()
+    for run in batched.values():
+        run["_state"].pop("merged")
+    torch.cuda.empty_cache()
+    fused = {m: fused_rounds(1, method=m, unprofiled=False)
+             for m in ABLATIONS}
+    agree = {m: fused_vs_batched(fused[m], batched[m]) for m in ABLATIONS}
+    for run in list(batched.values()) + list(fused.values()):
+        run.pop("_state")
+    torch.cuda.empty_cache()
+    return {"parity": parity, "engine_check_dev": check,
+            "parity_s": parity_s, "batched": batched,
+            "fedra_gate": fedra, "fused": fused, "fused_vs_batched": agree,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_5d(p5d):
+    """Phase 5d's lines."""
+    for name, p in p5d["parity"].items():
+        print(f"[5d] {name}, reduced ViT, default SimConfig, card vs CPU "
+              f"over {p['rounds']} rounds (round 1 from the CPU's state): "
+              f"ranks {p['ranks']}, active sets, fallbacks "
+              f"{p['fallbacks']} and comm_params equal; server state rel "
+              f"{', '.join(f'{x:.3g}' for x in p['state_rel_err_by_round'])}"
+              f", energy rel {p['energy_rel_err']:.3g}, latency rel "
+              f"{p['latency_rel_err']:.3g} (tol {p['tol']})"
+              + ("" if p["card_own_distribution_rel_err"] is None else
+                 f"; the card's own round-1 SVD redistribution vs the CPU's"
+                 f" {p['card_own_distribution_rel_err']:.3g} (recorded)")
+              + "; accuracy "
+              f"card {p['accuracy_card'][-1]:.4f}, CPU "
+              f"{p['accuracy_cpu'][-1]:.4f}; {p['card_ms']:.0f} ms on the "
+              f"card, {p['cpu_ms']:.0f} ms on the CPU; launches "
+              f"{p['launches']}", flush=True)
+    for name, c_ in p5d["engine_check_dev"].items():
+        print(f"[5d] {name}, one round on the card: engine_check_dev "
+              f"{c_['engine_check_dev']:.3g} (largest entry, recorded); "
+              f"update spread vs the serial replay over {c_['lanes']} lanes "
+              f"{c_['update_spread']:.3g}, limit {c_['limit']:.3g} "
+              f"({SPREAD_FACTOR}x the serial trainer's card-vs-CPU spread "
+              f"{c_['serial_card_vs_cpu_spread']:.3g}); planted fault (a "
+              f"replay one step short) {c_['planted_one_step_short']:.3g}, "
+              f"fails the gate", flush=True)
+    print(f"[5d] card vs CPU and the check rounds took "
+          f"{p5d['parity_s']:.1f} s", flush=True)
+    for m, run in p5d["batched"].items():
+        for rd in run["rounds"]:
+            print(f"[5d] {m} batched at full width, round {rd['round']}: "
+                  f"wall {rd['wall_ms']:.1f} ms (profiled), device "
+                  f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}, "
+                  f"peak memory {rd['peak_memory_bytes'] / 2**30:.2f} GiB; "
+                  f"{rd['train_steps']} group steps, {rd['evals']} evals, "
+                  f"launches {rd['launches_total']} = predicted "
+                  f"{rd['predicted_launches']}; {len(rd['groups'])} groups "
+                  f"(task, rank, lanes, steps) {rd['groups']}; mean ranks "
+                  f"{rd['ranks']}; energy {rd['energy']:.2f} J, accuracy "
+                  f"{rd['accuracy']:.4f}; port kernels: "
+                  + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                              for k, t in rd["port_kernels"].items())
+                  + "; top: " + "; ".join(
+                      f"{t['kernel'][:40]} {t['ms']:.2f} ms x{t['count']}"
+                      for t in rd["top"][:4]), flush=True)
+        up = run["unprofiled_round"]
+        print(f"[5d] {m} batched round {up['round']} without the profiler: "
+              f"wall {up['wall_ms']:.1f} ms, peak memory "
+              f"{up['peak_memory_bytes'] / 2**30:.2f} GiB, launches equal "
+              f"to its groups' prediction; {run['seconds']:.1f} s in all "
+              f"(profiler window {run['rounds'][0]['profiler_window_s']:.1f}"
+              f" s)", flush=True)
+    g = p5d["fedra_gate"]
+    print(f"[5d] FedRA at full width, task 0's group of round 0 ({g['lanes']}"
+          f" lanes, {g['layers']} layers, trained layers per lane "
+          f"{g['trained_layers_per_lane']}): left-out layers bit-identical "
+          f"to the given adapter in every lane, trained layers moved; "
+          f"planted fault (mask applied after the optimizer step): exact "
+          f"in {sum(g['planted_mask_after_step_exact'])} of {g['lanes']} "
+          f"lanes, fails the gate", flush=True)
+    for m, run in p5d["fused"].items():
+        fr = run["first_round"]
+        print(f"[5d] {m} fused at full width: round 0 (unprofiled) wall "
+              f"{fr['round_wall_ms']:.1f} ms: eager warm-up "
+              f"{fr['warm_up_ms']:.1f} ms, capture {fr['capture_ms']:.1f} ms,"
+              f" then the first replay; peak memory "
+              f"{fr['peak_memory_bytes'] / 2**30:.2f} GiB; captures "
+              f"{run['captures']}; {run['seconds']:.1f} s in all", flush=True)
+        for rd in run["rounds"]:
+            print(f"[5d] {m} fused round {rd['round']} wall "
+                  f"{rd['wall_ms']:.1f} ms (profiled, a replay), device "
+                  f"{rd['device_ms']:.1f} ms,"
+                  f" busy {rd['busy_share']:.3f}, peak memory "
+                  f"{rd['peak_memory_bytes'] / 2**30:.2f} GiB; records per "
+                  f"run {rd['launches_per_run_by_profiler']}, all simt; "
+                  f"energy {rd['energy']:.2f} J, accuracy "
+                  f"{rd['accuracy']:.4f}", flush=True)
+        a = p5d["fused_vs_batched"][m]
+        print(f"[5d] {m} fused vs batched at full width over {a['rounds']} "
+              f"rounds: ranks and active sets equal, energy rel "
+              f"{a['energy_rel_err']:.3g}, latency rel "
+              f"{a['latency_rel_err']:.3g} (tol {a['tol']})", flush=True)
+    print(f"[5d] phase 5d took {p5d['seconds']:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2053,7 +2608,7 @@ def main() -> int:
           f"tol {ROUND_TOL})", flush=True)
     fulls = {"serial": full_rounds("serial", 1),
              "batched": full_rounds("batched", 2)}
-    fused = fused_rounds(2)
+    fused = fused_rounds(1)
     g, limit = group_budgets_agree()
     agree = engines_agree(fulls["serial"], fulls["batched"], limit)
     fagree = fused_agrees(fused, fulls["batched"], fulls["serial"], limit)
@@ -2116,7 +2671,8 @@ def main() -> int:
           flush=True)
 
     fr = fused["first_round"]
-    print(f"[5c] {fused['config']}: first round: eager warm-up "
+    print(f"[5c] {fused['config']}: round 0 (unprofiled) wall "
+          f"{fr['round_wall_ms']:.1f} ms: eager warm-up "
           f"{fr['warm_up_ms']:.1f} ms, capture {fr['capture_ms']:.1f} ms "
           f"({fused['segments']} graphs; launches counted at capture "
           f"{fr['capture_launches']}, predicted "
@@ -2125,7 +2681,7 @@ def main() -> int:
           f"rounds: {fused['captures']}", flush=True)
     for rd in fused["rounds"]:
         print(f"[5c] fused round {rd['round']} wall {rd['wall_ms']:.1f} ms "
-              f"(profiled; {rd['program_runs']} run(s) of the program), "
+              f"(profiled, a replay), "
               f"device {rd['device_ms']:.1f} ms, busy "
               f"{rd['busy_share']:.3f}, peak memory "
               f"{rd['peak_memory_bytes'] / 2**30:.2f} GiB; launches per "
@@ -2160,13 +2716,19 @@ def main() -> int:
           f"{replay['planted_unrefreshed_input']:.3g}, fails the gate",
           flush=True)
 
+    p5d = phase_5d()
+    print_5d(p5d)
+
     # phase 2 at the batched round's lane shapes: V from its largest
-    # group per rank
-    lanes_by_rank = {}
-    for rd in fulls["batched"]["rounds"]:
-        for _, r, lanes, _ in rd["groups"]:
-            lanes_by_rank[r] = max(lanes_by_rank.get(r, 0), lanes)
-    lane_rows = check_lane_shapes(lanes_by_rank)
+    # group per rank, for ours and for HetLoRA (the most rank groups)
+    lane_rows = []
+    for run, label in ((fulls["batched"], ""),
+                       (p5d["batched"]["hetlora"], "hetlora ")):
+        lanes_by_rank = {}
+        for rd in run["rounds"]:
+            for _, r, lanes, _ in rd["groups"]:
+                lanes_by_rank[r] = max(lanes_by_rank.get(r, 0), lanes)
+        lane_rows += check_lane_shapes(lanes_by_rank, label)
     # and at the fused round's: the whole fleet, rank-padded
     lane_rows += check_fused_shapes(SimConfig().num_vehicles, list(
         SimConfig().lora.candidate_ranks))
@@ -2196,6 +2758,14 @@ def main() -> int:
         "vit-tiny-paper fused round (5c)": par5["fused"]["launches"],
         "vit-base-paper 3 fused rounds, warm-up and capture (5c)":
             fused["launches"]}
+    for name, p in p5d["parity"].items():
+        round_paths[f"vit-tiny-paper {name} 2 rounds (5d)"] = p["launches"]
+    for m, run in p5d["batched"].items():
+        round_paths[f"vit-base-paper {m} profiled batched round (5d)"] = \
+            run["launches"]
+    for m, run in p5d["fused"].items():
+        round_paths[f"vit-base-paper {m} 2 fused rounds, warm-up and "
+                    f"capture (5d)"] = run["launches"]
     # each phase-2 row's launches in each round: vit-base-paper's in the
     # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
     # round 0), by engine
@@ -2207,7 +2777,9 @@ def main() -> int:
             ("vit-tiny-paper", "batched",
              [dict(par5["batched"], round=0)]),
             ("vit-base-paper", "fused",
-             [dict(fr, round="each")])):
+             [dict(fr, round="each")])) + tuple(
+            ("vit-base-paper", f"{m} batched", run["rounds"])
+            for m, run in p5d["batched"].items()):
         for rd in rounds:
             for name in ("lora_matmul", "flash_attention"):
                 for k, v in rd[f"{name}_by_shape"].items():
@@ -2225,7 +2797,9 @@ def main() -> int:
                   f"{k} {v}" for k, v in r["launches_by_round"].items())
                   or "none") for r in train_rows), flush=True)
     rows += train_rows
-    round_runs = list(par5.values()) + list(fulls.values()) + [fused]
+    round_runs = (list(par5.values()) + list(fulls.values()) + [fused]
+                  + list(p5d["batched"].values())
+                  + list(p5d["fused"].values()))
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
@@ -2286,7 +2860,7 @@ def main() -> int:
                    "full_rounds": fulls, "fused_rounds": fused,
                    "fused_agreement": fagree, "fused_replay": replay,
                    "full_batched_vs_serial": agree,
-                   "full_group_budgets": g}, fh, indent=1)
+                   "full_group_budgets": g, "methods": p5d}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -8,14 +8,18 @@ r_v. The server keeps the global adapter as merged deltas Δθ
 The batched engine's groups arrive stacked on the lane axis
 ((L, V, d_in, r), see ``federated/batched_client.py``); the fused
 engine's whole fleet too, every adapter zero-padded to max_rank (the
-rank-padded functions at the end). The segmented aggregator, the RSU
-partials, the upload buffer, HetLoRA's and FedRA's aggregators wait for
-later slices of the port.
+rank-padded functions at the end). The baselines' reductions (HomoLoRA's
+mean, HetLoRA's zero-padding average and self-pruning, FedRA's layer
+masks and per-layer average) are plain tensor code, as the reference's
+are plain ``jnp``: no Pallas kernel there, none here. The segmented
+aggregator, the RSU partials and the upload buffer wait for a later
+slice of the port.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import lora as lora_lib
@@ -174,13 +178,191 @@ def redistribute(merged: Any, rank: int, scale: float, max_rank: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# HetLoRA (Cho et al., 2024): zero-padding aggregation + self-pruning
+# ---------------------------------------------------------------------------
+
+def aggregate_hetlora(client_adapters: Sequence[Any],
+                      weights: Sequence[float], max_rank: int) -> Any:
+    """Zero-pad every client's (a, b) to max_rank and average factor-wise
+    (the baseline's cross-terms included). Returns an adapter tree at
+    max_rank."""
+    first = tree_get(client_adapters[0], tree_paths(client_adapters[0])[0])
+    w = torch.tensor(list(weights), dtype=torch.float32)
+    w = (w / torch.clamp(torch.sum(w), min=1e-12)).to(first["a"].device)
+    out = client_adapters[0]
+    for path in tree_paths(out):
+        acc_a = acc_b = None
+        for ci, tree in enumerate(client_adapters):
+            a, b = _pad_rank(tree_get(tree, path), max_rank)
+            a, b = a * w[ci], b * w[ci]
+            acc_a = a if acc_a is None else acc_a + a
+            acc_b = b if acc_b is None else acc_b + b
+        out = tree_set(out, path, {"a": acc_a, "b": acc_b})
+    return out
+
+
 def hetlora_truncate(adapters: Any, rank: int) -> Any:
-    """Slice a max-rank adapter tree down to ``rank``."""
+    """Slice a max-rank adapter tree down to ``rank`` (HetLoRA's
+    distribution rule)."""
     out = adapters
     for path in tree_paths(adapters):
         ad = tree_get(out, path)
         out = tree_set(out, path, {"a": ad["a"][..., :rank],
                                    "b": ad["b"][..., :rank, :]})
+    return out
+
+
+def hetlora_prune_rank(adapters: Any, gamma: float = 0.99) -> int:
+    """Gradient-free self-pruning: the smallest r that keeps ``gamma`` of
+    the squared Frobenius mass of the stacked factor columns."""
+    norms = None
+    for path in tree_paths(adapters):
+        ad = tree_get(adapters, path)
+        a, b = ad["a"].float(), ad["b"].float()
+        col = torch.sum(torch.square(a), dim=tuple(range(a.dim() - 1)))
+        col = col + torch.sum(torch.square(b), dim=tuple(
+            i for i in range(b.dim()) if i != b.dim() - 2))
+        norms = col if norms is None else norms + col
+    c = torch.cumsum(norms, 0) / torch.clamp(torch.sum(norms), min=1e-12)
+    return int(torch.searchsorted(c, torch.tensor(gamma, dtype=c.dtype,
+                                                   device=c.device))) + 1
+
+
+# ---------------------------------------------------------------------------
+# FedRA (Su et al., 2024): random layer allocation
+# ---------------------------------------------------------------------------
+
+def fedra_layer_mask(num_layers: int, fraction: float, *,
+                     perm: Optional[Any] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """(L,) f32 mask on the CPU of the layers a client trains this round:
+    the first round(fraction·L) (at least 1) of ``perm``, a permutation
+    of the layers (default: ``torch.randperm`` from ``generator``)."""
+    n_active = max(1, int(round(fraction * num_layers)))
+    if perm is None:
+        perm = torch.randperm(num_layers, generator=generator)
+    idx = torch.tensor(np.asarray(perm), dtype=torch.int64).reshape(-1)[
+        :n_active]
+    mask = torch.zeros((num_layers,), dtype=torch.float32)
+    mask[idx] = 1.0
+    return mask
+
+
+def apply_layer_mask(adapter_updates: Any, base_adapters: Any,
+                     mask: Any) -> Any:
+    """Keep the updates on the active layers (each leaf's leading layer
+    axis) and the base elsewhere."""
+    mask = torch.as_tensor(mask, dtype=torch.float32)
+
+    def mix(new, old):
+        m = mask.to(new.device).reshape((-1,) + (1,) * (new.dim() - 1))
+        return new * m + old * (1 - m)
+    return tree_map(mix, adapter_updates, base_adapters)
+
+
+def aggregate_fedra(client_adapters: Sequence[Any], weights: Sequence[float],
+                    masks: Sequence[Any]) -> Any:
+    """Per-layer weighted average over the clients that trained that
+    layer. masks: one (L,) multiplier vector per client."""
+    first = tree_get(client_adapters[0], tree_paths(client_adapters[0])[0])
+    dev = first["a"].device
+    w = torch.tensor(list(weights), dtype=torch.float32).to(dev)
+    ms = [torch.as_tensor(m, dtype=torch.float32).to(dev) for m in masks]
+    out = client_adapters[0]
+    for path in tree_paths(out):
+        num_a = num_b = den = None
+        for ci, tree in enumerate(client_adapters):
+            ad = tree_get(tree, path)
+            mm = ms[ci].reshape((-1,) + (1,) * (ad["a"].dim() - 1))
+            wa = ad["a"].float() * mm * w[ci]
+            wb = ad["b"].float() * mm * w[ci]
+            d = ms[ci] * w[ci]
+            num_a = wa if num_a is None else num_a + wa
+            num_b = wb if num_b is None else num_b + wb
+            den = d if den is None else den + d
+        den = torch.clamp(den, min=1e-12)
+        da = den.reshape((-1,) + (1,) * (num_a.dim() - 1))
+        out = tree_set(out, path, {"a": num_a / da, "b": num_b / da})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The baselines' stacked reductions (lanes third from the end, as above)
+# ---------------------------------------------------------------------------
+
+def _lanes_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(V,) lane weights shaped to multiply a stacked leaf x (..., V, m,
+    n), on x's device."""
+    return w.to(x.device).reshape(-1, 1, 1)
+
+
+def average_stacked_grouped(groups: Sequence[Tuple[Any, Any]]) -> Any:
+    """Data-weighted mean of stacked adapter trees (HomoLoRA's rule):
+    every client holds one rank, so the mean is one lane sum per leaf."""
+    if not groups:
+        raise ValueError("average_stacked_grouped needs a group")
+    wsum = _group_weight_norm(groups)
+    acc = None
+    for stacked, w in groups:
+        wn = _wvec(w) / wsum
+        part = tree_map(lambda x: torch.sum(
+            x.float() * _lanes_w(wn, x), dim=-3), stacked)
+        acc = part if acc is None else tree_map(torch.add, acc, part)
+    return acc
+
+
+def _pad_rank(ad: Dict[str, torch.Tensor], max_rank: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) in f32 with the rank zero-padded to ``max_rank``."""
+    r = ad["a"].shape[-1]
+    pad = torch.nn.functional.pad
+    return (pad(ad["a"].float(), (0, max_rank - r)),
+            pad(ad["b"].float(), (0, 0, 0, max_rank - r)))
+
+
+def aggregate_hetlora_grouped(groups: Sequence[Tuple[Any, Any]],
+                              max_rank: int) -> Any:
+    """HetLoRA's zero-padding aggregation over stacked per-rank groups,
+    equal to :func:`aggregate_hetlora` over the concatenated clients."""
+    if not groups:
+        raise ValueError("aggregate_hetlora_grouped needs a group")
+    wsum = _group_weight_norm(groups)
+    out = _skeleton(groups[0][0])
+    for path in tree_paths(out):
+        acc_a = acc_b = None
+        for stacked, w in groups:
+            a, b = _pad_rank(tree_get(stacked, path), max_rank)
+            wn = _wvec(w) / wsum
+            a = torch.sum(a * _lanes_w(wn, a), dim=-3)
+            b = torch.sum(b * _lanes_w(wn, b), dim=-3)
+            acc_a = a if acc_a is None else acc_a + a
+            acc_b = b if acc_b is None else acc_b + b
+        out = tree_set(out, path, {"a": acc_a, "b": acc_b})
+    return out
+
+
+def aggregate_fedra_stacked(stacked: Any, weights: Any, masks: Any) -> Any:
+    """FedRA's per-layer weighted average over the lanes, equal to
+    :func:`aggregate_fedra` over the per-client list.
+
+    stacked: adapter tree with lanes third from the end ((L, V, d, r));
+    weights: (V,); masks: (V, L) layer multipliers, the reference's
+    layout."""
+    w = _wvec(weights)
+    m = torch.as_tensor(masks, dtype=torch.float32).cpu()
+    den = torch.clamp(torch.sum(m * w[:, None], dim=0), min=1e-12)  # (L,)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        dev = ad["a"].device
+        mw = (m * w[:, None]).t().to(dev)                          # (L, V)
+        mw = mw.reshape(mw.shape + (1,) * (ad["a"].dim() - 2))
+        d = den.to(dev).reshape((-1,) + (1,) * (ad["a"].dim() - 2))
+        out = tree_set(out, path, {
+            "a": torch.sum(ad["a"].float() * mw, dim=-3) / d,
+            "b": torch.sum(ad["b"].float() * mw, dim=-3) / d})
     return out
 
 

@@ -1,7 +1,6 @@
 """Baseline method descriptors (paper §V-A), port of
-``repro/federated/baselines.py`` (the descriptors only; the port's
-simulator runs ``ours`` alone, and the baselines' rank rules and server
-rules come with ROADMAP Queue 1, item 6).
+``repro/federated/baselines.py``: the descriptors, HetLoRA's capability
+ranks and the map from a method to its server rule.
 
 - HomoLoRA [25]: fixed uniform rank + FedAvg on factors.
 - HetLoRA [27]: capability-based heterogeneous ranks, zero-padding
@@ -13,7 +12,9 @@ rules come with ROADMAP Queue 1, item 6).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -48,3 +49,24 @@ METHODS = {
     "ours_residual": MethodSpec("ours_residual", adaptive_rank=True,
                                 energy_scheduler=True, mobility_aware=True),
 }
+
+
+def capability_ranks(candidates: Sequence[int], freqs: np.ndarray
+                     ) -> np.ndarray:
+    """HetLoRA: rank ∝ device capability (compute frequency quantiles)."""
+    qs = np.argsort(np.argsort(freqs)) / max(len(freqs) - 1, 1)
+    idx = np.clip((qs * len(candidates)).astype(int), 0,
+                  len(candidates) - 1)
+    return np.asarray(candidates)[idx]
+
+
+def server_method(name: str) -> str:
+    """Which RSUServer aggregation a method uses."""
+    return {"ours": "ours", "ours_no_energy": "ours",
+            "ours_no_mobility": "ours", "ours_residual": "ours",
+            "homolora": "homolora", "hetlora": "hetlora",
+            "fedra": "fedra"}[name]
+
+
+def is_residual(name: str) -> bool:
+    return name == "ours_residual"

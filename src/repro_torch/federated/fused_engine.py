@@ -43,10 +43,16 @@ for :meth:`FusedRoundEngine.run_scanned`: a task whose first covered
 round keeps no upload trains from zero adapters next round (the serial
 engine redraws); per-round execution stages on demand and stays exact.
 
+The ablations are static branches of the program, as in the
+reference: without ``mobility_aware`` (``ours_no_mobility``) a departing
+vehicle's upload is lost and no §IV-E fallback is taken; without
+``energy_scheduler`` (``ours_no_energy``) the allocator keeps its
+budgets and only its round advances. Each method captures its own
+graphs.
+
 Not ported (raise ``NotImplementedError``): non-trivial RSU tiers and
 semi-sync participation (ROADMAP Queue 1, item 6), the sharded fleet
-(item 12). The ablations ``ours_no_energy`` / ``ours_no_mobility`` are
-refused by the simulator (item 6).
+(item 12).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from repro_torch.core import energy_alloc
 from repro_torch.core import lora as lora_lib
 from repro_torch.core import mobility as mob
 from repro_torch.core import ucb_dual
+from repro_torch.federated.baselines import METHODS
 from repro_torch.federated.batched_client import LANE_AXIS, draw_batches
 from repro_torch.interop import tree_map
 from repro_torch.models import transformer as T
@@ -137,6 +144,7 @@ class FusedRoundEngine:
                 f"participation only ({TIER_ITEM})")
         self.sim = sim
         self.cfg = cfg
+        self.spec = METHODS[cfg.method]
         self.check = bool(check)
         self.device = sim.device
         if capture is None:
@@ -460,22 +468,29 @@ class FusedRoundEngine:
                 rate_down=x["rate_down"][t], rate_up=x["rate_up"][t],
                 num_samples=torch.where(dep, self.ns[1], self.ns[0]),
                 g=self.g_arm[arm_c])
-            # 5. §IV-E fallbacks for predicted departures
-            q_star = mcfg.accuracy_threshold
-            c0 = ucb_cfg.gamma * torch.clamp(q_star - local_acc, min=0.0)
-            c1 = torch.where(x["peer"][t] > 0, torch.full_like(
-                c0, ucb_cfg.alpha * mcfg.migration_latency
-                + mcfg.beta * mcfg.migration_energy),
-                torch.full_like(c0, float("inf")))
-            c2 = mcfg.beta * costs["e_comp"] + ucb_cfg.gamma * q_star
-            strat = torch.argmin(torch.stack([c0, c1, c2], dim=-1), dim=-1)
-            migrate = dep & (strat == mob.MIGRATE)
-            abandon = dep & (strat == mob.ABANDON)
-            extra_e = torch.where(migrate, mcfg.migration_energy, 0.0)
-            extra_tau = torch.where(migrate, mcfg.migration_latency, 0.0)
-            contribute = act & ~abandon
-            fb = torch.sum((act & dep)[:, None] * torch.nn.functional.one_hot(
-                strat, 3), dim=0)
+            # 5. §IV-E fallbacks for predicted departures; without them a
+            #    departure loses the upload
+            if self.spec.mobility_aware:
+                q_star = mcfg.accuracy_threshold
+                c0 = ucb_cfg.gamma * torch.clamp(q_star - local_acc, min=0.0)
+                c1 = torch.where(x["peer"][t] > 0, torch.full_like(
+                    c0, ucb_cfg.alpha * mcfg.migration_latency
+                    + mcfg.beta * mcfg.migration_energy),
+                    torch.full_like(c0, float("inf")))
+                c2 = mcfg.beta * costs["e_comp"] + ucb_cfg.gamma * q_star
+                strat = torch.argmin(torch.stack([c0, c1, c2], dim=-1),
+                                     dim=-1)
+                migrate = dep & (strat == mob.MIGRATE)
+                abandon = dep & (strat == mob.ABANDON)
+                extra_e = torch.where(migrate, mcfg.migration_energy, 0.0)
+                extra_tau = torch.where(migrate, mcfg.migration_latency, 0.0)
+                contribute = act & ~abandon
+                fb = torch.sum((act & dep)[:, None]
+                               * torch.nn.functional.one_hot(strat, 3), dim=0)
+            else:
+                contribute = act & ~dep
+                extra_e = extra_tau = torch.zeros_like(local_acc)
+                fb = torch.zeros(3, dtype=torch.int64, device=act.device)
             e_v = costs["energy"] + extra_e
             tau_v = costs["latency"] + extra_tau
             per_v_energy = torch.where(act, e_v, 0.0)
@@ -554,14 +569,17 @@ class FusedRoundEngine:
                 c[k][t].copy_(getattr(s, k))
             c["lam"][t].copy_(s.lam)
             c["ucb_round"][t].copy_(s.round)
-        alloc = energy_alloc.step_scan(
-            energy_alloc.AllocState(budgets=c["budgets"],
-                                    difficulty=c["difficulty"],
-                                    round=c["alloc_round"]),
-            cfg.energy, torch.stack(mid["e_t"]), torch.stack(accs))
-        c["budgets"].copy_(alloc.budgets)
-        c["difficulty"].copy_(alloc.difficulty)
-        c["alloc_round"].copy_(alloc.round)
+        if self.spec.energy_scheduler:
+            alloc = energy_alloc.step_scan(
+                energy_alloc.AllocState(budgets=c["budgets"],
+                                        difficulty=c["difficulty"],
+                                        round=c["alloc_round"]),
+                cfg.energy, torch.stack(mid["e_t"]), torch.stack(accs))
+            c["budgets"].copy_(alloc.budgets)
+            c["difficulty"].copy_(alloc.difficulty)
+            c["alloc_round"].copy_(alloc.round)
+        else:   # the budgets stay; only the allocator's round advances
+            c["alloc_round"].add_(1)
         self.out.copy_(torch.cat(
             [torch.stack(rows).reshape(-1)]
             + [c[k].double().reshape(-1) for k in STATE]))

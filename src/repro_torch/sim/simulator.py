@@ -4,11 +4,18 @@
 Per communication round:
   1. vehicle mobility (trajectory step, RSU coverage, departure prediction),
   2. inter-task energy budgets (Algorithm 1),
-  3. intra-task rank selection (UCB-DUAL),
+  3. intra-task rank selection (UCB-DUAL; or the baselines' fixed rules),
   4. distribution → local LoRA fine-tuning of the task model → upload →
-     merged-delta aggregation and truncated-SVD redistribution,
+     aggregation by the method's rule (ours: merged deltas and
+     truncated-SVD redistribution; HomoLoRA, HetLoRA, FedRA),
   5. §III-C four-stage cost accounting over the Shannon channel,
   6. §IV-E mobility fallbacks for predicted departures.
+
+Every method of ``METHODS`` runs: the paper's (``ours``), the baselines
+of its Table I (``homolora``, ``hetlora``, ``fedra``), the ablations of
+its Table III (``ours_no_energy``, ``ours_no_mobility``) and
+``ours_residual``; the fused engines take the ``ours`` family that
+``fused_engine.FUSED_METHODS`` names, as in the reference.
 
 Training runs on ``device`` (``cuda`` by default; ``cpu`` when asked):
 every LoRA-targeted linear of the model launches ``lora_matmul`` and
@@ -31,9 +38,8 @@ and channel bit for bit.
 
 What the port does not run yet raises (ROADMAP Queue 1): the sharded
 fused engine (item 12), checkpoints and the checkpoint-chunked
-``run_scanned`` (item 9), trace replay (item 10), every method but
-``ours`` (the baselines, the ablations and residual aggregation),
-multi-RSU tiers and semi-sync participation (item 6).
+``run_scanned`` (item 9), trace replay (item 10), multi-RSU tiers and
+semi-sync participation (item 6).
 """
 from __future__ import annotations
 
@@ -54,7 +60,8 @@ from repro_torch.core import energy_alloc, mobility as mob
 from repro_torch.core import ucb_dual
 from repro_torch.data import (ClientDataset, DEFAULT_TASKS,
                               dirichlet_partition, make_task)
-from repro_torch.federated.baselines import METHODS
+from repro_torch.federated.baselines import (METHODS, capability_ranks,
+                                             is_residual, server_method)
 from repro_torch.federated.batched_client import (BatchedLocalTrainer,
                                                   draw_batches, take_lanes)
 from repro_torch.federated.client import LocalTrainer
@@ -111,16 +118,19 @@ class IoVSimulator:
     def __init__(self, cfg: SimConfig, device="cuda", *,
                  params: Optional[Dict] = None,
                  server_draws: Optional[Sequence[Callable[[], Any]]] = None,
-                 draw_omega: Optional[Callable] = None):
+                 draw_omega: Optional[Callable] = None,
+                 mask_draws: Optional[Sequence[Callable[[], Any]]] = None):
         """device: where the model trains (``cuda`` unless asked; no card
         raises). params: the frozen base (any device; default: seeded
         random weights drawn on the CPU). server_draws: per task, the
-        fresh-adapter draw of its RSUServer; draw_omega: the SVD sketch of
-        every server (see :class:`RSUServer`)."""
+        fresh-adapter draw of its RSUServer; mask_draws: per task, its
+        FedRA layer-mask draw; draw_omega: the SVD sketch of every server
+        (see :class:`RSUServer`)."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.engine = self._resolve_engine(cfg)
         self._check_ported(cfg)
+        self.spec = METHODS[cfg.method]
+        self.engine = self._resolve_engine(cfg)
         rng = np.random.default_rng(cfg.seed)
         self.rng = rng
 
@@ -201,19 +211,26 @@ class IoVSimulator:
         self.mobility = MobilityModel(ms, all_rsus)
         self.channel = ChannelModel(cfg.channel, seed=cfg.seed + 3)
         draws = server_draws or [None] * cfg.num_tasks
-        self.servers = [RSUServer(self.model_cfg, cfg.lora, cfg.method,
+        masks = mask_draws or [None] * cfg.num_tasks
+        self.servers = [RSUServer(self.model_cfg, cfg.lora,
+                                  server_method(cfg.method),
                                   seed=cfg.seed + 7 * t,
+                                  residual=is_residual(cfg.method),
                                   tier=cfg.rsu_tier,
                                   participation=cfg.participation,
                                   device=self.device,
                                   draw_adapters=draws[t],
-                                  draw_omega=draw_omega)
+                                  draw_omega=draw_omega,
+                                  draw_layer_mask=masks[t])
                         for t in range(cfg.num_tasks)]
         K = len(cfg.lora.candidate_ranks)
         self.ucb_states = [ucb_dual.init_state(cfg.num_vehicles, K)
                            for _ in range(cfg.num_tasks)]
         self.alloc = energy_alloc.init_alloc(cfg.energy, cfg.num_tasks)
         self.history: List[Dict[str, Any]] = []
+        self._het_ranks = capability_ranks(
+            cfg.lora.candidate_ranks,
+            np.array([p.freq for p in self.dev_profiles]))
 
         # --- fused engine (the round as one program; see fused_engine) ---
         self.fused = None
@@ -246,10 +263,6 @@ class IoVSimulator:
         if cfg.method not in METHODS:
             raise KeyError(f"unknown method {cfg.method!r}; have "
                            f"{sorted(METHODS)}")
-        if cfg.method != "ours":
-            raise NotImplementedError(
-                f"the port runs method 'ours' only, not {cfg.method!r} "
-                "(ROADMAP Queue 1, item 6)")
         if not cfg.shard.trivial:
             raise NotImplementedError(
                 f"SimConfig.shard={cfg.shard} needs the sharded fused "
@@ -260,11 +273,19 @@ class IoVSimulator:
 
     # ------------------------------------------------------------------
     def _select_ranks(self, ti: int, active: np.ndarray):
-        cand = np.asarray(self.cfg.lora.candidate_ranks)
-        arms = ucb_dual.select_ranks(self.ucb_states[ti], self.cfg.ucb,
-                                     torch.as_tensor(active)).numpy()
-        ranks = np.where(arms >= 0, cand[np.clip(arms, 0, None)], -1)
-        return ranks, arms
+        """(ranks (V,), -1 where inactive; UCB-DUAL's arms, or None for
+        the baselines' fixed ranks)."""
+        cfg = self.cfg
+        if self.spec.adaptive_rank:
+            cand = np.asarray(cfg.lora.candidate_ranks)
+            arms = ucb_dual.select_ranks(self.ucb_states[ti], cfg.ucb,
+                                         torch.as_tensor(active)).numpy()
+            ranks = np.where(arms >= 0, cand[np.clip(arms, 0, None)], -1)
+            return ranks, arms
+        if cfg.method == "hetlora":
+            return np.where(active, self._het_ranks, -1), None
+        # homolora / fedra: one uniform rank
+        return np.where(active, cfg.lora.rank, -1), None
 
     # ------------------------------------------------------------------
     def run_round(self) -> Dict[str, Any]:
@@ -290,9 +311,10 @@ class IoVSimulator:
             accuracies[ti] = trec["accuracy"]
             rec["tasks"].append(trec)
 
-        self.alloc, _ = energy_alloc.step(
-            self.alloc, cfg.energy, torch.as_tensor(consumed),
-            torch.as_tensor(accuracies))
+        if self.spec.energy_scheduler:
+            self.alloc, _ = energy_alloc.step(
+                self.alloc, cfg.energy, torch.as_tensor(consumed),
+                torch.as_tensor(accuracies))
         rec["budgets"] = budgets.tolist()
         rec["reward"] = float(sum(t["reward"] for t in rec["tasks"]))
         rec["energy"] = float(consumed.sum())
@@ -313,6 +335,8 @@ class IoVSimulator:
         departing = view["departing"]
         adapters_list = self.servers[ti].distribute(
             [int(ranks[v]) for v in active_ids])
+        fedra_masks = (self.servers[ti].masks if cfg.method == "fedra"
+                       else [None] * len(active_ids))
         # §IV-E: departing vehicles fine-tune a reduced number of steps
         steps_list, frac_list = [], []
         for v in active_ids:
@@ -326,6 +350,7 @@ class IoVSimulator:
         return {"ti": ti, "rsu": self.rsus[ti], "active_ids": active_ids,
                 "ranks": ranks, "arms": arms, "departing": departing,
                 "staying": view["staying"], "adapters_list": adapters_list,
+                "fedra_masks": fedra_masks,
                 "steps_list": steps_list, "frac_list": frac_list,
                 "distances": view["distances"], "assoc": view["assoc"],
                 "handoff": view["handoff"]}
@@ -340,7 +365,8 @@ class IoVSimulator:
             ad, metrics = self.trainer.finetune(
                 self.params, plan["adapters_list"][i],
                 self.client_data[ti][v], plan["steps_list"][i],
-                eval_batch=self.local_eval[ti])
+                eval_batch=self.local_eval[ti],
+                layer_mask=plan["fedra_masks"][i])
             ads.append(ad)
             accs.append(metrics.get("eval_accuracy",
                                     metrics.get("accuracy", 0.0)))
@@ -388,7 +414,8 @@ class IoVSimulator:
                                       for i in idxs],
                     "batches_list": [plan["batches"][i] for i in idxs],
                     "step_counts": [plan["steps_list"][i] for i in idxs],
-                    "eval_batch": self.local_eval[ti]})
+                    "eval_batch": self.local_eval[ti],
+                    "layer_masks": [plan["fedra_masks"][i] for i in idxs]})
                 slots.append((pi, r, idxs))
         outs = self.batched_trainer.run_jobs(self.params, jobs)
         for (pi, r, idxs), (stacked, marr) in zip(slots, outs):
@@ -417,7 +444,7 @@ class IoVSimulator:
                 ref_ad, _ = self.trainer.finetune(
                     self.params, plan["adapters_list"][i], None, steps,
                     eval_batch=self.local_eval[plan["ti"]],
-                    batches=per_step)
+                    layer_mask=plan["fedra_masks"][i], batches=per_step)
                 stacked, j = lanes[i]
                 for a, b in zip(leaves(stacked), leaves(ref_ad)):
                     dev = max(dev, float(torch.max(torch.abs(
@@ -444,6 +471,7 @@ class IoVSimulator:
 
         kept_idx: List[int] = []        # positions within the active list
         kept_weights: List[float] = []
+        kept_masks: List[Any] = []      # FedRA
         per_v_reward = np.zeros(cfg.num_vehicles, np.float32)
         per_v_energy = np.zeros(cfg.num_vehicles, np.float32)
         costs_list: List[cm.RoundCosts] = []
@@ -458,6 +486,11 @@ class IoVSimulator:
             payload = cm.adapter_payload_params(self.cost_dims, rank)
             g = self.g_cache.get(rank, cm.g_factor(self.cost_cfg, cfg.lora,
                                                    rank))
+            if cfg.method == "fedra":
+                # FedRA clients train (and upload) only their layer subset
+                fr = server.fedra_fraction
+                payload = int(payload * fr)
+                g = g * (0.4 + 0.6 * fr)
             costs = cm.vehicle_round_costs(
                 self.dev_profiles[v], self.rsu_profile, rank=rank,
                 payload_params=payload,
@@ -471,7 +504,7 @@ class IoVSimulator:
             contribute = True
             extra_energy = 0.0
             extra_latency = 0.0
-            if dep:
+            if dep and self.spec.mobility_aware:
                 peer = self.mobility.nearby_peer(rsu, v, staying)
                 dec = mob.decide_fallback(
                     cfg.mobility, cfg.ucb, local_accuracy=local_acc,
@@ -483,6 +516,8 @@ class IoVSimulator:
                 elif dec.strategy == mob.MIGRATE:
                     extra_energy += cfg.mobility.migration_energy
                     extra_latency += cfg.mobility.migration_latency
+            elif dep:   # without §IV-E a departure loses the upload
+                contribute = False
 
             tau = costs.latency + extra_latency
             per_v_energy[v] = costs.energy + extra_energy
@@ -492,10 +527,12 @@ class IoVSimulator:
                 comm_params += payload
                 kept_idx.append(i)
                 kept_weights.append(float(len(self.client_data[ti][v])))
+                if plan["fedra_masks"][i] is not None:
+                    kept_masks.append(plan["fedra_masks"][i])
 
         agg_costs = cm.rsu_agg_costs(self.rsu_profile, len(kept_idx))
         summary = cm.task_round_summary(costs_list, agg_costs)
-        self._aggregate_task(server, tr, kept_idx, kept_weights)
+        self._aggregate_task(server, tr, kept_idx, kept_weights, kept_masks)
 
         # global accuracy on the held-out task eval set
         gad = server.eval_adapters()
@@ -506,11 +543,14 @@ class IoVSimulator:
             acc = 0.0
 
         # UCB-DUAL update with the task's current budget
-        self.ucb_states[ti], info = ucb_dual.update(
-            self.ucb_states[ti], cfg.ucb, torch.as_tensor(arms),
-            torch.as_tensor(per_v_reward), torch.as_tensor(per_v_energy),
-            torch.tensor(budget, dtype=torch.float32))
-        lam = float(info["lambda"])
+        if self.spec.adaptive_rank:
+            self.ucb_states[ti], info = ucb_dual.update(
+                self.ucb_states[ti], cfg.ucb, torch.as_tensor(arms),
+                torch.as_tensor(per_v_reward), torch.as_tensor(per_v_energy),
+                torch.tensor(budget, dtype=torch.float32))
+            lam = float(info["lambda"])
+        else:
+            lam = 0.0
 
         tau_t = summary["latency"]
         e_t = float(per_v_energy.sum()) + agg_costs[1]
@@ -531,26 +571,33 @@ class IoVSimulator:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _aggregate_task(server, tr, kept_idx, kept_weights) -> None:
+    def _aggregate_task(server, tr, kept_idx, kept_weights, kept_masks
+                        ) -> None:
         """Upload and aggregation: the serial engine's per-client list,
         or the batched engine's stacked rank groups (one lane gather per
-        group)."""
+        group), with FedRA's layer masks and each client's position in
+        the distributed list (residual aggregation)."""
         if tr["groups"] is None or not kept_idx:
             server.aggregate([tr["ads_list"][i] for i in kept_idx],
-                             kept_weights or [1.0])
+                             kept_weights or [1.0],
+                             masks=kept_masks or None, indices=kept_idx)
             return
         w_of = dict(zip(kept_idx, kept_weights))
+        mask_of = dict(zip(kept_idx, kept_masks))
         gspecs = []
         for r in sorted(tr["groups"]):
             stacked, idxs = tr["groups"][r]
             lanes = [j for j, i in enumerate(idxs) if i in w_of]
             if not lanes:
                 continue
+            gi = [idxs[j] for j in lanes]
             gspecs.append({
                 "adapters": (stacked if len(lanes) == len(idxs)
                              else take_lanes(stacked, lanes)),
-                "weights": np.asarray([w_of[idxs[j]] for j in lanes],
-                                      np.float32)})
+                "weights": np.asarray([w_of[i] for i in gi], np.float32),
+                "masks": (np.stack([np.asarray(mask_of[i], np.float32)
+                                    for i in gi]) if mask_of else None),
+                "indices": gi})
         server.aggregate_grouped(gspecs)
 
     # ------------------------------------------------------------------

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro.configs import vit_base_paper as jvit
+from repro.core import aggregation as jagg
 from repro.models import transformer as JT
 from repro.sim.simulator import IoVSimulator as JSimulator
 from repro.sim.simulator import SimConfig as JSimConfig
@@ -101,8 +102,26 @@ def _recording_fused(sim, plans):
     sim.run_round = rr
 
 
+def _keep_round_states(sim):
+    """Wrap run_round to keep the servers' state as each round finds it
+    (``ours``: merged deltas; the baselines: global adapters) in
+    ``sim.round_states``."""
+    sim.round_states = []
+    run_round = sim.run_round
+
+    def rr():
+        sim.round_states.append([
+            s.merged if s.method == "ours" else s.global_adapters
+            for s in sim.servers])
+        return run_round()
+    sim.run_round = rr
+
+
 def _server_draw(seed, cfg, lora):
-    """The reference server's fresh-adapter stream (server.py _fresh)."""
+    """The reference server's two draws from its one key: the fresh
+    adapters (server.py _fresh) and FedRA's layer masks (distribute),
+    closed over one key cell, so that the splits come in the reference's
+    order whichever draw the server asks for."""
     key = [jax.random.PRNGKey(seed)]
 
     def draw():
@@ -110,7 +129,11 @@ def _server_draw(seed, cfg, lora):
         return interop.adapters_from_jax(
             _np(JT.init_adapters(k, cfg, lora, rank=lora.max_rank)),
             device="cpu")
-    return draw
+
+    def draw_mask():
+        key[0], k = jax.random.split(key[0])
+        return np.asarray(jagg.fedra_layer_mask(k, cfg.num_layers, 0.6))
+    return draw, draw_mask
 
 
 def _omega_ref():
@@ -125,27 +148,43 @@ def _omega_ref():
     return draw
 
 
-def _port_run(jsim, omega, **change):
-    """The port's run of KW (with ``change``) on the reference's draws."""
+def _port_sim(jsim, omega, **change):
+    """The port's simulator of KW (with ``change``) on the reference's
+    draws, recording its plans."""
     jcfg, jlora = jvit.reduced(), jsim.cfg.lora
+    draws = [_server_draw(7 * t, jcfg, jlora)
+             for t in range(KW["num_tasks"])]
     sim = IoVSimulator(
         SimConfig(**dict(KW, **change)), device="cpu",
         params=interop.params_from_jax(_np(jsim.params), device="cpu"),
-        server_draws=[_server_draw(7 * t, jcfg, jlora)
-                      for t in range(KW["num_tasks"])],
-        draw_omega=omega)
+        server_draws=[d for d, _ in draws],
+        mask_draws=[m for _, m in draws], draw_omega=omega)
     plans = []
     _recording(sim, plans)
+    _keep_round_states(sim)
+    return sim, plans
+
+
+def _port_run(jsim, omega, **change):
+    """The port's run of KW (with ``change``) on the reference's draws."""
+    sim, plans = _port_sim(jsim, omega, **change)
     return sim, sim.run(ROUNDS), plans
+
+
+def _reference_run(method="ours"):
+    """The reference's serial run of KW under ``method``: (sim, history,
+    plans)."""
+    jsim = JSimulator(JSimConfig(**dict(KW, method=method)))
+    jplans = []
+    _recording(jsim, jplans)
+    _keep_round_states(jsim)
+    jhist = [jsim.run_round() for _ in range(ROUNDS)]
+    return jsim, jhist, jplans
 
 
 @pytest.fixture(scope="module")
 def reference_and_omega():
-    jsim = JSimulator(JSimConfig(**KW))
-    jplans = []
-    _recording(jsim, jplans)
-    jhist = [jsim.run_round() for _ in range(ROUNDS)]
-    return jsim, jhist, jplans, _omega_ref()
+    return _reference_run() + (_omega_ref(),)
 
 
 @pytest.fixture(scope="module", params=["serial", "batched", "fused"])
@@ -237,18 +276,14 @@ def test_summary_and_history_shape(runs):
 
 @pytest.mark.parametrize("change", [
     {"engine": "fused", "rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
-    {"engine": "fused_sharded"}, {"method": "hetlora"},
-    {"method": "homolora"}, {"method": "fedra"}, {"method": "ours_residual"},
-    {"method": "ours_no_energy"}, {"method": "ours_no_mobility"},
+    {"engine": "fused_sharded"},
     {"rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
     {"rsu_tier": RSUTierSpec(sync_period=3)},
     {"participation": ParticipationSpec(mode="semi_sync")},
     {"shard": ShardSpec(num_shards=2)},
     {"checkpoint": CheckpointSpec(interval=2, dir="ck")},
     {"mobility_sim": MobilitySimConfig(trace=TraceSpec())},
-], ids=["fused", "fused_sharded", "hetlora",
-        "homolora", "fedra", "ours_residual", "ours_no_energy",
-        "ours_no_mobility", "two_rsus", "sync_period_3",
+], ids=["fused", "fused_sharded", "two_rsus", "sync_period_3",
         "semi_sync", "two_shards", "checkpoint", "trace"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(SimConfig(**KW), **change)
