@@ -1748,7 +1748,7 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
     vit-base-paper on the card: the first round, which warms the program
     up eagerly and captures it (both timed apart) before its first
     replay, without the profiler (a window over it took 74-79 s of the
-    profiler's own processing, my chip run, PR 18); then ``n_profiled``
+    profiler's own processing on an H100 80GB HBM3); then ``n_profiled``
     replayed rounds, each under a profiler window; then (with
     ``unprofiled``) one more without it. Holds one capture over all
     rounds and, per profiled round, the profiler's kernel records
@@ -2060,8 +2060,8 @@ def share_distribution(card, cpu):
     computes from the same merged deltas, so that the round trains from
     one set of adapters on both devices. The two devices' SVDs differ in
     summation order, and a round of Adam from their factors parts the
-    merged deltas by 1.1e-4 to 5.4e-4 of their largest entry (my chip
-    run, PR 18). Returns a list that receives the largest product
+    merged deltas by 1.1e-4 to 5.4e-4 of their largest entry (H100 80GB
+    HBM3 against the CPU). Returns a list that receives the largest product
     difference of the card's own distribution against the CPU's."""
     errs = []
     if cpu.fused is not None:
@@ -2177,7 +2177,7 @@ def check_round(method, engine):
     ``engine_check_dev``, the largest entry of any lane's difference, is
     recorded: Adam's first update lr·g/(|g| + 1e-8) turns a gradient
     within summation noise of 1e-8 into a difference of a good part of
-    lr, whichever engine is right (PR 16; ``tools/
+    lr, whichever engine is right (``tools/
     batched_spread_probe.py``). Held instead, as in 5b: every lane's
     update spread (:func:`update_spread`) between the engine and the
     serial replay on the card within SPREAD_FACTOR times the largest
