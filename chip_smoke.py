@@ -55,13 +55,14 @@ nothing is caught):
    one train step's loss and adapter grads), then one ``batched_check``
    round on the card, whose ``engine_check_dev`` (the serial trainer
    replayed on the same batches) is printed and must be below 1e-4. (b) At the full width of
-   vit-base-paper (12 layers, d 768): one serial and two batched rounds,
-   each under a torch.profiler window (wall and device ms, busy share,
-   peak memory, launches split into train steps and evaluations and by
-   shape), then one more round of each without it. Every batched round's
+   vit-base-paper (12 layers, d 768): one serial round (unprofiled: a
+   window over its ~50,000 kernels took 87 s) and one batched round
+   under a torch.profiler window (wall and device ms, busy share, peak
+   memory, launches split into train steps and evaluations and by
+   shape), then one more batched round without it. Every batched round's
    launches must equal what its groups predict (one forward per group
-   step, one local eval per group, one global eval per task that kept an
-   upload); the batched rounds are held to the serial ones (ranks and
+   step, one local eval per group, one global eval per task with a
+   global model that kept or released an upload); the batched rounds are held to the serial ones (ranks and
    active sets exactly, energy and latency within 1e-5, merged deltas
    after round 0 within the update limit below, as a Frobenius spread);
    every loss, energy and accuracy must be finite and every launch
@@ -72,20 +73,22 @@ nothing is caught):
    the same lanes (Adam's sign-like first update lets single entries
    part by 2·lr, so the largest entry difference is recorded, not
    held); two planted faults must break these gates. (c) The fused
-   engine (the round as one program over the rank-padded fleet, captured
-   on its first round as two CUDA graphs around the two eager SVDs, then
-   replayed): at the reduced ViT one round card against CPU as in (a),
-   and one ``fused_check`` round on the card (``engine_check_dev`` <
-   1e-4); at full width three rounds: the first without the profiler,
-   timing its eager warm-up and its capture apart, then one profiled and
-   one without: one capture over all rounds, the launches counted at
+   engine (the round as one program over the rank-padded fleet, run
+   eagerly on its first round and then captured as two CUDA graphs
+   around the two eager SVDs, replayed every round after): at the
+   reduced ViT one round card against CPU as in (a), and one
+   ``fused_check`` round on the card (``engine_check_dev`` < 1e-4); at
+   full width three rounds: the first without the profiler, timing its
+   eager run and its capture apart, then one profiled and one without:
+   one capture over all rounds, the launches counted at
    capture and the profiler's kernel records of the profiled replayed
    round equal to 15 forwards' (1,080 ``lora_matmul``, 180 flash, all
    ``simt``); ranks and
    active sets equal to the batched rounds', energy and latency within
    1e-5; round-0 merged deltas within the serial spread limit of (b);
-   two replayed rounds equal to the same rounds run eagerly on the card
-   (``capture=False``) within 1e-6 of each leaf's largest entry, at full
+   two rounds (the second a replay) equal to the same rounds run
+   eagerly on the card (``capture=False``) within 1e-6 of each leaf's
+   largest entry, at full
    width and at the reduced ViT, where a planted fault (an input buffer
    left as the first round staged it) must break that gate. Then phase
    2's rows at the batched round's lane shapes, V from its largest group
@@ -106,7 +109,9 @@ nothing is caught):
    recorded, each lane's update spread against the serial replay held
    within 2x the serial trainer's card-vs-CPU spread (a replay one step
    short must fail). At full width, each
-   method's batched rounds (the first profiled; launches held to the
+   method's batched rounds (the first profiled, but for HetLoRA, which
+   5e profiles, and the three that train ours' groups, whose one round
+   runs unprofiled; launches held to the
    groups' prediction in both; every launch ``simt``, every loss,
    energy and accuracy finite); FedRA's left-out layers bit-identical
    after local training, which a planted fault (the mask applied after
@@ -115,6 +120,33 @@ nothing is caught):
    to its batched rounds (ranks and active sets exactly, energy and
    latency within 1e-5). Then phase 2's rows at HetLoRA's largest lane
    group per rank.
+   (e) The round's modes: a multi-RSU tier (the reference's dense-rsu
+   tier: 3 RSUs per task, a staleness-discounted sync every 2 rounds, a
+   handoff charged 6 J and 0.4 s) and semi-synchronous participation
+   (the default spec with two RSU outage windows, so that uploads defer
+   and come back), alone and together. At the reduced ViT (seed 2),
+   four rounds card against CPU, each round on the card from the CPU's
+   state: the tier under serial, batched and fused (and HetLoRA's under
+   serial and batched), semi_sync under serial, batched and fused, both
+   under fused; counts, deferred and released uploads, which partials
+   are live, their ages and the buffer's vehicles, ages and
+   destinations exactly; energy, latency, release weights and the
+   partials' and buffered uploads' weights within 1e-4; the global
+   states, partials and buffered deltas as a Frobenius spread within
+   (b)'s update limit of 5b (their largest entry difference recorded);
+   the runs must merge two or more live partials in a sync, charge a
+   handoff, defer an upload and release one. Three planted faults on the card's side
+   must break these gates: staleness discounts one round too old, a
+   release landing at the RSU its vehicle trained under, a sync gate
+   frozen at capture. At full width, four rounds of each configuration
+   under batched (HetLoRA's tier too) and fused, one profiled (for the
+   fused engine a replay): wall and device ms, busy share, peak memory,
+   launches (batched: the groups' prediction, with no global eval
+   before a task's first sync; fused: one capture, 1,080 / 180 kernel
+   records per replay); the fused rounds 0-1 equal to an eager run
+   within 1e-6 (partials and buffer too) and to the batched rounds
+   (counts exactly, energy and latency within 1e-5, each task's merged
+   delta at its first merge within 5b's spread limit).
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -129,6 +161,7 @@ attention at S 24 in f32 and bf16 at a train step's B 10 with head dim
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 Details go to chiprun_out/chip_smoke.json.
 """
+import gc
 import json
 import os
 import re
@@ -143,8 +176,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.config import LoRAConfig, ServeSpec  # noqa: E402
+from repro_torch.config import (LoRAConfig, OutageSpec,  # noqa: E402
+                                ParticipationSpec, RSUTierSpec, ServeSpec)
 from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
+from repro_torch.core import aggregation as agg  # noqa: E402
 from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
 from repro_torch.core.aggregation import (  # noqa: E402
     tree_get, tree_paths, tree_paths_delta)
@@ -165,6 +200,7 @@ from repro_torch.interop import tree_map  # noqa: E402
 from repro_torch.federated.fused_engine import (  # noqa: E402
     FusedRoundEngine, _copy_tree)
 from repro_torch.optim.adam import leaves  # noqa: E402
+from repro_torch.sim.mobility_model import MobilitySimConfig  # noqa: E402
 from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
 
 OUT_DIR = os.path.join(HERE, "chiprun_out")
@@ -1377,17 +1413,20 @@ def round_groups(sim, round_plans):
     return groups
 
 
-def full_rounds(engine, n_profiled, method="ours", hook=None):
-    """Phases 5b and 5d: rounds of ``method`` at the full width of
-    vit-base-paper on the card under ``engine``, each under a profiler
-    window, then one more without it; every batched round's launches
-    held to its groups' prediction. ``hook(sim)`` runs before the first
-    round. Keeps each round's plans, records and the servers' states
-    (merged deltas, or the baselines' global adapters; under "_state",
-    for :func:`engines_agree`)."""
+def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
+                plain=1):
+    """Phases 5b, 5d and 5e: rounds of ``method`` at the full width of
+    vit-base-paper on the card under ``engine`` (with ``modes``, a tier
+    or semi_sync's SimConfig fields), ``n_profiled`` each under a
+    profiler window, then ``plain`` more without it; every batched
+    round's launches held to its groups' prediction. ``hook(sim)`` runs
+    before the first round. Keeps each round's plans, records and the
+    servers' states (merged deltas, or the baselines' global adapters;
+    under "_state", for :func:`engines_agree`)."""
     t_start = time.perf_counter()
     sim = IoVSimulator(SimConfig(method=method, engine=engine,
-                                 train_arch=vit_base_paper.vit_base_paper()),
+                                 train_arch=vit_base_paper.vit_base_paper(),
+                                 **(modes or {})),
                        device="cuda")
     if hook is not None:
         hook(sim)
@@ -1460,54 +1499,81 @@ def full_rounds(engine, n_profiled, method="ours", hook=None):
         state["merged"].append(server_states(sim))
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
-    # one more round, no profiler: the plain wall time
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rec = sim.run_round()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    # ``plain`` more rounds, no profiler: the plain wall time
+    plain_ms = []
+    for _ in range(plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        t0 = time.perf_counter()
+        rec = sim.run_round()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if engine != "serial":
+            predicted_launches(sim, plans[-nt:], rec, {
+                k: v - before[k] for k, v in counts().items()}, per_fwd)
+        if not (np.isfinite(rec["energy"])
+                and np.isfinite(rec["accuracy"])):
+            fail(f"full-width {method} {engine} unprofiled round: energy "
+                 f"or accuracy not finite")
+        state["plans"].append(plans[-nt:])
+        state["recs"].append(rec)
+        state["merged"].append(server_states(sim))
     total = counts()
-    if engine != "serial":
-        predicted_launches(sim, plans[-nt:], rec, {
-            k: v - launched[k] for k, v in total.items()}, per_fwd)
+    if not n_profiled:   # the run's launches are its unprofiled rounds'
+        launched = total
+        lora_v, flash_v = variant_counts(), flash_variant_counts()
     for name in ("lora_matmul", "flash_attention"):
-        if launched[name] == 0:
+        if total[name] == 0:
             fail(f"full-width {method} {engine} rounds launched no {name}")
     if variant_counts()["simt"] != total["lora_matmul"] or \
             flash_variant_counts()["simt"] != total["flash_attention"]:
         fail(f"full-width {method} {engine} rounds: f32 launches off the "
              f"simt kernels {variant_counts()} {flash_variant_counts()}")
-    if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])):
-        fail(f"full-width {method} {engine} unprofiled round: energy or "
-             f"accuracy not finite")
-    state["plans"].append(plans[-nt:])
-    state["recs"].append(rec)
-    state["merged"].append(server_states(sim))
     return {"engine": engine, "method": method,
             "config": f"{cfg.name}, {cfg.num_layers} layers, d "
             f"{cfg.d_model}, {cfg.num_heads} heads of "
             f"{cfg.resolved_head_dim}, f32; SimConfig(method={method!r}, "
-            f"engine={engine!r}) otherwise default",
+            f"engine={engine!r}"
+            + "".join(f", {k}={v}" for k, v in (modes or {}).items())
+            + ") otherwise default",
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
             "seconds": time.perf_counter() - t_start,
             "unprofiled_round": {
-                "round": n_profiled, "wall_ms": plain_ms,
+                "round": n_profiled,
+                "wall_ms": plain_ms[0] if plain_ms else None,
+                "wall_ms_each": plain_ms,
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "energy": rec["energy"], "accuracy": rec["accuracy"]},
             "_state": state}
 
 
+def global_evals(sim, rec):
+    """Tasks that evaluate their global model at the end of a round: it
+    exists (under a tier, from the first sync on) and the round kept an
+    upload or released one. The kept ones are the contributors (a
+    departure loses its upload without §IV-E, an abandoning vehicle with
+    it) less the deferred."""
+    n = 0
+    for srv, t in zip(sim.servers, rec["tasks"]):
+        lost = (t["fallbacks"][2] if sim.spec.mobility_aware
+                else t["departing"])
+        kept = t["active"] - lost - t.get("deferred", 0)
+        glob = srv.merged if srv.method == "ours" else srv.global_adapters
+        n += glob is not None and (kept > 0 or t.get("released", 0) > 0)
+    return n
+
+
 def predicted_launches(sim, round_plans, rec, launched, per_fwd):
     """A batched round's launches against its groups' prediction: one
     forward per group step, one local eval per group, one global eval
-    per task that kept an upload (any loop over vehicles would launch
-    more). Returns (groups, predicted launches)."""
+    per task that evaluates (:func:`global_evals`; any loop over
+    vehicles would launch more). Returns (groups, predicted
+    launches)."""
     groups = round_groups(sim, round_plans)
-    fwd = (sum(steps + 1 for *_, steps in groups)
-           + sum(t["comm_params"] > 0 for t in rec["tasks"]))
+    fwd = sum(steps + 1 for *_, steps in groups) + global_evals(sim, rec)
     want = {k: n * fwd for k, n in per_fwd.items()}
     if {k: launched[k] for k in want} != want:
         fail(f"full-width {sim.cfg.method} {sim.engine} round "
@@ -1743,20 +1809,23 @@ def engines_agree(serial, batched, limit):
 REPLAY_TOL = 1e-6
 
 
-def fused_rounds(n_profiled, method="ours", unprofiled=True):
-    """Phases 5c and 5d: fused rounds of ``method`` at the full width of
-    vit-base-paper on the card: the first round, which warms the program
-    up eagerly and captures it (both timed apart) before its first
-    replay, without the profiler (a window over it took 74-79 s of the
-    profiler's own processing on an H100 80GB HBM3); then ``n_profiled``
-    replayed rounds, each under a profiler window; then (with
-    ``unprofiled``) one more without it. Holds one capture over all
-    rounds and, per profiled round, the profiler's kernel records
-    against the launches counted at capture (one per LoRA linear and
-    per attention of 15 forwards)."""
+def fused_rounds(n_profiled, method="ours", plain=1, modes=None):
+    """Phases 5c, 5d and 5e: fused rounds of ``method`` (with ``modes``,
+    a tier or semi_sync's SimConfig fields) at the full width of
+    vit-base-paper on the card: the first round, which runs the program
+    eagerly and then captures it (both timed apart), without the
+    profiler (a window over it took 74-79 s of the profiler's own
+    processing on an H100 80GB HBM3); then ``n_profiled`` replayed
+    rounds, each under a profiler window; then ``plain`` more without
+    it. Holds one capture over all rounds and, per profiled round, the
+    profiler's kernel records against the launches counted at capture
+    (one per LoRA linear and per attention of 15 forwards). Keeps the
+    first replay's (round 1's) partials and buffers for
+    :func:`replay_gates`."""
     t_start = time.perf_counter()
     sim = IoVSimulator(SimConfig(method=method, engine="fused",
-                                 train_arch=vit_base_paper.vit_base_paper()),
+                                 train_arch=vit_base_paper.vit_base_paper(),
+                                 **(modes or {})),
                        device="cuda")
     eng, cfg, nt = sim.fused, sim.model_cfg, sim.cfg.num_tasks
     per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
@@ -1788,7 +1857,7 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
         return run
     eng._warm_up = timed("warm_up", eng._warm_up)
     eng._capture = timed("capture", eng._capture)
-    state = {"plans": [], "recs": [], "merged": [], "ucb": []}
+    state = {"plans": [], "recs": [], "merged": [], "ucb": [], "modes": []}
     out = []
     reset_counts()
 
@@ -1798,6 +1867,10 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
         state["merged"].append(server_states(sim))
         state["ucb"].append([tuple(x.clone() for x in st)
                              for st in sim.ucb_states])
+        # round 1 is the first replay: its partials and buffer go to the
+        # replay gate (round 0 runs eagerly in both runs)
+        state["modes"].append(mode_states(sim) if len(state["recs"]) == 2
+                              else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1839,14 +1912,18 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
             "energy": rec["energy"], "latency": rec["latency"],
             "accuracy": rec["accuracy"], "captures": eng.captures})
         keep(rec)
-    plain_ms = None
-    if unprofiled:
+    plain_ms = []
+    for _ in range(plain):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rec = sim.run_round()
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (np.isfinite(rec["energy"])
+                and np.isfinite(rec["accuracy"])):
+            fail(f"full-width {method} fused round {len(state['recs'])}: "
+                 f"energy or accuracy not finite")
         keep(rec)
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
@@ -1865,7 +1942,9 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
             "config": f"{cfg.name}, {cfg.num_layers} layers, d "
             f"{cfg.d_model}, {cfg.num_heads} heads of "
             f"{cfg.resolved_head_dim}, f32; SimConfig(method={method!r}, "
-            f"engine='fused') otherwise default",
+            f"engine='fused'"
+            + "".join(f", {k}={v}" for k, v in (modes or {}).items())
+            + ") otherwise default",
             "rounds": out, "launches": launched,
             "lora_matmul_variants": lora_v,
             "flash_attention_variants": flash_v,
@@ -1874,7 +1953,9 @@ def fused_rounds(n_profiled, method="ours", unprofiled=True):
             "seconds": time.perf_counter() - t_start,
             "first_round": first,
             "unprofiled_round": {
-                "round": len(state["recs"]) - 1, "wall_ms": plain_ms,
+                "round": len(state["recs"]) - 1,
+                "wall_ms": plain_ms[-1] if plain_ms else None,
+                "wall_ms_each": plain_ms,
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "energy": rec["energy"], "accuracy": rec["accuracy"]},
             "_state": state}
@@ -1903,18 +1984,24 @@ def fused_state_diff(got, want, rounds):
             for a, b in zip(g, w):
                 worst = max(worst, maxabs(a, b)
                             / max(float(b.abs().max()), 1e-30))
+        if rnd < len(want["modes"]) and want["modes"][rnd] is not None:
+            worst = max(worst, max(mode_state_diff(
+                got["modes"][rnd], want["modes"][rnd]).values(),
+                default=0.0))
     return worst
 
 
-def fused_run(arch, rounds, capture=True, fault=False):
-    """``rounds`` fused rounds from one seed on the card: captured and
-    replayed, or (``capture=False``) the same functions run eagerly.
-    ``fault`` plants a static input left un-refreshed: after the first
-    round the integer inputs (coverage, budgets, batches) stay as they
-    were staged for it. Returns the records, merged deltas and UCB-DUAL
-    states of every round."""
+def fused_run(arch, rounds, capture=True, fault=False, modes=None):
+    """``rounds`` fused rounds from one seed on the card (with ``modes``,
+    a tier or semi_sync's SimConfig fields): captured and replayed, or
+    (``capture=False``) the same functions run eagerly. ``fault`` plants
+    a static input left un-refreshed: after the first round the integer
+    inputs (coverage, budgets, batches) stay as they were staged for it.
+    Returns the records, merged deltas and UCB-DUAL states of every
+    round, and round 1's partials and buffers."""
     kw = {} if arch is None else {"train_arch": arch}
-    sim = IoVSimulator(SimConfig(method="ours", engine="fused", **kw),
+    sim = IoVSimulator(SimConfig(method="ours", engine="fused", **kw,
+                                 **(modes or {})),
                        device="cuda")
     if not capture:
         sim.fused = FusedRoundEngine(sim, capture=False)
@@ -1927,12 +2014,13 @@ def fused_run(arch, rounds, capture=True, fault=False):
             calls.append(1)
             upload(ints, f32s, fresh)
         eng._upload = stale
-    state = {"recs": [], "merged": [], "ucb": []}
-    for _ in range(rounds):
+    state = {"recs": [], "merged": [], "ucb": [], "modes": []}
+    for rnd in range(rounds):
         state["recs"].append(sim.run_round())
         state["merged"].append([srv.merged for srv in sim.servers])
         state["ucb"].append([tuple(x.clone() for x in st)
                              for st in sim.ucb_states])
+        state["modes"].append(mode_states(sim) if rnd == 1 else None)
     return state
 
 
@@ -1998,6 +2086,11 @@ def fused_agrees(fused, batched, serial, limit):
 METHODS_5D = ("homolora", "hetlora", "fedra", "ours_no_energy",
               "ours_no_mobility", "ours_residual")
 ABLATIONS = ("ours_no_energy", "ours_no_mobility")
+# methods whose full-width batched round runs once, unprofiled, launches
+# held to its groups: the ours family trains ours' groups (5b profiles
+# those), HetLoRA its capability groups (5e profiles them under a tier)
+UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
+                 "ours_residual")
 PARITY_ROUNDS = 2
 # fused vs batched rounds at full width, energy and latency (relative)
 ENGINE_TOL = 1e-5
@@ -2346,7 +2439,8 @@ def phase_5d():
     """Phase 5d: (a) card vs CPU at the reduced ViT, every method of
     METHODS_5D under serial and batched (with batched_check on the
     card), the ablations also under fused (fused_check on the card);
-    (b) full width: each method's batched rounds (the first profiled),
+    (b) full width: each method's batched rounds (the first profiled,
+    but for UNPROFILED_5D's one unprofiled round),
     FedRA's masked-layer gate, the ablations' fused rounds (a capture,
     then a replayed round) against their batched rounds. Each path is
     driven with the counts set to 0 just before it and read just after
@@ -2362,7 +2456,8 @@ def phase_5d():
             check[f"{m} {engine}"] = check_round(m, engine)
     parity_s = time.perf_counter() - t0
     box = {}
-    batched = {m: full_rounds("batched", 1, method=m,
+    batched = {m: full_rounds("batched", 0 if m in UNPROFILED_5D else 1,
+                              method=m,
                               hook=fedra_spy(box) if m == "fedra" else None)
                for m in METHODS_5D}
     fedra = fedra_gate(box)
@@ -2370,7 +2465,7 @@ def phase_5d():
     for run in batched.values():
         run["_state"].pop("merged")
     torch.cuda.empty_cache()
-    fused = {m: fused_rounds(1, method=m, unprofiled=False)
+    fused = {m: fused_rounds(1, method=m, plain=0)
              for m in ABLATIONS}
     agree = {m: fused_vs_batched(fused[m], batched[m]) for m in ABLATIONS}
     for run in list(batched.values()) + list(fused.values()):
@@ -2429,12 +2524,16 @@ def print_5d(p5d):
                       f"{t['kernel'][:40]} {t['ms']:.2f} ms x{t['count']}"
                       for t in rd["top"][:4]), flush=True)
         up = run["unprofiled_round"]
+        window = (f" (profiler window "
+                  f"{run['rounds'][0]['profiler_window_s']:.1f} s)"
+                  if run["rounds"] else " (not profiled; 5b profiles ours' "
+                  "groups, 5e HetLoRA's)")
         print(f"[5d] {m} batched round {up['round']} without the profiler: "
               f"wall {up['wall_ms']:.1f} ms, peak memory "
-              f"{up['peak_memory_bytes'] / 2**30:.2f} GiB, launches equal "
-              f"to its groups' prediction; {run['seconds']:.1f} s in all "
-              f"(profiler window {run['rounds'][0]['profiler_window_s']:.1f}"
-              f" s)", flush=True)
+              f"{up['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+              f"{run['launches']} equal to its groups' "
+              f"prediction; {run['seconds']:.1f} s in all{window}",
+              flush=True)
     g = p5d["fedra_gate"]
     print(f"[5d] FedRA at full width, task 0's group of round 0 ({g['lanes']}"
           f" lanes, {g['layers']} layers, trained layers per lane "
@@ -2446,9 +2545,9 @@ def print_5d(p5d):
     for m, run in p5d["fused"].items():
         fr = run["first_round"]
         print(f"[5d] {m} fused at full width: round 0 (unprofiled) wall "
-              f"{fr['round_wall_ms']:.1f} ms: eager warm-up "
-              f"{fr['warm_up_ms']:.1f} ms, capture {fr['capture_ms']:.1f} ms,"
-              f" then the first replay; peak memory "
+              f"{fr['round_wall_ms']:.1f} ms: the round run eagerly "
+              f"{fr['warm_up_ms']:.1f} ms, then the capture "
+              f"{fr['capture_ms']:.1f} ms; peak memory "
               f"{fr['peak_memory_bytes'] / 2**30:.2f} GiB; captures "
               f"{run['captures']}; {run['seconds']:.1f} s in all", flush=True)
         for rd in run["rounds"]:
@@ -2466,6 +2565,492 @@ def print_5d(p5d):
               f"{a['energy_rel_err']:.3g}, latency rel "
               f"{a['latency_rel_err']:.3g} (tol {a['tol']})", flush=True)
     print(f"[5d] phase 5d took {p5d['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5e: the round's modes (multi-RSU tiers, semi-sync participation)
+# ---------------------------------------------------------------------------
+
+# the reference's dense-rsu tier on the default synthetic map; semi_sync
+# with its defaults and the shape of the reference's rsu-outage preset
+# (task 0's RSU dark in round 1, task 1's in round 2), so that uploads
+# defer and come back
+MODES_5E = {
+    "tier": {"rsu_tier": RSUTierSpec(
+        num_rsus_per_task=3, sync_period=2, staleness_decay=0.7,
+        handoff_energy=6.0, handoff_latency=0.4)},
+    "semi": {"participation": ParticipationSpec(mode="semi_sync"),
+             "mobility_sim": MobilitySimConfig(outages=(
+                 OutageSpec(rsu_id=0, start=1, end=2),
+                 OutageSpec(rsu_id=1, start=2, end=3)))}}
+MODES_5E["tier+semi"] = {**MODES_5E["tier"], **MODES_5E["semi"]}
+MODE_ROUNDS = 4
+# the reduced ViT's runs (one local step, as the CPU tests take): at this
+# seed a sync merges two or more live partials of a task, handoffs are
+# charged, uploads defer and come back, and under tier+semi one comes
+# back under another RSU of its task in round 1 (the destination fault
+# below moves it)
+MODE_SEED, MODE_STEPS = 2, 1
+PARITY_5E = (("tier", "ours", "serial"), ("tier", "ours", "batched"),
+             ("tier", "ours", "fused"), ("tier", "hetlora", "serial"),
+             ("tier", "hetlora", "batched"), ("semi", "ours", "serial"),
+             ("semi", "ours", "batched"), ("semi", "ours", "fused"),
+             ("tier+semi", "ours", "fused"))
+COUNT_KEYS_5E = ("active", "departing", "handoffs", "fallbacks",
+                 "comm_params", "mean_rank", "deferred", "released")
+
+
+def mode_states(sim):
+    """Each task's tier and buffer state: the partials (trees, or None
+    for a segment that never had an upload) with their weights and ages,
+    the in-flight buffer (vehicle → delta, weight, age, destination)."""
+    return [{"partials": (None if srv.partials is None
+                          else list(srv.partials)),
+             "partial_w": np.asarray(srv.partial_w, np.float64).copy(),
+             "partial_age": np.asarray(srv.partial_age).copy(),
+             "buffer": {v: dict(e) for v, e in srv.buffer.items()}}
+            for srv in sim.servers]
+
+
+def _tree_rel(got, want):
+    """Two trees against each other: the largest |got - want| relative to
+    want's largest entry, and ||got - want||_F / ||want||_F over all
+    leaves. None against a zero tree (a segment the host never
+    refreshed, the fused carry's zeros) counts as equal."""
+    if got is None and want is None:
+        return 0.0, 0.0
+    if got is None or want is None:
+        t = got if want is None else want
+        zero = all(float(x.abs().max()) == 0.0 for x in leaves(t))
+        return (0.0, 0.0) if zero else (float("inf"), float("inf"))
+    err = top = d2 = w2 = 0.0
+    for g, w in zip(leaves(got), leaves(want)):
+        g, w = g.cpu().double(), w.cpu().double()
+        err = max(err, float((g - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+        d2 += float(((g - w) ** 2).sum())
+        w2 += float((w ** 2).sum())
+    return err / max(top, 1e-30), (d2 / max(w2, 1e-60)) ** 0.5
+
+
+def mode_state_diff(got, want):
+    """One simulator's tier and buffer state against another's, per part:
+    relative errors, and inf where an exact part (ages, which partials
+    are live, the buffer's vehicles, ages and destinations) differs."""
+    out = {"partials": 0.0, "partials_fro": 0.0, "partial_w": 0.0,
+           "buffer": 0.0, "buffer_fro": 0.0, "buffer_w": 0.0, "exact": 0.0}
+    for g, w in zip(got, want):
+        if (g["partials"] is None) != (w["partials"] is None):
+            out["exact"] = float("inf")
+            continue
+        for gp, wp in zip(g["partials"] or [], w["partials"] or []):
+            e, f = _tree_rel(gp, wp)
+            out["partials"] = max(out["partials"], e)
+            out["partials_fro"] = max(out["partials_fro"], f)
+        out["partial_w"] = max(out["partial_w"], float(np.max(
+            np.abs(g["partial_w"] - w["partial_w"])
+            / np.maximum(np.abs(w["partial_w"]), 1e-12), initial=0.0)))
+        same = (np.array_equal(np.asarray(g["partial_age"], np.int64),
+                               np.asarray(w["partial_age"], np.int64))
+                and np.array_equal(g["partial_w"] > 0, w["partial_w"] > 0)
+                and sorted(g["buffer"]) == sorted(w["buffer"])
+                and all((g["buffer"][v]["age"], g["buffer"][v]["dest"])
+                        == (e["age"], e["dest"])
+                        for v, e in w["buffer"].items()))
+        if not same:
+            out["exact"] = float("inf")
+            continue
+        for v, e in w["buffer"].items():
+            err, fro = _tree_rel(g["buffer"][v]["delta"], e["delta"])
+            out["buffer"] = max(out["buffer"], err)
+            out["buffer_fro"] = max(out["buffer_fro"], fro)
+            out["buffer_w"] = max(out["buffer_w"], abs(
+                g["buffer"][v]["w"] - e["w"]) / e["w"])
+    return out
+
+
+def adopt_mode_state(dst, src):
+    """:func:`adopt_state`, the tier's partials and semi_sync's buffer
+    too: the card's round starts from the CPU's state."""
+    for d, s_ in zip(dst.servers, src.servers):
+        d.partials = (None if s_.partials is None else
+                      [None if p is None else to(p, dst.device)
+                       for p in s_.partials])
+        d.partial_w = s_.partial_w.copy()
+        d.partial_age = s_.partial_age.copy()
+        d.buffer = {v: dict(e, delta=to(e["delta"], dst.device))
+                    for v, e in s_.buffer.items()}
+    adopt_state(dst, src)
+
+
+def mode_parity(mode, method, engine, limit, rounds=MODE_ROUNDS,
+                fault=None):
+    """Phase 5e (a): ``rounds`` rounds of ``method`` under ``engine`` with
+    ``mode``'s tier or participation at the reduced ViT with the default
+    SimConfig (seed MODE_SEED, MODE_STEPS local steps), on the CPU and
+    on the card; every round
+    after the first starts on the card from the CPU's state
+    (:func:`adopt_mode_state`) and, for ``ours``, trains from the CPU's
+    SVD redistribution of it (:func:`share_distribution`). ``fault(sim)``
+    plants a fault on the card's side. Returns the gates' readings, per
+    round, and the violations: active sets, ranks and departures, and
+    per round and task the active, departing, handoff, deferred and
+    released counts, fallbacks, comm_params and mean rank exactly,
+    whether a task has a global model, which partials are live, their
+    ages, the buffer's vehicles, ages and destinations exactly; energy,
+    latency, release weights and the partials' and buffered uploads'
+    weights within ROUND_TOL; the trained state (the global states, the
+    partials, the buffered deltas) as a Frobenius spread ||card -
+    CPU||_F / ||CPU||_F within ``limit``, 5b's update limit, with the
+    largest entry difference recorded: a partial or a buffered delta
+    holds one to three vehicles' updates, whose entries on near-zero
+    gradients Adam's first step moves by up to 2·lr apart on the two
+    devices (5b), so the largest entry parts by up to ~2e-3 where a
+    many-vehicle merge parts by ~5e-5 (PERF.md, Findings). Also counts what
+    the run exercised: syncs that merge two or more live partials,
+    handoffs, deferred and released uploads."""
+    sims, plans, recs = {}, {}, {}
+    ms = {"cuda": 0.0, "cpu": 0.0}
+    for dev in ("cuda", "cpu"):
+        sims[dev] = IoVSimulator(SimConfig(method=method, engine=engine,
+                                           seed=MODE_SEED,
+                                           local_steps=MODE_STEPS,
+                                           **MODES_5E[mode]), device=dev)
+        plans[dev], recs[dev] = [], []
+        recording(sims[dev], plans[dev])
+    if fault is not None:
+        fault(sims["cuda"])
+    reset_counts()
+    what = f"5e {mode} {method} {engine}" + (" (planted)" if fault else "")
+    bad, worst, by_round = [], {}, []
+    events = {"syncs_of_2_or_more": 0, "handoffs": 0, "deferred": 0,
+              "released": 0}
+    tier = sims["cpu"].cfg.rsu_tier
+    before = mode_states(sims["cpu"])
+    for rnd in range(rounds):
+        if rnd:
+            adopt_mode_state(sims["cuda"], sims["cpu"])
+            if rnd == 1:
+                share_distribution(sims["cuda"], sims["cpu"])
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            recs[dev].append(sims[dev].run_round())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms[dev] += (time.perf_counter() - t0) * 1e3
+        gr, cr = recs["cuda"][-1], recs["cpu"][-1]
+        row = {"energy": 0.0, "latency": 0.0, "rel_weight": 0.0,
+               "state": 0.0, "state_fro": 0.0}
+        for gt, ct in zip(gr["tasks"], cr["tasks"]):
+            for key in COUNT_KEYS_5E:
+                if gt.get(key) != ct.get(key):
+                    bad.append(f"round {rnd} task {gt['task']} {key} "
+                               f"{gt.get(key)} vs {ct.get(key)}")
+            for key in ("energy", "latency", "rel_weight"):
+                if key in ct:
+                    row[key] = max(row[key], abs(gt[key] - ct[key])
+                                   / max(abs(ct[key]), 1e-12))
+            events["handoffs"] += ct["handoffs"] if not tier.trivial else 0
+            events["deferred"] += ct.get("deferred", 0)
+            events["released"] += ct.get("released", 0)
+        g_states, c_states = server_states(sims["cuda"]), server_states(
+            sims["cpu"])
+        if [s is None for s in g_states] != [s is None for s in c_states]:
+            bad.append(f"round {rnd}: has a global model "
+                       f"{[s is not None for s in g_states]} vs "
+                       f"{[s is not None for s in c_states]}")
+        else:
+            for g, c_ in zip(g_states, c_states):
+                e, f = _tree_rel(g, c_)
+                row["state"] = max(row["state"], e)
+                row["state_fro"] = max(row["state_fro"], f)
+        after = mode_states(sims["cpu"])
+        diff = mode_state_diff(mode_states(sims["cuda"]), after)
+        if diff.pop("exact"):
+            bad.append(f"round {rnd}: live partials, ages or the buffer's "
+                       f"vehicles, ages or destinations differ")
+        row.update(diff)
+        by_round.append(row)
+        for k, v in row.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if not tier.trivial and (rnd + 1) % tier.sync_period == 0:
+            live = max(int(np.sum(b["partial_w"] > 0)) for b in before)
+            events["syncs_of_2_or_more"] += live >= 2
+        before = after
+    if plans["cuda"] != plans["cpu"]:
+        bad.append("active sets, ranks or departures differ")
+    held = {**{k: ROUND_TOL for k in ("energy", "latency", "rel_weight",
+                                      "partial_w", "buffer_w")},
+            **{k: limit for k in ("state_fro", "partials_fro",
+                                  "buffer_fro")}}
+    over = {k: worst.get(k, 0.0) for k, tol in held.items()
+            if not worst.get(k, 0.0) <= tol}
+    if over:
+        bad.append(f"over their limits {held}: {over}")
+    launched = counts()
+    if not fault and (launched["lora_matmul"] == 0
+                      or launched["flash_attention"] == 0):
+        fail(f"{what}: the card's rounds launched {launched}")
+    return {"mode": mode, "method": method, "engine": engine,
+            "rounds": rounds, "tol": ROUND_TOL, "limit": limit,
+            "worst": worst,
+            "by_round": by_round, "violations": bad, "events": events,
+            "ranks": sorted({r for _, _, rs, _ in plans["cpu"] for r in rs}),
+            "deferred": [[t.get("deferred", 0) for t in r["tasks"]]
+                         for r in recs["cpu"]],
+            "released": [[t.get("released", 0) for t in r["tasks"]]
+                         for r in recs["cpu"]],
+            "handoffs": [[t["handoffs"] for t in r["tasks"]]
+                         for r in recs["cpu"]],
+            "accuracy_card": [r["accuracy"] for r in recs["cuda"]],
+            "accuracy_cpu": [r["accuracy"] for r in recs["cpu"]],
+            "card_ms": ms["cuda"], "cpu_ms": ms["cpu"], "launches": launched,
+            "captures": (sims["cuda"].fused.captures
+                         if sims["cuda"].fused is not None else None)}
+
+
+def stale_discount(sim):
+    """Planted fault: the card's staleness discounts one round too old
+    (decay**(age + 1)), in every round the card runs."""
+    real, run_round = agg.staleness_weights, sim.run_round
+
+    def older(ages, decay):
+        return real(torch.as_tensor(ages, dtype=torch.float32) + 1.0, decay)
+
+    def rr():
+        agg.staleness_weights = older
+        try:
+            return run_round()
+        finally:
+            agg.staleness_weights = real
+    sim.run_round = rr
+
+
+def trained_rsu(sim):
+    """Planted fault: on the card a released upload lands at the RSU its
+    vehicle trained under, not at the one it is in now."""
+    import dataclasses
+    sim.fused.part = dataclasses.replace(sim.fused.part,
+                                         buffer_handoffs=False)
+
+
+def frozen_sync(sim):
+    """Planted fault: the card's sync gate is read on the host when the
+    round is captured and kept as a constant in the graph."""
+    eng = sim.fused
+
+    def gate(t):
+        return torch.full((), (eng._round + 1) % eng.tier.sync_period == 0,
+                          dtype=torch.bool, device=eng.device)
+    eng._sync_gate = gate
+
+
+def first_merges(run):
+    """Each task's first round with a global model, and that model."""
+    out = {}
+    for rnd, states in enumerate(run["_state"]["merged"]):
+        for t, st in enumerate(states):
+            if st is not None and t not in out:
+                out[t] = (rnd, st)
+    return out
+
+
+def modes_agree(fused, batched, limit):
+    """Phase 5e (b): a configuration's fused rounds against its batched
+    rounds of the same seed at full width: active sets, ranks and
+    departures, the per-task counts, deferred and released uploads
+    exactly; energy and latency within ENGINE_TOL relative; each task's
+    merged delta at its first merge (under a tier, the first sync) within
+    ``limit`` as a Frobenius spread, the update limit of 5b."""
+    f, b = fused["_state"], batched["_state"]
+    n = min(len(f["recs"]), len(b["recs"]))
+    rel = {"energy": 0.0, "latency": 0.0}
+    for rnd in range(n):
+        if f["plans"][rnd] != b["plans"][rnd]:
+            fail(f"5e {fused['config']}: round {rnd} fused and batched "
+                 f"differ in active sets, ranks or departures")
+        for ft, bt in zip(f["recs"][rnd]["tasks"], b["recs"][rnd]["tasks"]):
+            for key in COUNT_KEYS_5E:
+                if ft.get(key) != bt.get(key):
+                    fail(f"5e fused vs batched: round {rnd} task "
+                         f"{ft['task']} {key} {ft.get(key)} vs "
+                         f"{bt.get(key)}")
+            for key in rel:
+                rel[key] = max(rel[key], abs(ft[key] - bt[key])
+                               / max(abs(bt[key]), 1e-12))
+    fm, bm = first_merges(fused), first_merges(batched)
+    if {t: r for t, (r, _) in fm.items()} != {t: r for t, (r, _)
+                                              in bm.items()}:
+        fail(f"5e fused vs batched: first merges {fm.keys()} {bm.keys()}")
+    spread = max(merged_spread([bm[t][1]], [fm[t][1]]) for t in bm)
+    if not (max(rel.values()) < ENGINE_TOL and spread <= limit):
+        fail(f"5e fused vs batched: {rel} (tol {ENGINE_TOL}), merged "
+             f"delta spread at the first merge {spread} (limit {limit})")
+    return {"rounds": n, "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"], "tol": ENGINE_TOL,
+            "first_merge_round": {t: r for t, (r, _) in fm.items()},
+            "first_merge_spread": spread, "limit": limit}
+
+
+def release():
+    """Free what earlier runs left: a simulator and its fused engine hold
+    each other, so only the cycle collector frees a finished run's carry
+    and graphs (semi_sync's buffer alone is 22.8 GiB at full width)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def only_first_merges(run):
+    """Keep, of a full-width run's per-round server states, each task's
+    first global model (what :func:`modes_agree` holds), and drop the
+    rest."""
+    first = {t: r for t, (r, _) in first_merges(run).items()}
+    run["_state"]["merged"] = [
+        [st if first.get(t) == rnd else None for t, st in enumerate(sts)]
+        for rnd, sts in enumerate(run["_state"]["merged"])]
+
+
+def phase_5e(limit):
+    """Phase 5e: (a) card vs CPU at the reduced ViT, each case of
+    PARITY_5E over MODE_ROUNDS rounds from one state per round, and what
+    the runs exercised; (c) three planted faults on the card's side,
+    each of which must break (a)'s gates; (b) full width: each
+    configuration's batched and fused rounds (one profiled round each),
+    the fused ones held to an eager run and to the batched ones."""
+    t0 = time.perf_counter()
+    parity, events = {}, {}
+    for mode, method, engine in PARITY_5E:
+        p = mode_parity(mode, method, engine, limit)
+        if p["violations"]:
+            fail(f"5e {mode} {method} {engine} card vs CPU: "
+                 f"{p['violations']}")
+        parity[f"{mode} {method} {engine}"] = p
+        for k, v in p["events"].items():
+            events[k] = events.get(k, 0) + v
+    if not all(events.values()):
+        fail(f"5e: the reduced runs exercised {events}; each must occur")
+    planted = {}
+    for label, (mode, engine, rounds, fault) in {
+            "staleness discount one round too old": (
+                "semi", "batched", 3, stale_discount),
+            "release at the RSU it trained under": (
+                "tier+semi", "fused", 2, trained_rsu),
+            "sync gate frozen at capture": (
+                "tier", "fused", 2, frozen_sync)}.items():
+        p = mode_parity(mode, "ours", engine, limit, rounds, fault=fault)
+        if not p["violations"]:
+            fail(f"5e planted fault '{label}' passes the gates")
+        planted[label] = p
+    parity_s = time.perf_counter() - t0
+    release()
+    modes = MODES_5E
+    batched = {}
+    for name, method, mode in (("tier", "ours", "tier"),
+                               ("tier hetlora", "hetlora", "tier"),
+                               ("semi", "ours", "semi")):
+        batched[name] = full_rounds("batched", 1, method=method,
+                                    modes=modes[mode], plain=3)
+        only_first_merges(batched[name])
+        release()
+    fused, replay = {}, {}
+    for name in ("tier", "semi", "tier+semi"):
+        fused[name] = fused_rounds(1, plain=2, modes=modes[name])
+        release()
+        eager = fused_run(vit_base_paper.vit_base_paper(), 2, capture=False,
+                          modes=modes[name])
+        replay[name] = fused_state_diff(fused[name]["_state"], eager, 2)
+        del eager
+        if not replay[name] <= REPLAY_TOL:
+            fail(f"5e {name} fused replay vs eager at full width: "
+                 f"{replay[name]} > {REPLAY_TOL}")
+        fused[name]["_state"].pop("modes")
+        only_first_merges(fused[name])
+        release()
+    agree = {name: modes_agree(fused[name], batched[name], limit)
+             for name in ("tier", "semi")}
+    for run in list(batched.values()) + list(fused.values()):
+        run.pop("_state")
+    torch.cuda.empty_cache()
+    return {"parity": parity, "events": events, "planted": planted,
+            "parity_s": parity_s, "batched": batched, "fused": fused,
+            "replay_vs_eager": replay, "replay_tol": REPLAY_TOL,
+            "fused_vs_batched": agree,
+            "seconds": time.perf_counter() - t0}
+
+
+def print_5e(p5e):
+    """Phase 5e's lines."""
+    for name, p in p5e["parity"].items():
+        w = p["worst"]
+        print(f"[5e] {name}, reduced ViT, seed {MODE_SEED}, card vs CPU "
+              f"over {p['rounds']} rounds (each from the CPU's state): ranks "
+              f"{p['ranks']}, counts equal (handoffs {p['handoffs']}, "
+              f"deferred {p['deferred']}, released {p['released']}); rel "
+              f"energy {w['energy']:.3g}, latency {w['latency']:.3g}, "
+              f"release weight {w['rel_weight']:.3g}, partial weights "
+              f"{w['partial_w']:.3g}, buffered weights {w['buffer_w']:.3g} "
+              f"(tol {p['tol']}); Frobenius spread of the global states "
+              f"{w['state_fro']:.3g}, partials {w['partials_fro']:.3g}, "
+              f"buffered deltas {w['buffer_fro']:.3g} (limit "
+              f"{p['limit']:.3g}); largest entry (recorded) "
+              f"{w['state']:.3g}, {w['partials']:.3g}, {w['buffer']:.3g} "
+              f"(by round: "
+              + ", ".join(f"{r['state']:.2g}/{r['partials']:.2g}/"
+                          f"{r['buffer']:.2g}" for r in p["by_round"])
+              + f"); {p['card_ms']:.0f} "
+              f"ms on the card, {p['cpu_ms']:.0f} ms on the CPU; launches "
+              f"{p['launches']}"
+              + (f"; captures {p['captures']}" if p["captures"] else ""),
+              flush=True)
+    print(f"[5e] the reduced runs exercised {p5e['events']}", flush=True)
+    for label, p in p5e["planted"].items():
+        print(f"[5e] planted fault '{label}' ({p['mode']} {p['engine']}, "
+              f"{p['rounds']} rounds): fails the gates: "
+              f"{'; '.join(p['violations'])[:300]}", flush=True)
+    print(f"[5e] card vs CPU and the planted faults took "
+          f"{p5e['parity_s']:.1f} s", flush=True)
+    for name, run in list(p5e["batched"].items()) + list(
+            p5e["fused"].items()):
+        rd = run["rounds"][0]
+        up = run["unprofiled_round"]
+        fr = run.get("first_round")
+        first = ("" if fr is None else
+                 f"round 0 (eager, then the capture) wall "
+                 f"{fr['round_wall_ms']:.1f} ms (capture "
+                 f"{fr['capture_ms']:.1f} ms), peak memory "
+                 f"{fr['peak_memory_bytes'] / 2**30:.2f} GiB; ")
+        launches = (f"kernel records per replayed round "
+                    f"{rd['launches_per_run_by_profiler']}, all simt, "
+                    f"captures {run['captures']}"
+                    if fr is not None else
+                    f"launches {rd['launches_total']} = predicted "
+                    f"{rd['predicted_launches']}; groups {rd['groups']}")
+        print(f"[5e] {name} {run['engine']} ({run['method']}) at full "
+              f"width: {first}round {rd['round']} wall "
+              f"{rd['wall_ms']:.1f} ms (profiled), device "
+              f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}, peak "
+              f"memory {rd['peak_memory_bytes'] / 2**30:.2f} GiB; "
+              f"{launches}; unprofiled rounds wall "
+              f"{', '.join(f'{x:.1f}' for x in up['wall_ms_each'])} ms, "
+              f"peak memory {up['peak_memory_bytes'] / 2**30:.2f} GiB; "
+              f"{run['seconds']:.1f} s in all; top: "
+              + "; ".join(f"{t['kernel'][:40]} {t['ms']:.2f} ms "
+                          f"x{t['count']}" for t in rd["top"][:4]),
+              flush=True)
+    for name, d in p5e["replay_vs_eager"].items():
+        print(f"[5e] {name} fused at full width, rounds 0-1 (round 1 a "
+              f"replay) vs eager: {d:.3g} (tol {p5e['replay_tol']})",
+              flush=True)
+    for name, a in p5e["fused_vs_batched"].items():
+        print(f"[5e] {name} fused vs batched at full width over "
+              f"{a['rounds']} rounds: ranks, counts, deferred and released "
+              f"equal, energy rel {a['energy_rel_err']:.3g}, latency rel "
+              f"{a['latency_rel_err']:.3g} (tol {a['tol']}); merged deltas "
+              f"at each task's first merge (rounds "
+              f"{a['first_merge_round']}) spread "
+              f"{a['first_merge_spread']:.3g} (limit {a['limit']:.3g})",
+              flush=True)
+    print(f"[5e] phase 5e took {p5e['seconds']:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2606,8 +3191,8 @@ def main() -> int:
     print(f"[5c] fused_check on the card: engine_check_dev "
           f"{fused_check_dev:.3g} (largest |fused - serial| adapter entry; "
           f"tol {ROUND_TOL})", flush=True)
-    fulls = {"serial": full_rounds("serial", 1),
-             "batched": full_rounds("batched", 2)}
+    fulls = {"serial": full_rounds("serial", 0),
+             "batched": full_rounds("batched", 1)}
     fused = fused_rounds(1)
     g, limit = group_budgets_agree()
     agree = engines_agree(fulls["serial"], fulls["batched"], limit)
@@ -2637,10 +3222,12 @@ def main() -> int:
                       f"{t['kernel'][:40]} {t['ms']:.2f} ms x{t['count']}"
                       for t in rd["top"][:4]), flush=True)
         up = full["unprofiled_round"]
-        print(f"[5b] {full['engine']} round {up['round']} without the "
-              f"profiler: wall {up['wall_ms']:.1f} ms, peak memory "
-              f"{up['peak_memory_bytes'] / 2**30:.2f} GiB; launches over "
-              f"the profiled rounds {full['launches']}", flush=True)
+        if up["wall_ms"] is not None:
+            print(f"[5b] {full['engine']} round {up['round']} without the "
+                  f"profiler: wall {up['wall_ms']:.1f} ms, peak memory "
+                  f"{up['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+        print(f"[5b] {full['engine']}: launches over the profiled rounds "
+              f"{full['launches']}", flush=True)
         for rd in full["rounds"]:
             print(f"[5b] {full['engine']} round {rd['round']} by shape: "
                   f"lora_matmul (L x M x K x N x r x dtype) "
@@ -2672,8 +3259,9 @@ def main() -> int:
 
     fr = fused["first_round"]
     print(f"[5c] {fused['config']}: round 0 (unprofiled) wall "
-          f"{fr['round_wall_ms']:.1f} ms: eager warm-up "
-          f"{fr['warm_up_ms']:.1f} ms, capture {fr['capture_ms']:.1f} ms "
+          f"{fr['round_wall_ms']:.1f} ms: the round run eagerly "
+          f"{fr['warm_up_ms']:.1f} ms, then the capture "
+          f"{fr['capture_ms']:.1f} ms "
           f"({fused['segments']} graphs; launches counted at capture "
           f"{fr['capture_launches']}, predicted "
           f"{fused['predicted_launches_per_round']}); "
@@ -2718,12 +3306,14 @@ def main() -> int:
 
     p5d = phase_5d()
     print_5d(p5d)
+    p5e = phase_5e(limit)
+    print_5e(p5e)
 
     # phase 2 at the batched round's lane shapes: V from its largest
     # group per rank, for ours and for HetLoRA (the most rank groups)
     lane_rows = []
     for run, label in ((fulls["batched"], ""),
-                       (p5d["batched"]["hetlora"], "hetlora ")):
+                       (p5e["batched"]["tier hetlora"], "hetlora ")):
         lanes_by_rank = {}
         for rd in run["rounds"]:
             for _, r, lanes, _ in rd["groups"]:
@@ -2753,7 +3343,7 @@ def main() -> int:
         "vit-tiny-paper serial round (5a)": par5["serial"]["launches"],
         "vit-tiny-paper batched round (5a)": par5["batched"]["launches"],
         "vit-base-paper serial round (5b)": fulls["serial"]["launches"],
-        "vit-base-paper 2 batched rounds (5b)":
+        "vit-base-paper profiled batched round (5b)":
             fulls["batched"]["launches"],
         "vit-tiny-paper fused round (5c)": par5["fused"]["launches"],
         "vit-base-paper 3 fused rounds, warm-up and capture (5c)":
@@ -2761,11 +3351,22 @@ def main() -> int:
     for name, p in p5d["parity"].items():
         round_paths[f"vit-tiny-paper {name} 2 rounds (5d)"] = p["launches"]
     for m, run in p5d["batched"].items():
-        round_paths[f"vit-base-paper {m} profiled batched round (5d)"] = \
+        kind = "profiled" if run["rounds"] else "unprofiled"
+        round_paths[f"vit-base-paper {m} {kind} batched round (5d)"] = \
             run["launches"]
     for m, run in p5d["fused"].items():
         round_paths[f"vit-base-paper {m} 2 fused rounds, warm-up and "
                     f"capture (5d)"] = run["launches"]
+    for name, p in list(p5e["parity"].items()) + [
+            (f"{k} (planted)", p) for k, p in p5e["planted"].items()]:
+        round_paths[f"vit-tiny-paper {name} {p['rounds']} rounds (5e)"] = \
+            p["launches"]
+    for name, run in p5e["batched"].items():
+        round_paths[f"vit-base-paper {name} profiled batched round (5e)"] \
+            = run["launches"]
+    for name, run in p5e["fused"].items():
+        round_paths[f"vit-base-paper {name} 4 fused rounds, first eager and "
+                    f"the capture (5e)"] = run["launches"]
     # each phase-2 row's launches in each round: vit-base-paper's in the
     # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
     # round 0), by engine
@@ -2799,7 +3400,9 @@ def main() -> int:
     rows += train_rows
     round_runs = (list(par5.values()) + list(fulls.values()) + [fused]
                   + list(p5d["batched"].values())
-                  + list(p5d["fused"].values()))
+                  + list(p5d["fused"].values())
+                  + list(p5e["batched"].values())
+                  + list(p5e["fused"].values()))
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
@@ -2860,7 +3463,8 @@ def main() -> int:
                    "full_rounds": fulls, "fused_rounds": fused,
                    "fused_agreement": fagree, "fused_replay": replay,
                    "full_batched_vs_serial": agree,
-                   "full_group_budgets": g, "methods": p5d}, fh, indent=1)
+                   "full_group_budgets": g, "methods": p5d,
+                   "modes": p5e}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -188,7 +188,7 @@ class RSUTierSpec:
     aggregating into a partial, merged every ``sync_period`` rounds with
     staleness-discounted weights; a handoff between two RSUs of a task
     charges the migration penalty. The trivial tier (one RSU, sync every
-    round) is the only one the port's simulator runs yet."""
+    round) never enters the partials."""
     num_rsus_per_task: int = 1
     sync_period: int = 1
     staleness_decay: float = 0.6
@@ -215,8 +215,8 @@ class RSUTierSpec:
 class ParticipationSpec:
     """When a vehicle's upload lands: ``"sync"`` drops a missed upload;
     ``"semi_sync"`` buffers it and lands it up to ``max_delay`` rounds
-    late at weight ``w · vehicle_staleness_decay**k``. The port's
-    simulator runs ``"sync"`` only, yet."""
+    late at weight ``w · vehicle_staleness_decay**k``; with
+    ``buffer_handoffs`` it lands at the vehicle's current RSU."""
     mode: str = "sync"
     max_delay: int = 3
     vehicle_staleness_decay: float = 0.6

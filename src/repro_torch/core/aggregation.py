@@ -11,9 +11,14 @@ engine's whole fleet too, every adapter zero-padded to max_rank (the
 rank-padded functions at the end). The baselines' reductions (HomoLoRA's
 mean, HetLoRA's zero-padding average and self-pruning, FedRA's layer
 masks and per-layer average) are plain tensor code, as the reference's
-are plain ``jnp``: no Pallas kernel there, none here. The segmented
-aggregator, the RSU partials and the upload buffer wait for a later
-slice of the port.
+are plain ``jnp``: no Pallas kernel there, none here. So is the algebra
+of the round's modes at the end: the per-RSU partials of a multi-RSU
+tier (segment sums over the fleet, their staleness-discounted merge) and
+semi-synchronous participation's upload buffer (per-lane merged deltas,
+their discounted release sums), shared by the host server and the fused
+engine's program. A tree with an RSU segment axis or a buffer lane axis
+carries it where a stacked tree carries its lanes, third from the end
+((L, K, d_in, d_out)).
 """
 from __future__ import annotations
 
@@ -476,3 +481,206 @@ def factors_full(svd_tree: Any, scale: float) -> Any:
         out = tree_set(out, path, {"a": (f["u"] * f["s"][..., None, :])
                                    / scale, "b": f["vt"]})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Two-tier RSU hierarchy: per-RSU segment-sum partials and their
+# staleness-weighted periodic merge into the global tree. The host server
+# keeps a list of per-RSU trees, the fused engine one tree with the
+# segment axis third from the end; both merge through the functions here.
+# ---------------------------------------------------------------------------
+
+def _f32(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (a number, numpy array or tensor) as f32, on ``like``'s
+    device if given, else where it is (numbers and numpy: the CPU)."""
+    t = torch.as_tensor(x)
+    if like is not None:
+        t = t.to(like.device)
+    return t.to(torch.float32)
+
+
+def _seg_w(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A scalar weight, or a (K,) vector shaped to multiply x's segment
+    axis (third from the end), on x's device."""
+    w = w.to(x.device)
+    return w if w.dim() == 0 else w.reshape(-1, 1, 1)
+
+
+def staleness_weights(ages, decay: float) -> torch.Tensor:
+    """Per-partial staleness discount ``decay**age``, an f32 power as the
+    reference's ``jnp.power``: exactly 1.0 at age 0 (the trivial-tier
+    equivalence), strictly decreasing in age for 0 < decay < 1. The host
+    server's float64 ages and the fused program's f32 ones give the same
+    discount."""
+    return torch.pow(decay, _f32(ages))
+
+
+def sync_weights(data_w, ages, decay: float) -> torch.Tensor:
+    """Normalised sync weights ω̂_k = ω_k / Σω, ω_k = data_w_k ·
+    decay**age_k. A segment without uploads (data_w 0) is an exact
+    no-op."""
+    w = _f32(data_w) * staleness_weights(_f32(ages, _f32(data_w)), decay)
+    return w / torch.clamp(torch.sum(w), min=1e-12)
+
+
+def merge_partials(partials_stacked: Any, data_w, ages, decay: float,
+                   fallback: Optional[Any] = None) -> Any:
+    """The ω̂-weighted sum of per-RSU partials over their segment axis
+    (merged-delta trees of ``ours`` and factor trees of HetLoRA alike).
+    With one partial the normalised weight is exactly 1.0 (x/x).
+
+    fallback: a tree shaped like one segment, returned when every ω_k
+    underflows to zero, so that a merge of all-stale partials keeps the
+    previous global instead of writing zeros. The fused program gates its
+    merge on Σω > 0 itself and passes none."""
+    w = _f32(data_w) * staleness_weights(_f32(ages, _f32(data_w)), decay)
+    wn = w / torch.clamp(torch.sum(w), min=1e-12)
+    merged = tree_map(lambda x: torch.sum(x.float() * _lanes_w(wn, x),
+                                          dim=-3), partials_stacked)
+    if fallback is None:
+        return merged
+    alive = torch.sum(w) > 0
+    return tree_map(lambda m, f: torch.where(alive.to(m.device), m,
+                                             f.float()), merged, fallback)
+
+
+def segment_weight_matrix(assoc, weights, num_segments: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(V, K) per-segment normalised weights and the (K,) raw sums.
+
+    assoc: (V,) segment of each lane, -1 for a lane in no segment (its
+    row is zero, an exact no-op); weights: (V,) data sizes (0 for a lane
+    that does not contribute). Column k sums to 1 where segment k has
+    weight."""
+    w = _f32(weights)
+    assoc = torch.as_tensor(assoc).to(w.device)
+    onehot = (assoc.reshape(-1, 1) == torch.arange(
+        num_segments, device=w.device)).to(torch.float32)
+    w_vk = w.reshape(-1, 1) * onehot
+    seg_w = torch.sum(w_vk, dim=0)
+    return w_vk / torch.clamp(seg_w, min=1e-12), seg_w
+
+
+def aggregate_merged_padded_segmented(stacked: Any, weights, assoc,
+                                      num_segments: int, scale: float
+                                      ) -> Tuple[Any, torch.Tensor]:
+    """Per-RSU merged-delta partials of a stacked adapter tree (a rank
+    group, or the fused engine's rank-padded fleet; lanes third from the
+    end). Returns (partials, seg_w): each leaf (..., K, d_in, d_out), slot
+    k equal to :func:`aggregate_merged` over segment k's lanes, and the
+    (K,) raw weight sums (0: the slot is zero and the caller keeps its
+    previous partial)."""
+    wn_vk, seg_w = segment_weight_matrix(assoc, weights, num_segments)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        a, b = ad["a"].float(), ad["b"].float()
+        wk = wn_vk.to(a.device)
+        delta = torch.stack([scale * torch.einsum(
+            "...vir,...vro->...io", a * wk[:, k].reshape(-1, 1, 1), b)
+            for k in range(num_segments)], dim=-3)
+        out = tree_set(out, path, {"delta": delta})
+    return out, seg_w
+
+
+def aggregate_hetlora_segmented(stacked: Any, weights, assoc,
+                                num_segments: int, max_rank: int
+                                ) -> Tuple[Any, torch.Tensor]:
+    """Per-RSU HetLoRA partials: factors zero-padded to max_rank and
+    averaged per segment. Returns a factor tree with the segment axis
+    third from the end (slot k equal to :func:`aggregate_hetlora` over
+    segment k's lanes) and the (K,) raw weight sums."""
+    wn_vk, seg_w = segment_weight_matrix(assoc, weights, num_segments)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        a, b = _pad_rank(tree_get(stacked, path), max_rank)
+        wk = wn_vk.to(a.device)
+        out = tree_set(out, path, {
+            "a": torch.einsum("vk,...vir->...kir", wk, a),
+            "b": torch.einsum("vk,...vro->...kro", wk, b)})
+    return out, seg_w
+
+
+def stack_partials(partials: Sequence[Any]) -> Any:
+    """K per-RSU trees → one tree with the segment axis third from the
+    end."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=-3), *partials)
+
+
+def unstack_partials(stacked: Any, num_segments: int) -> List[Any]:
+    """Inverse of :func:`stack_partials` (copies, not views)."""
+    return [tree_map(lambda x: x.select(-3, k).clone(), stacked)
+            for k in range(num_segments)]
+
+
+# ---------------------------------------------------------------------------
+# Semi-synchronous participation: the upload buffer. A vehicle whose
+# upload misses its round parks its trained merged delta; it lands up to
+# max_delay rounds late at weight w·decay**k. The host server's buffer
+# (one tree per vehicle) and the fused program's (one tree with the fleet
+# on the lane axis) fold their releases in through the same functions.
+# ---------------------------------------------------------------------------
+
+def merge_delta_fleet(stacked: Any, scale: float) -> Any:
+    """Per-lane merged deltas of a rank-padded stacked adapter tree, no
+    reduction over the lanes: leaf (..., V, d_in, d_out) = scale·A_v·B_v.
+    Zero rank tails add exact zeros."""
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        out = tree_set(out, path, {"delta": merge_delta_lanes(ad, scale)})
+    return out
+
+
+def merge_delta_lanes(ad: Dict[str, torch.Tensor], scale: float
+                      ) -> torch.Tensor:
+    """scale·A_v·B_v of one stacked target, lane by lane."""
+    return scale * torch.einsum("...vir,...vro->...vio", ad["a"].float(),
+                                ad["b"].float())
+
+
+def _lane_sum(w_kv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Σ_v w_kv[k, v]·x[..., v, i, o] for a buffer leaf x: (..., K, i,
+    o), one matrix product over the flattened (i, o) plane."""
+    lead, (V, i, o) = x.shape[:-3], x.shape[-3:]
+    y = torch.matmul(w_kv.to(x.device), x.float().reshape(lead + (V, i * o)))
+    return y.reshape(lead + (w_kv.shape[0], i, o))
+
+
+def buffer_release_sum(buf_stacked: Any, rel_w) -> Tuple[Any, torch.Tensor]:
+    """Raw weighted sum of released buffer lanes (trivial-tier landing).
+    rel_w: (V,) discounted release weights, 0 for a lane not releasing
+    this round (an exact no-op). Returns (Σ relw_v·δ_v, Σ relw_v), the
+    raw sums :func:`combine_with_released` takes."""
+    w = _f32(rel_w)
+    raw = tree_map(lambda x: _lane_sum(w.reshape(1, -1), x).select(-3, 0),
+                   buf_stacked)
+    return raw, torch.sum(w)
+
+
+def segment_buffer_release(buf_stacked: Any, rel_w, dest,
+                           num_segments: int) -> Tuple[Any, torch.Tensor]:
+    """Per-RSU raw sums of released buffer lanes (tier landing). dest:
+    (V,) destination segment per lane (-1: a no-op row). Returns the raw
+    sums with the segment axis third from the end and the (K,) weight
+    sums."""
+    w = _f32(rel_w)
+    dest = torch.as_tensor(dest).to(w.device)
+    w_vk = w.reshape(-1, 1) * (dest.reshape(-1, 1) == torch.arange(
+        num_segments, device=w.device)).to(torch.float32)
+    raw = tree_map(lambda x: _lane_sum(w_vk.t(), x), buf_stacked)
+    return raw, torch.sum(w_vk, dim=0)
+
+
+def combine_with_released(merged: Any, live_w, released_raw: Any,
+                          released_w) -> Any:
+    """Fold late uploads into a normalised live merge: (merged·W_live +
+    raw) / max(W_live + W_rel, eps), the normalised aggregate over live ∪
+    released. live_w / released_w: scalars, or (K,) per segment of a
+    segmented merge."""
+    def one(m, r):
+        lw, rw = _f32(live_w, m), _f32(released_w, m)
+        tot = torch.clamp(lw + rw, min=1e-12)
+        return ((m.float() * _seg_w(lw, m) + r.float())
+                / _seg_w(tot, m))
+    return tree_map(one, merged, released_raw)

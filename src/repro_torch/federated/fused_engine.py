@@ -1,5 +1,5 @@
-"""Fused round engine, port of ``repro/federated/fused_engine.py`` (the
-trivial RSU tier, sync participation, one device).
+"""Fused round engine, port of ``repro/federated/fused_engine.py`` (one
+device).
 
 The batched engine trains each (task, rank) group as one stack of lanes
 but still plans, distributes, accounts and aggregates on the host between
@@ -36,12 +36,14 @@ branches and select with ``torch.where``; the SVD of an all-zero delta
 is finite, so the unselected branch is harmless.
 
 Exactness contract (as the reference's): the host stages by consuming the
-serial engine's RNG streams in its order; first-round fresh adapters come
-from each server's stream at max_rank, rank-independently; everything
-else replays the serial maths in-program. The reference's caveat holds
-for :meth:`FusedRoundEngine.run_scanned`: a task whose first covered
-round keeps no upload trains from zero adapters next round (the serial
-engine redraws); per-round execution stages on demand and stays exact.
+serial engine's RNG streams in its order; fresh adapters come from each
+server's stream at max_rank, rank-independently, for every round of a
+task that has no merged delta yet; everything else replays the serial
+maths in-program. The reference's ``run_scanned`` stages one fresh draw
+per task on the trivial tier, so a task whose first covered round keeps
+no upload (every one deferred, say) trains from zero adapters next round
+there; the port's :meth:`FusedRoundEngine.run_scanned` stages every
+round's draws, as the reference's does under a tier, and stays exact.
 
 The ablations are static branches of the program, as in the
 reference: without ``mobility_aware`` (``ours_no_mobility``) a departing
@@ -50,9 +52,24 @@ vehicle's upload is lost and no §IV-E fallback is taken; without
 budgets and only its round advances. Each method captures its own
 graphs.
 
-Not ported (raise ``NotImplementedError``): non-trivial RSU tiers and
-semi-sync participation (ROADMAP Queue 1, item 6), the sharded fleet
-(item 12).
+So are the round's modes. A non-trivial RSU tier charges each handoff
+the migration penalty, segment-sums the uploads into per-RSU partials
+(the carry's ``partials``, ``partial_w``, ``partial_age``) and merges
+them into the global delta in a sync round. Whether a round syncs is
+data, the staged ``sync`` input, never a Python branch: a captured round
+is replayed every round, so a gate read on the host at capture would
+keep round 0's answer for good. The same holds for the refresh, merge
+and release masks, each a ``torch.where``. ``semi_sync`` participation
+carries the in-flight buffer (``buf_delta`` per task with the fleet on
+the lane axis, ``buf_w``, ``buf_age``, ``buf_dest``): each round ages it,
+releases the entries of lanes back in coverage into the merge (or their
+RSU's partial), drops the overdue ones and admits the deferred lanes'
+merged deltas, in place and one target at a time. The first round runs
+eagerly and the capture follows it: the buffer is too large to
+snapshot for a warm-up that is put back.
+
+Not ported (raises ``NotImplementedError``): the sharded fleet (ROADMAP
+Queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -75,17 +92,19 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.adam import leaves
 
 FUSED_METHODS = ("ours", "ours_no_energy", "ours_no_mobility")
-TIER_ITEM = "ROADMAP Queue 1, item 6"
 SHARD_ITEM = "ROADMAP Queue 1, item 12"
 # one record row per task, float64 (ints exact): the program's outputs in
 # this order
 REC = ("accuracy", "latency", "energy", "lambda", "rank_sum", "active",
        "departing", "handoffs", "fb0", "fb1", "fb2", "comm_params",
        "n_kept", "has_m", "budget")
-# static inputs staged per round: int64 and f32 vectors of (T, V) (peer
-# and fresh_use are (T,))
-INT_INPUTS = ("active", "departing", "handoff", "counts", "peer",
-              "fresh_use")
+# semi_sync's buffer tallies, recorded under it only
+SEMI_REC = ("deferred", "released", "rel_weight")
+# static inputs staged per round: int64 and f32 vectors of (T, V) (peer,
+# fresh_use and sync are (T,))
+INT_INPUTS = ("active", "departing", "handoff", "assoc", "counts", "peer",
+              "fresh_use", "sync")
+PER_TASK = ("peer", "fresh_use", "sync")
 F32_INPUTS = ("rate_down", "rate_up")
 # the carry's small leaves, fetched with the record every round
 STATE = ("counts", "reward_sum", "energy_sum", "lam", "ucb_round",
@@ -138,10 +157,6 @@ class FusedRoundEngine:
         if not cfg.shard.trivial:
             raise NotImplementedError(
                 f"the sharded fleet is not ported yet ({SHARD_ITEM})")
-        if not cfg.rsu_tier.trivial or not cfg.participation.trivial:
-            raise NotImplementedError(
-                "the fused engine runs the trivial RSU tier with sync "
-                f"participation only ({TIER_ITEM})")
         self.sim = sim
         self.cfg = cfg
         self.spec = METHODS[cfg.method]
@@ -161,6 +176,9 @@ class FusedRoundEngine:
         self.lora_max = dataclasses.replace(cfg.lora, rank=self.Rmax)
         self.S0 = cfg.lora.scale      # server-side merge/redistribute α/r₀
         self.alpha = cfg.lora.alpha
+        self.tier, self.part = cfg.rsu_tier, cfg.participation
+        self.K = self.tier.num_rsus_per_task
+        self.rec_keys = REC + (() if self.part.trivial else SEMI_REC)
         self.steps_full = cfg.local_steps
         self.steps_dep = max(1, int(round(cfg.local_steps
                                           * cfg.departure_fraction)))
@@ -208,7 +226,7 @@ class FusedRoundEngine:
         self._has_merged_host = [False] * self.T
         self._round = 0
         self._graphs = None
-        self._mid = None
+        self._mid = self._graph_mid = None
 
     # ------------------------------------------------------------------
     # Static buffers
@@ -240,8 +258,8 @@ class FusedRoundEngine:
         self.omega_shapes = agg.svd_omega_shapes(zero_merged, R)
         S = sim.task_data[0]["tokens"].shape[-1]
         B = self.cfg.batch_size
-        self._int_layout = ([(k, (nt,) if k in ("peer", "fresh_use")
-                              else (nt, V)) for k in INT_INPUTS]
+        self._int_layout = ([(k, (nt,) if k in PER_TASK else (nt, V))
+                             for k in INT_INPUTS]
                             + [("tokens", (nt, V, self.steps_full, B, S)),
                                ("labels", (nt, V, self.steps_full, B))])
         self._f32_layout = [(k, (nt, V)) for k in F32_INPUTS]
@@ -270,11 +288,34 @@ class FusedRoundEngine:
             "has_merged": torch.zeros(nt, dtype=torch.bool, device=dev),
             "merged": [zero_merged] + [tree_map(torch.clone, zero_merged)
                                        for _ in range(nt - 1)]}
+
+        def lanes(n):
+            return [tree_map(lambda d: torch.zeros(
+                d.shape[:-2] + (n,) + d.shape[-2:], dtype=torch.float32,
+                device=dev), zero_merged) for _ in range(nt)]
+        if not self.tier.trivial:
+            # per task: the RSU partials (segment axis on the lane axis),
+            # each one's data weight and rounds since its last refresh
+            self.carry["partials"] = lanes(self.K)
+            self.carry["partial_w"] = torch.zeros(
+                (nt, self.K), dtype=torch.float32, device=dev)
+            self.carry["partial_age"] = torch.zeros(
+                (nt, self.K), dtype=torch.float32, device=dev)
+        if not self.part.trivial:
+            # per task: each lane's buffered merged delta, its data weight
+            # (0: empty), rounds waited and destination RSU
+            self.carry["buf_delta"] = lanes(V)
+            self.carry["buf_w"] = torch.zeros((nt, V), dtype=torch.float32,
+                                              device=dev)
+            self.carry["buf_age"] = torch.zeros((nt, V), dtype=torch.float32,
+                                                device=dev)
+            self.carry["buf_dest"] = torch.full((nt, V), -1,
+                                                dtype=torch.int64, device=dev)
         # the two shared SVDs per task, written by the eager segments
         self.dist_svd = [tree_map(torch.clone, zero_svd) for _ in range(nt)]
         self.eval_svd = [tree_map(torch.clone, zero_svd) for _ in range(nt)]
         # the record and the small carry (STATE), one float64 vector
-        self.out = torch.zeros(nt * len(REC) + sum(
+        self.out = torch.zeros(nt * len(self.rec_keys) + sum(
             int(np.prod(self.carry[k].shape)) for k in STATE),
             dtype=torch.float64, device=dev)
 
@@ -319,11 +360,46 @@ class FusedRoundEngine:
                 else:
                     _copy_tree(c["merged"][t], m)
             c["has_merged"].copy_(torch.as_tensor(self._has_merged_host))
+            for t, srv in enumerate(sim.servers):
+                if not self.tier.trivial:
+                    self._adopt_partials(t, srv)
+                if not self.part.trivial:
+                    self._adopt_buffer(t, srv)
             c["budgets"].copy_(sim.alloc.budgets)
             c["difficulty"].copy_(sim.alloc.difficulty)
             c["alloc_round"].fill_(int(sim.alloc.round))
         self._round = int(sim.servers[0].round)
         self._carry_ready = True
+
+    def _adopt_partials(self, t: int, srv) -> None:
+        """Task t's RSU partials from its host server (zeros where it has
+        none)."""
+        c = self.carry
+        for d in leaves(c["partials"][t]):
+            d.zero_()
+        for k, p in enumerate(srv.partials or []):
+            if p is not None:
+                tree_map(lambda d, s: d.select(LANE_AXIS, k).copy_(s),
+                         c["partials"][t], p)
+        c["partial_w"][t].copy_(torch.as_tensor(srv.partial_w))
+        c["partial_age"][t].copy_(torch.as_tensor(srv.partial_age))
+
+    def _adopt_buffer(self, t: int, srv) -> None:
+        """Task t's in-flight buffer from its host server, each entry at
+        its vehicle's lane (the others empty)."""
+        c = self.carry
+        for d in leaves(c["buf_delta"][t]):
+            d.zero_()
+        w = np.zeros(self.V, np.float32)
+        age = np.zeros(self.V, np.float32)
+        dest = np.full(self.V, -1, np.int64)
+        for v, ent in srv.buffer.items():
+            tree_map(lambda d, s: d.select(LANE_AXIS, v).copy_(s),
+                     c["buf_delta"][t], ent["delta"])
+            w[v], age[v], dest[v] = ent["w"], ent["age"], ent["dest"]
+        c["buf_w"][t].copy_(torch.from_numpy(w))
+        c["buf_age"][t].copy_(torch.from_numpy(age))
+        c["buf_dest"][t].copy_(torch.from_numpy(dest))
 
     def reset_carry(self) -> None:
         """Re-adopt the simulator's host state before the next round (after
@@ -357,6 +433,7 @@ class FusedRoundEngine:
             ids = np.where(act)[0]
             x["active"][t], x["departing"][t] = act, dep
             x["handoff"][t] = view["handoff"]
+            x["assoc"][t] = view["assoc"]
             x["peer"][t] = bool(view["peer_available"])
             rd, ru = sim.channel.round_rates(self.rsu_tx, dev_tx,
                                              view["distances"], sim.shadow,
@@ -375,6 +452,7 @@ class FusedRoundEngine:
                 x["fresh_use"][t] = 1
             else:
                 fresh.append(None)
+        x["sync"][:] = (seed + 1) % self.tier.sync_period == 0
         x["omega"] = agg.draw_omegas(self._merged_like, self.Rmax, seed,
                                      sim.servers[0].draw_omega)
         return x, fresh
@@ -429,7 +507,8 @@ class FusedRoundEngine:
         x, c, sim = self.x, self.carry, self.sim
         mid: Dict[str, Any] = {k: [] for k in (
             "arms", "reward", "energy", "keep", "lat", "e_t", "rank_sum",
-            "n_active", "n_kept", "fb", "comm", "dep", "hoff", "has_m")}
+            "n_active", "n_kept", "fb", "comm", "dep", "hoff", "has_m")
+            + SEMI_REC}
         if self.check:
             mid.update(dist=[], new=[], ranks=[])
         for t in range(self.T):
@@ -488,9 +567,18 @@ class FusedRoundEngine:
                 fb = torch.sum((act & dep)[:, None]
                                * torch.nn.functional.one_hot(strat, 3), dim=0)
             else:
+                migrate = torch.zeros_like(act)
                 contribute = act & ~dep
                 extra_e = extra_tau = torch.zeros_like(local_acc)
                 fb = torch.zeros(3, dtype=torch.int64, device=act.device)
+            hoff = act & (x["handoff"][t] > 0)
+            if not self.tier.trivial:
+                # the adapter migrates between two RSUs of the task's tier
+                ho_tau, ho_e = cm.handoff_costs(self.tier.handoff_latency,
+                                                self.tier.handoff_energy,
+                                                hoff.float())
+                extra_e = extra_e + ho_e
+                extra_tau = extra_tau + ho_tau
             e_v = costs["energy"] + extra_e
             tau_v = costs["latency"] + extra_tau
             per_v_energy = torch.where(act, e_v, 0.0)
@@ -499,14 +587,44 @@ class FusedRoundEngine:
             n_active = torch.sum(act)
             n_kept = torch.sum(contribute)
             # 6. rank-padded aggregation; a round that keeps no upload
-            #    leaves the merged delta as it was
-            keep = n_kept > 0
-            w = torch.where(contribute, self.weights[t], 0.0)
-            merged_new = agg.aggregate_merged_padded(new_ads, w, self.S0)
-            merged_out = _where_tree(keep, merged_new, c["merged"][t])
+            #    (and releases none) leaves the merged delta as it was
+            if self.part.trivial:
+                keep = n_kept > 0
+                w = torch.where(contribute, self.weights[t], 0.0)
+            else:
+                buf = self._buffer_step(t, act, dep, contribute, migrate)
+                w = torch.where(contribute & ~buf["defer"], self.weights[t],
+                                0.0)
+                keep = (torch.sum(w) > 0) | buf["any_rel"]
+            if self.tier.trivial:
+                merged_new = agg.aggregate_merged_padded(new_ads, w, self.S0)
+                if not self.part.trivial:
+                    # releases fold into the live merge at raw weights; a
+                    # round without any keeps the plain merge
+                    rel_raw, rel_tot = agg.buffer_release_sum(
+                        c["buf_delta"][t], buf["relw"])
+                    merged_new = _where_tree(buf["any_rel"],
+                                             agg.combine_with_released(
+                                                 merged_new, torch.sum(w),
+                                                 rel_raw, rel_tot),
+                                             merged_new)
+                merged_out = _where_tree(keep, merged_new, c["merged"][t])
+                has_m = c["has_merged"][t] | keep
+                eval_gate = keep
+            else:
+                merged_out, do_merge = self._tier_step(
+                    t, new_ads, w, torch.where(contribute, x["assoc"][t], -1),
+                    None if self.part.trivial else buf)
+                has_m = c["has_merged"][t] | do_merge
+                # before its first sync a task has no global model to eval
+                eval_gate = keep & has_m
             _copy_tree(c["merged"][t], merged_out)
-            has_m = c["has_merged"][t] | keep
             c["has_merged"][t].copy_(has_m)
+            if not self.part.trivial:
+                self._buffer_admit(t, new_ads, buf)
+                mid["deferred"].append(torch.sum(buf["defer"]))
+                mid["released"].append(torch.sum(buf["release"]))
+                mid["rel_weight"].append(torch.sum(buf["relw"]))
 
             def mmax(a):
                 return torch.max(torch.where(act, a, -float("inf")))
@@ -517,7 +635,7 @@ class FusedRoundEngine:
             mid["arms"].append(arms)
             mid["reward"].append(per_v_reward)
             mid["energy"].append(per_v_energy)
-            mid["keep"].append(keep)
+            mid["keep"].append(eval_gate)
             mid["lat"].append(lat)
             mid["e_t"].append(torch.sum(per_v_energy)
                               + self.agg_e_pv * n_kept_f)
@@ -528,13 +646,105 @@ class FusedRoundEngine:
             mid["comm"].append(torch.sum(torch.where(
                 contribute, self.payload_i[arm_c], 0)))
             mid["dep"].append(torch.sum(dep))
-            mid["hoff"].append(torch.sum(act & (x["handoff"][t] > 0)))
+            mid["hoff"].append(torch.sum(hoff))
             mid["has_m"].append(has_m)
             if self.check:
                 mid["dist"].append(dist)
                 mid["new"].append(new_ads)
                 mid["ranks"].append(ranks)
         return mid
+
+    def _sync_gate(self, t: int) -> torch.Tensor:
+        """Whether this round syncs task t's tier: the staged input, read
+        on the device when the round runs."""
+        return self.x["sync"][t] > 0
+
+    def _tier_step(self, t: int, new_ads: Any, w: torch.Tensor,
+                   assoc: torch.Tensor, buf: Optional[Dict[str, Any]]
+                   ) -> Tuple[Any, torch.Tensor]:
+        """Task t's uploads (and releases) into its RSU partials, the
+        partials' refresh, age and weight, and in a sync round their merge
+        into the global delta, which a round without live partials keeps.
+        Updates the carry's partials in place; returns (the merged delta
+        out, whether it merged)."""
+        c, K, decay = self.carry, self.K, self.tier.staleness_decay
+        part_new, seg_w = agg.aggregate_merged_padded_segmented(
+            new_ads, w, assoc, K, self.S0)
+        if buf is not None:
+            # releases land at their destination RSU's partial; a segment
+            # without releases keeps the plain segment merge
+            dest = torch.where(buf["release"], buf["dest"], -1)
+            rel_raw, rel_w = agg.segment_buffer_release(
+                c["buf_delta"][t], buf["relw"], dest, K)
+            has_rel = (rel_w > 0).reshape(K, 1, 1)
+            part_new = _where_tree(has_rel, agg.combine_with_released(
+                part_new, seg_w, rel_raw, rel_w), part_new)
+            seg_w = seg_w + rel_w
+        refreshed = seg_w > 0
+        parts = _where_tree(refreshed.reshape(K, 1, 1), part_new,
+                            c["partials"][t])
+        pw_old, age_old = c["partial_w"][t], c["partial_age"][t]
+        pw = torch.where(refreshed, seg_w, pw_old)
+        age = torch.where(refreshed, 0.0, torch.where(
+            pw_old > 0, age_old + 1.0, age_old))
+        is_sync = self._sync_gate(t)
+        omega = pw * agg.staleness_weights(age, decay)
+        do_merge = is_sync & (torch.sum(omega) > 0)
+        merged = _where_tree(do_merge, agg.merge_partials(parts, pw, age,
+                                                          decay),
+                             c["merged"][t])
+        _copy_tree(c["partials"][t], parts)
+        # a sync opens a new window: only new uploads count toward the next
+        c["partial_w"][t].copy_(torch.where(is_sync, 0.0, pw))
+        c["partial_age"][t].copy_(torch.where(is_sync, 0.0, age))
+        return merged, do_merge
+
+    def _buffer_step(self, t: int, act, dep, contribute, migrate
+                     ) -> Dict[str, Any]:
+        """semi_sync, before the aggregation: age task t's buffer, find
+        the entries released this round (the lane back in coverage within
+        max_delay) at their discounted weights, and the lanes whose upload
+        defers (a departing contributor that does not migrate; none with
+        max_delay 0, which is then sync bit for bit)."""
+        c, part = self.carry, self.part
+        bw, bage = c["buf_w"][t], c["buf_age"][t]
+        occ = bw > 0.0
+        age1 = torch.where(occ, bage + 1.0, 0.0)
+        within = occ & (age1 <= float(part.max_delay))
+        release = act & within
+        relw = torch.where(release, bw * agg.staleness_weights(
+            age1, part.vehicle_staleness_decay), 0.0)
+        if part.max_delay > 0:
+            defer = contribute & dep & ~migrate
+        else:
+            defer = torch.zeros_like(act)
+        return {"age1": age1, "release": release, "relw": relw,
+                "keep_buf": within & ~act, "defer": defer,
+                "any_rel": torch.sum(relw) > 0.0,
+                # a release lands at the vehicle's current RSU with
+                # buffer_handoffs, else where it trained
+                "dest": (self.x["assoc"][t] if part.buffer_handoffs
+                         else c["buf_dest"][t])}
+
+    def _buffer_admit(self, t: int, new_ads: Any, buf: Dict[str, Any]
+                      ) -> None:
+        """semi_sync, after the aggregation: the deferred lanes' merged
+        deltas enter task t's buffer at age 0, in-flight entries age,
+        released and overdue ones empty (weight 0: an exact no-op in every
+        release sum). In place, one target at a time."""
+        c, defer, keep = self.carry, buf["defer"], buf["keep_buf"]
+        for path in agg.tree_paths(new_ads):
+            d = agg.tree_get(c["buf_delta"][t], path)["delta"]
+            new = agg.merge_delta_lanes(agg.tree_get(new_ads, path),
+                                        self.S0)
+            torch.where(defer.reshape(-1, 1, 1), new, d, out=d)
+        c["buf_w"][t].copy_(torch.where(defer, self.weights[t], torch.where(
+            keep, c["buf_w"][t], 0.0)))
+        c["buf_age"][t].copy_(torch.where(defer, 0.0, torch.where(
+            keep, buf["age1"], 0.0)))
+        c["buf_dest"][t].copy_(torch.where(defer, self.x["assoc"][t],
+                                           torch.where(keep, c["buf_dest"][t],
+                                                       -1)))
 
     def _tail(self, mid: Dict[str, Any]) -> None:
         """Segment 2, per task: global eval from the seed-0 SVD, the dual
@@ -563,7 +773,8 @@ class FusedRoundEngine:
                 acc, mid["lat"][t], mid["e_t"][t], info["lambda"],
                 mid["rank_sum"][t], mid["n_active"][t], mid["dep"][t],
                 mid["hoff"][t], fb[0], fb[1], fb[2], mid["comm"][t],
-                mid["n_kept"][t], mid["has_m"][t], budgets[t])]))
+                mid["n_kept"][t], mid["has_m"][t], budgets[t])
+                + tuple(mid[k][t] for k in SEMI_REC if mid[k])]))
         for t, s in enumerate(states):
             for k in ("counts", "reward_sum", "energy_sum"):
                 c[k][t].copy_(getattr(s, k))
@@ -591,36 +802,28 @@ class FusedRoundEngine:
         self._eval_svd()
         self._tail(self._mid)
 
-    def _snapshot(self) -> List[torch.Tensor]:
-        return [t.clone() for t in leaves(self.carry)]
-
-    def _restore(self, snap: List[torch.Tensor]) -> None:
-        for d, s in zip(leaves(self.carry), snap):
-            d.copy_(s)
-
     def _warm_up(self) -> None:
-        """Run the round once eagerly on a side stream (builds the
-        kernels, settles the allocator), then put the carry back: the
-        round itself is the first replay."""
-        snap = self._snapshot()
+        """The first round, eagerly on a side stream (builds the kernels,
+        settles the allocator); the capture follows it, and every later
+        round replays. (Putting the carry back for a replay of the first
+        round would copy semi_sync's buffer, tens of GiB at full width.)"""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self._phases()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self._restore(snap)
-        self._mid = None
 
     def _capture(self) -> None:
         """Capture both segments into graphs that share one memory pool.
-        A failed capture raises; nothing falls back to eager."""
+        A capture records and runs nothing; a failed one raises, and
+        nothing falls back to eager."""
         g1 = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g1):
             mid = self._main()
         g2 = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g2, pool=g1.pool()):
             self._tail(mid)
-        self._mid = mid
+        self._graph_mid = mid
         self._graphs = (g1, g2)
         self.captures += 1
 
@@ -632,11 +835,13 @@ class FusedRoundEngine:
         if self._graphs is None:
             self._warm_up()
             self._capture()
+            return
         g1, g2 = self._graphs
         self._dist_svd()
         g1.replay()
         self._eval_svd()
         g2.replay()
+        self._mid = self._graph_mid
 
     # ------------------------------------------------------------------
     # Public API
@@ -661,9 +866,8 @@ class FusedRoundEngine:
 
     def run_scanned(self, rounds: int) -> List[Dict[str, Any]]:
         """``rounds`` rounds with the host out of the loop: every round is
-        staged first (one fresh draw per task, at its first covered round,
-        as the reference's scan does), the staged inputs go to the device
-        in one copy, and each round copies its slice into the static
+        staged first, the staged inputs go to the device in one copy, and
+        each round copies its slice (and its fresh draws) into the static
         inputs on the device and runs the program. The records come back
         in one copy at the end."""
         if self.check:
@@ -671,33 +875,32 @@ class FusedRoundEngine:
                              " use run()/run_round(), not run_scanned()")
         if not self._carry_ready:
             self._init_carry()
-        staged = [False] * self.T
-        ints, f32s = [], []
-        fresh_of: List[Any] = [None] * self.T
+        # a task without a global model at the start draws fresh adapters
+        # for every round, as the serial server does until its first merge
+        # (under a tier, its first sync); each round's draws go into the
+        # fleet just before that round runs, and the program reads them
+        # only while the task has no merged delta
+        allow = [not hm for hm in self._has_merged_host]
+        ints, f32s, fresh_r = [], [], []
         for r in range(rounds):
-            allow = [not self._has_merged_host[t] and not staged[t]
-                     for t in range(self.T)]
             x, fresh = self._stage_round(allow, self._round + r)
-            for t, f in enumerate(fresh):
-                if f is not None:
-                    staged[t] = True
-                    fresh_of[t] = f
+            fresh_r.append(fresh)
             i, f = self._pack(x)
             ints.append(i)
             f32s.append(f)
         with torch.no_grad():
             all_int = torch.from_numpy(np.stack(ints)).to(self.device)
             all_f32 = torch.from_numpy(np.stack(f32s)).to(self.device)
-            for t, f in enumerate(fresh_of):
-                if f is not None:
-                    _scatter_lanes(self.fresh[t], *f)
             outs = torch.empty((rounds,) + self.out.shape,
                                dtype=self.out.dtype, device=self.device)
-        del fresh_of
         for r in range(rounds):
             with torch.no_grad():
                 self.int_in.copy_(all_int[r])
                 self.f32_in.copy_(all_f32[r])
+                for t, f in enumerate(fresh_r[r]):
+                    if f is not None:
+                        _scatter_lanes(self.fresh[t], *f)
+            fresh_r[r] = None
             self._execute()
             with torch.no_grad():
                 outs[r].copy_(self.out)
@@ -714,10 +917,11 @@ class FusedRoundEngine:
         """One round's record in the serial engine's history schema."""
         sim = self.sim
         cfg = self.cfg.ucb
-        rows = host[:self.T * len(REC)].reshape(self.T, len(REC))
+        n = len(self.rec_keys)
+        rows = host[:self.T * n].reshape(self.T, n)
         tasks = []
         for t in range(self.T):
-            h = dict(zip(REC, rows[t]))
+            h = dict(zip(self.rec_keys, rows[t]))
             active = int(h["active"])
             acc, lat = float(h["accuracy"]), float(h["latency"])
             tasks.append({
@@ -732,6 +936,10 @@ class FusedRoundEngine:
                 "fallbacks": {i: int(h[f"fb{i}"]) for i in range(3)},
                 "comm_params": int(h["comm_params"]),
                 "budget": float(h["budget"])})
+            if not self.part.trivial:
+                tasks[-1].update(deferred=int(h["deferred"]),
+                                 released=int(h["released"]),
+                                 rel_weight=float(h["rel_weight"]))
             if h["has_m"]:
                 self._has_merged_host[t] = True
         rec = {"round": len(sim.history), "tasks": tasks,
@@ -749,7 +957,7 @@ class FusedRoundEngine:
         allocator on the CPU (from the fetched vector), each server's
         merged deltas (a copy on the device) and round."""
         sim, c = self.sim, self.carry
-        st, o = {}, self.T * len(REC)
+        st, o = {}, self.T * len(self.rec_keys)
         for k in STATE:
             n = int(np.prod(c[k].shape))
             st[k] = torch.from_numpy(host[o:o + n].astype(np.float32)
@@ -768,6 +976,16 @@ class FusedRoundEngine:
                     tree_map(torch.clone, c["merged"][t]), self._round)
             else:
                 sim.servers[t].round = self._round
+            if not self.tier.trivial:
+                sim.servers[t].load_partials(
+                    agg.unstack_partials(c["partials"][t], self.K),
+                    c["partial_w"][t].cpu().numpy(),
+                    c["partial_age"][t].cpu().numpy())
+            if not self.part.trivial:
+                sim.servers[t].load_buffer(
+                    c["buf_delta"][t], c["buf_w"][t].cpu().numpy(),
+                    c["buf_age"][t].cpu().numpy(),
+                    c["buf_dest"][t].cpu().numpy())
 
     # ------------------------------------------------------------------
     def _run_check(self, x: Dict[str, Any], mid: Dict[str, Any]) -> None:

@@ -1,6 +1,6 @@
 """RSU-side server, port of ``repro/federated/server.py``: per-method
 global adapter state, distribution and aggregation (list and grouped
-paths) on the trivial RSU tier with sync participation.
+paths), RSU tiers and semi-synchronous participation.
 
 Ours (paper §III-B): the server state is the merged global delta tree
 Δθ per LoRA target; distribution ships truncated-SVD factors at each
@@ -8,12 +8,20 @@ vehicle's chosen rank; aggregation is the data-weighted sum of the
 clients' scale·A·B products, or with ``residual=True`` (``ours_residual``)
 the retained Δθ plus the clients' increments over what they were sent.
 HomoLoRA, HetLoRA and FedRA keep a global adapter tree and apply the
-baselines' rules of §V-A. Non-trivial RSU tiers and semi-synchronous
-participation raise ``NotImplementedError`` (ROADMAP Queue 1, item 6).
-:meth:`RSUServer.aggregate_grouped` takes the batched engine's stacked
-groups; :meth:`RSUServer.fresh_padded` stages the fused engine's
-first-round adapters and :meth:`RSUServer.load_merged` adopts its merged
-deltas.
+baselines' rules of §V-A. :meth:`RSUServer.aggregate_grouped` takes the
+batched engine's stacked groups; :meth:`RSUServer.fresh_padded` stages
+the fused engine's first-round adapters and :meth:`RSUServer.load_merged`
+adopts its merged deltas.
+
+A non-trivial :class:`~repro_torch.config.RSUTierSpec` (``ours`` and
+``hetlora``) routes each upload into the partial of the RSU it is
+associated with; every ``sync_period`` rounds the partials merge, with
+staleness-discounted weights, into the global state, and only then does
+the task have one. ``semi_sync`` participation (``ours``) parks a missed
+upload's merged delta in an in-flight buffer, which lands it up to
+``max_delay`` rounds late at a discounted weight
+(:meth:`RSUServer.release_buffered`, :meth:`RSUServer.admit_buffered`).
+The trivial tier and ``sync`` never enter either.
 
 Three draws come from ``jax.random`` in the reference: the fresh
 adapters, FedRA's layer permutations (both from the server's one key)
@@ -39,8 +47,8 @@ from repro_torch.interop import tree_map
 from repro_torch.models import transformer as T
 from repro_torch.models.runmode import resolve_device
 
-MISSING = "ROADMAP Queue 1, item 6"
 SERVER_METHODS = ("ours", "homolora", "hetlora", "fedra")
+TIER_METHODS = ("ours", "hetlora")
 
 
 class RSUServer:
@@ -70,13 +78,25 @@ class RSUServer:
         self.tier = tier or RSUTierSpec()
         self.participation = participation or ParticipationSpec()
         if not self.tier.trivial:
-            raise NotImplementedError(
-                f"multi-RSU tiers ({self.tier}) are not ported yet "
-                f"({MISSING})")
+            if method not in TIER_METHODS:
+                raise ValueError(
+                    f"multi-RSU tiers support methods {TIER_METHODS}; "
+                    f"got {method!r} with {self.tier}")
+            if residual:
+                raise ValueError(
+                    "residual aggregation is incompatible with multi-RSU "
+                    "tiers (increments would double-count across partials)")
         if not self.participation.trivial:
-            raise NotImplementedError(
-                f"semi_sync participation ({self.participation}) is not "
-                f"ported yet ({MISSING})")
+            if method != "ours":
+                raise ValueError(
+                    "semi_sync participation buffers MERGED DELTAS, which "
+                    "only the 'ours' aggregation consumes; got "
+                    f"{method!r} with {self.participation}")
+            if residual:
+                raise ValueError(
+                    "residual aggregation is incompatible with semi_sync "
+                    "participation (a late increment would be applied "
+                    "against the wrong base)")
         self.cfg = cfg
         self.lora = lora
         self.method = method
@@ -89,6 +109,16 @@ class RSUServer:
         self.round = 0
         self.merged = None            # ours: tree of {"delta"}
         self.global_adapters = None   # baselines: adapter tree
+        # the tier's state: per-RSU partials (trees of the global state's
+        # kind, None before a segment's first upload), the data weight of
+        # each one's last refresh and the rounds since
+        K = self.tier.num_rsus_per_task
+        self.partials: Optional[List[Any]] = None
+        self.partial_w = np.zeros(K, np.float64)
+        self.partial_age = np.zeros(K, np.int64)
+        # semi_sync's in-flight uploads: vehicle → {"delta" (merged-delta
+        # tree), "w" (data weight), "age" (rounds waited), "dest" (RSU)}
+        self.buffer: Dict[int, Dict[str, Any]] = {}
         self.fedra_fraction = 0.6
         self._masks: List[torch.Tensor] = []
         self._distributed: List[Any] = []
@@ -176,20 +206,30 @@ class RSUServer:
     def aggregate(self, client_adapters: Sequence[Any],
                   weights: Sequence[float],
                   masks: Optional[Sequence] = None,
-                  indices: Optional[Sequence[int]] = None) -> None:
-        """Aggregate the kept clients' adapters (none kept: the state
-        stays). masks: FedRA's layer masks of the kept clients, aligned
-        with ``client_adapters`` (departures drop some of the distributed
-        ones); indices: the kept clients' positions in the distributed
-        list (residual aggregation)."""
+                  indices: Optional[Sequence[int]] = None,
+                  assoc: Optional[Sequence[int]] = None,
+                  released: Optional[Sequence] = None) -> None:
+        """Aggregate the kept clients' adapters (none kept and nothing
+        released: the state stays). masks: FedRA's layer masks of the kept
+        clients, aligned with ``client_adapters`` (departures drop some of
+        the distributed ones); indices: the kept clients' positions in the
+        distributed list (residual aggregation); assoc: each kept client's
+        RSU within the task's tier (a non-trivial tier needs it);
+        released: the late uploads landing this round, (delta, weight,
+        dest) triples from :meth:`release_buffered`."""
         if masks is not None:
             self._masks = list(masks)
-        if not client_adapters:
+        if not self.tier.trivial:
+            self._tier_aggregate_list(client_adapters, weights, assoc,
+                                      released)
+            return
+        if not client_adapters and not released:
             self.round += 1
             return
         if self.method == "ours":
-            new = agg.aggregate_merged(client_adapters, weights,
-                                       self.lora.scale)
+            new = (agg.aggregate_merged(client_adapters, weights,
+                                        self.lora.scale)
+                   if client_adapters else None)
             if self.residual and self.merged is not None and indices:
                 old = agg.aggregate_merged(
                     [self._distributed[i] for i in indices], weights,
@@ -197,7 +237,9 @@ class RSUServer:
                 self.merged = tree_map(lambda g, n, o: g + (n - o),
                                        self.merged, new, old)
             else:
-                self.merged = new
+                self.merged = self._fold_released(
+                    new, float(np.sum(np.asarray(weights, np.float64))),
+                    released)
         elif self.method == "homolora":
             w = np.asarray(weights, np.float64)
             w = w / w.sum()
@@ -212,22 +254,39 @@ class RSUServer:
                 client_adapters, weights, self._masks)
         self.round += 1
 
-    def aggregate_grouped(self, groups: Sequence[Dict[str, Any]]) -> None:
+    def _fold_released(self, new, live_w: float, released) -> Any:
+        """``ours`` on the trivial tier: the live merge ``new`` (None when
+        no upload was kept) with this round's releases folded in."""
+        if not released:
+            return new
+        raw, tot = self._released_raw(released)
+        if new is None:
+            return tree_map(lambda r: r / max(tot, 1e-12), raw)
+        return agg.combine_with_released(new, live_w, raw, tot)
+
+    def aggregate_grouped(self, groups: Sequence[Dict[str, Any]],
+                          released: Optional[Sequence] = None) -> None:
         """Batched-engine aggregation over stacked per-rank groups, equal
         to :meth:`aggregate` over the concatenated clients.
 
         groups: dicts with ``adapters`` (a tree stacked on the lane axis,
         (L, n_g, ...)), ``weights`` (n_g,) data sizes, ``masks`` ((n_g, L)
-        FedRA layer masks, else None) and ``indices`` (the lanes'
-        positions in the distributed list, for residual aggregation). A
-        zero-weight lane is an exact no-op. No group keeps the state."""
-        if not groups:
+        FedRA layer masks, else None), ``indices`` (the lanes' positions
+        in the distributed list, for residual aggregation) and ``assoc``
+        ((n_g,) RSU per lane, for a non-trivial tier). A zero-weight lane
+        is an exact no-op. released: as in :meth:`aggregate`. No group
+        and nothing released keeps the state."""
+        if not self.tier.trivial:
+            self._tier_aggregate_grouped(groups, released)
+            return
+        if not groups and not released:
             self.round += 1
             return
         pairs = [(g["adapters"], g["weights"]) for g in groups]
         if self.method == "ours":
-            new = agg.aggregate_merged_grouped(pairs, self.lora.scale)
-            if (self.residual and self.merged is not None
+            new = (agg.aggregate_merged_grouped(pairs, self.lora.scale)
+                   if pairs else None)
+            if (self.residual and self.merged is not None and pairs
                     and all(g.get("indices") is not None for g in groups)):
                 old = agg.aggregate_merged_grouped(
                     [(stack_trees([self._distributed[i]
@@ -236,7 +295,9 @@ class RSUServer:
                 self.merged = tree_map(lambda g, n, o: g + (n - o),
                                        self.merged, new, old)
             else:
-                self.merged = new
+                self.merged = self._fold_released(
+                    new, float(sum(np.sum(np.asarray(w, np.float64))
+                                   for _, w in pairs)), released)
         elif self.method == "homolora":
             self.global_adapters = agg.average_stacked_grouped(pairs)
         elif self.method == "hetlora":
@@ -254,6 +315,196 @@ class RSUServer:
             self.global_adapters = agg.aggregate_fedra_stacked(
                 stacked, weights, masks)
         self.round += 1
+
+    # ------------------------------------------------------------------
+    # The multi-RSU tier: per-RSU partials and the periodic
+    # staleness-weighted sync (a non-trivial RSUTierSpec only)
+    # ------------------------------------------------------------------
+    def _tier_aggregate_list(self, client_adapters, weights, assoc,
+                             released=None) -> None:
+        """The serial engine's path: each RSU's clients into its
+        partial."""
+        if client_adapters and assoc is None:
+            raise ValueError("non-trivial tier aggregation needs assoc")
+        refreshed = {}
+        for k in range(self.tier.num_rsus_per_task):
+            sel = [i for i, a in enumerate([] if assoc is None else assoc)
+                   if int(a) == k]
+            if not sel:
+                continue
+            subset = [client_adapters[i] for i in sel]
+            w = [float(weights[i]) for i in sel]
+            if self.method == "ours":
+                part = agg.aggregate_merged(subset, w, self.lora.scale)
+            else:   # hetlora: a factor partial zero-padded to max_rank
+                part = agg.aggregate_hetlora(subset, w, self.lora.max_rank)
+            refreshed[k] = (part, sum(w))
+        self._tier_fold_released(refreshed, released)
+        self._tier_commit(refreshed)
+
+    def _tier_fold_released(self, refreshed, released) -> None:
+        """Fold late uploads into their destination RSUs' refreshes: a
+        segment with live uploads combines at raw weights, one without is
+        refreshed by the releases alone."""
+        if not released:
+            return
+        by_dest: Dict[int, List] = {}
+        for entry in released:
+            if int(entry[2]) >= 0:
+                by_dest.setdefault(int(entry[2]), []).append(entry)
+        for k, entries in by_dest.items():
+            raw, tot = self._released_raw(entries)
+            if k in refreshed:
+                norm, live_w = refreshed[k]
+                refreshed[k] = (agg.combine_with_released(norm, live_w,
+                                                          raw, tot),
+                                live_w + tot)
+            else:
+                refreshed[k] = (tree_map(lambda r: r / max(tot, 1e-12),
+                                         raw), tot)
+
+    def _tier_aggregate_grouped(self, groups, released=None) -> None:
+        """The batched engine's path: segment sums of every rank group,
+        combined across groups at their raw segment weights."""
+        K = self.tier.num_rsus_per_task
+        acc, tot = None, torch.zeros(K, dtype=torch.float32)
+        for g in groups:
+            if g.get("assoc") is None:
+                raise ValueError("non-trivial tier aggregation needs assoc "
+                                 "on every group")
+            if self.method == "ours":
+                part, seg_w = agg.aggregate_merged_padded_segmented(
+                    g["adapters"], g["weights"], g["assoc"], K,
+                    self.lora.scale)
+            else:
+                part, seg_w = agg.aggregate_hetlora_segmented(
+                    g["adapters"], g["weights"], g["assoc"], K,
+                    self.lora.max_rank)
+            raw = tree_map(lambda x: x * agg._seg_w(seg_w, x), part)
+            acc = raw if acc is None else tree_map(torch.add, acc, raw)
+            tot = tot + seg_w
+        refreshed = {}
+        if acc is not None:
+            den = torch.clamp(tot, min=1e-12)
+            norm = tree_map(lambda x: x / agg._seg_w(den, x), acc)
+            for k in range(K):
+                if float(tot[k]) > 0.0:
+                    refreshed[k] = (tree_map(lambda x: x.select(-3, k),
+                                             norm), float(tot[k]))
+        self._tier_fold_released(refreshed, released)
+        self._tier_commit(refreshed)
+
+    def _tier_commit(self, refreshed) -> None:
+        """Take this round's refreshes into the partials, then merge them
+        into the global state every ``sync_period`` rounds."""
+        K = self.tier.num_rsus_per_task
+        if self.partials is None:
+            self.partials = [None] * K
+        for k in range(K):
+            if k in refreshed:
+                self.partials[k], self.partial_w[k] = refreshed[k]
+                self.partial_age[k] = 0
+            elif self.partial_w[k] > 0:
+                self.partial_age[k] += 1
+        if (self.round + 1) % self.tier.sync_period == 0:
+            live = [k for k in range(K) if self.partial_w[k] > 0]
+            # every live discount underflowed to 0.0: keep the previous
+            # global instead of merging to zeros (the fused program gates
+            # its merge on the same Σω > 0)
+            omega = (self.partial_w[live] * agg.staleness_weights(
+                self.partial_age[live], self.tier.staleness_decay)
+                .double().numpy()) if live else np.zeros(0)
+            if live and float(np.sum(omega)) > 0.0:
+                merged = agg.merge_partials(
+                    agg.stack_partials([self.partials[k] for k in live]),
+                    self.partial_w[live], self.partial_age[live],
+                    self.tier.staleness_decay)
+                if self.method == "ours":
+                    self.merged = merged
+                else:
+                    self.global_adapters = merged
+            # a new window: only new uploads count toward the next sync
+            self.partial_w[:] = 0.0
+            self.partial_age[:] = 0
+        self.round += 1
+
+    def load_partials(self, partials: Sequence[Any], weights, ages) -> None:
+        """Adopt per-RSU partial state computed off-host (the fused
+        engine's carry)."""
+        self.partials = list(partials)
+        self.partial_w = np.asarray(weights, np.float64).copy()
+        self.partial_age = np.asarray(ages, np.int64).copy()
+
+    # ------------------------------------------------------------------
+    # Semi-synchronous participation: the in-flight upload buffer
+    # (semi_sync only). A round ages, releases, drops, then admits, in
+    # the fused program's order.
+    # ------------------------------------------------------------------
+    def release_buffered(self, active, assoc=None) -> List:
+        """Age every buffered upload one round and return those landing
+        now, as (delta, weight, dest): the vehicle is back in coverage
+        (``active``) within ``max_delay``, at weight ``w·decay**age``;
+        ``dest`` is its current RSU (``assoc``) with ``buffer_handoffs``,
+        else the RSU it trained under. An overdue entry is dropped."""
+        part = self.participation
+        if part.trivial or not self.buffer:
+            return []
+        released = []
+        for lane in sorted(self.buffer):     # deterministic lane order
+            ent = self.buffer[lane]
+            age1 = ent["age"] + 1
+            within = age1 <= part.max_delay
+            if bool(active[lane]) and within:
+                relw = ent["w"] * float(agg.staleness_weights(
+                    age1, part.vehicle_staleness_decay))
+                dest = ent["dest"]
+                if part.buffer_handoffs and assoc is not None:
+                    dest = int(assoc[lane])
+                released.append((ent["delta"], relw, dest))
+                del self.buffer[lane]
+            elif within:
+                ent["age"] = age1
+            else:                              # overdue: drop
+                del self.buffer[lane]
+        return released
+
+    def admit_buffered(self, entries) -> None:
+        """Park this round's missed uploads: (vehicle, delta, weight,
+        dest) enter at age 0; a vehicle's new entry replaces its old
+        one (it trained again)."""
+        if self.participation.trivial:
+            return
+        for lane, delta, w, dest in entries:
+            self.buffer[int(lane)] = {"delta": delta, "w": float(w),
+                                      "age": 0, "dest": int(dest)}
+
+    def load_buffer(self, deltas, weights, ages, dests) -> None:
+        """Adopt the in-flight buffer computed off-host (the fused
+        engine's carry): ``deltas`` has the vehicles on the lane axis,
+        weights, ages and dests are (V,); weight 0 marks an empty lane.
+        Each entry is a copy."""
+        w = np.asarray(weights, np.float64)
+        age = np.asarray(ages, np.int64)
+        dest = np.asarray(dests, np.int64)
+        self.buffer = {}
+        for v in np.flatnonzero(w > 0.0):
+            self.buffer[int(v)] = {
+                "delta": tree_map(lambda x: x.select(-3, int(v)).clone(),
+                                  deltas),
+                "w": float(w[v]), "age": int(age[v]), "dest": int(dest[v])}
+
+    @staticmethod
+    def _released_raw(released):
+        """Σ relw·δ over released entries and the total weight, the raw
+        sums :func:`~repro_torch.core.aggregation.combine_with_released`
+        takes."""
+        raw, tot = None, 0.0
+        for delta, w, _ in released:
+            term = tree_map(lambda x: float(np.float32(w)) * x.float(),
+                            delta)
+            raw = term if raw is None else tree_map(torch.add, raw, term)
+            tot += float(w)
+        return raw, tot
 
     # ------------------------------------------------------------------
     def eval_adapters(self) -> Optional[Any]:

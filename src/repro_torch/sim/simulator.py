@@ -36,10 +36,20 @@ dimensions (``cost_arch_id``), whatever model trains. The host state
 in the reference's order, so one seed gives the reference's fleet, data
 and channel bit for bit.
 
+The round's modes run in every engine: a non-trivial ``rsu_tier``
+(``ours``, its ablations and ``hetlora``) charges each handoff between
+two RSUs of a task the migration penalty, aggregates into per-RSU
+partials and merges them every ``sync_period`` rounds; ``semi_sync``
+participation (the ``ours`` family) defers the upload of a departing
+vehicle that does not migrate into the server's buffer and lands it up
+to ``max_delay`` rounds late, and its history records gain
+``deferred``, ``released`` and ``rel_weight`` (a ``sync`` history keeps
+its schema). The other methods raise ``ValueError`` with either, as in
+the reference.
+
 What the port does not run yet raises (ROADMAP Queue 1): the sharded
 fused engine (item 12), checkpoints and the checkpoint-chunked
-``run_scanned`` (item 9), trace replay (item 10), multi-RSU tiers and
-semi-sync participation (item 6).
+``run_scanned`` (item 9), trace replay (item 10).
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ from repro_torch.config import (CheckpointSpec, EnergyAllocConfig,
                                 LoRAConfig, MobilityConfig, ModelConfig,
                                 ParticipationSpec, RSUTierSpec, ShardSpec,
                                 UCBDualConfig, get_arch)
+from repro_torch.core import aggregation as agg
 from repro_torch.core import cost_model as cm
 from repro_torch.core import energy_alloc, mobility as mob
 from repro_torch.core import ucb_dual
@@ -472,6 +483,14 @@ class IoVSimulator:
         kept_idx: List[int] = []        # positions within the active list
         kept_weights: List[float] = []
         kept_masks: List[Any] = []      # FedRA
+        kept_assoc: List[int] = []      # each kept client's RSU
+        # semi_sync: positions whose upload defers into the buffer (a
+        # departing contributor that does not migrate leaves coverage
+        # before its upload lands). With max_delay 0 the buffer holds no
+        # round, so every upload lands in its own: sync, bit for bit.
+        part = cfg.participation
+        deferrable = not part.trivial and part.max_delay > 0
+        deferred_idx: List[int] = []
         per_v_reward = np.zeros(cfg.num_vehicles, np.float32)
         per_v_energy = np.zeros(cfg.num_vehicles, np.float32)
         costs_list: List[cm.RoundCosts] = []
@@ -502,8 +521,16 @@ class IoVSimulator:
                 g=g)
 
             contribute = True
+            migrated = False
             extra_energy = 0.0
             extra_latency = 0.0
+            if not cfg.rsu_tier.trivial and bool(plan["handoff"][v]):
+                # the adapter migrates between two RSUs of the task's tier
+                ho_lat, ho_e = cm.handoff_costs(
+                    cfg.rsu_tier.handoff_latency,
+                    cfg.rsu_tier.handoff_energy, True)
+                extra_energy += float(ho_e)
+                extra_latency += float(ho_lat)
             if dep and self.spec.mobility_aware:
                 peer = self.mobility.nearby_peer(rsu, v, staying)
                 dec = mob.decide_fallback(
@@ -514,6 +541,7 @@ class IoVSimulator:
                 if dec.strategy == mob.ABANDON:
                     contribute = False
                 elif dec.strategy == mob.MIGRATE:
+                    migrated = True
                     extra_energy += cfg.mobility.migration_energy
                     extra_latency += cfg.mobility.migration_latency
             elif dep:   # without §IV-E a departure loses the upload
@@ -525,18 +553,45 @@ class IoVSimulator:
             costs_list.append(costs)
             if contribute:
                 comm_params += payload
+                # a migrating vehicle paid §IV-E's penalty so that its
+                # upload lands now; another departing one's defers
+                if deferrable and dep and not migrated:
+                    deferred_idx.append(i)
+                    continue
                 kept_idx.append(i)
                 kept_weights.append(float(len(self.client_data[ti][v])))
+                kept_assoc.append(int(plan["assoc"][v]))
                 if plan["fedra_masks"][i] is not None:
                     kept_masks.append(plan["fedra_masks"][i])
 
-        agg_costs = cm.rsu_agg_costs(self.rsu_profile, len(kept_idx))
+        # the RSU processes every upload made this round, deferred too
+        agg_costs = cm.rsu_agg_costs(self.rsu_profile,
+                                     len(kept_idx) + len(deferred_idx))
         summary = cm.task_round_summary(costs_list, agg_costs)
-        self._aggregate_task(server, tr, kept_idx, kept_weights, kept_masks)
 
-        # global accuracy on the held-out task eval set
+        # semi_sync: the buffered uploads landing this round are released
+        # before the aggregation and this round's missed ones admitted
+        # after it (the fused program's age, release, drop, admit order)
+        released: List[Any] = []
+        if not part.trivial:
+            active_mask = np.zeros(cfg.num_vehicles, bool)
+            active_mask[active_ids] = True
+            released = server.release_buffered(active_mask, plan["assoc"])
+        self._aggregate_task(server, tr, kept_idx, kept_weights, kept_masks,
+                             kept_assoc, released)
+        if deferred_idx:
+            server.admit_buffered([
+                (int(active_ids[i]),
+                 agg.aggregate_merged([self._trained_adapter(tr, i)], [1.0],
+                                      cfg.lora.scale),
+                 float(len(self.client_data[ti][active_ids[i]])),
+                 int(plan["assoc"][active_ids[i]]))
+                for i in deferred_idx])
+
+        # global accuracy on the held-out task eval set; under a tier the
+        # task has no global model before its first sync
         gad = server.eval_adapters()
-        if gad is not None and kept_idx:
+        if gad is not None and (kept_idx or released):
             acc = self.trainer.evaluate(self.params, gad,
                                         self.eval_batches[ti])["accuracy"]
         else:
@@ -558,7 +613,7 @@ class IoVSimulator:
                     - cfg.ucb.alpha * tau_t / cfg.ucb.latency_ref)
         mean_rank = float(np.mean([int(r) for r in ranks[active_ids]])
                           ) if len(active_ids) else 0.0
-        return {"task": self.tasks[ti].name, "accuracy": acc,
+        trec = {"task": self.tasks[ti].name, "accuracy": acc,
                 "latency": tau_t, "energy": e_t, "reward": reward_t,
                 "lambda": lam, "mean_rank": mean_rank,
                 "active": int(len(active_ids)),
@@ -568,22 +623,45 @@ class IoVSimulator:
                 "fallbacks": dict(n_fallback),
                 "comm_params": int(comm_params),
                 "budget": float(budget)}
+        if not part.trivial:
+            # the buffer's tallies, semi_sync only (a sync history keeps
+            # its schema)
+            trec["deferred"] = len(deferred_idx)
+            trec["released"] = len(released)
+            trec["rel_weight"] = float(sum(r[1] for r in released))
+        return trec
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _aggregate_task(server, tr, kept_idx, kept_weights, kept_masks
-                        ) -> None:
+    def _trained_adapter(tr: Dict[str, Any], i: int) -> Any:
+        """The trained adapter tree of active-list position ``i``: the
+        serial engine's list entry, or its lane of a batched rank
+        group."""
+        if tr["ads_list"] is not None:
+            return tr["ads_list"][i]
+        for stacked, idxs in tr["groups"].values():
+            if i in idxs:
+                j = idxs.index(i)
+                return tree_map(lambda x: x.select(-3, j), stacked)
+        raise KeyError(f"active position {i} is in no rank group")
+
+    @staticmethod
+    def _aggregate_task(server, tr, kept_idx, kept_weights, kept_masks,
+                        kept_assoc, released) -> None:
         """Upload and aggregation: the serial engine's per-client list,
         or the batched engine's stacked rank groups (one lane gather per
-        group), with FedRA's layer masks and each client's position in
-        the distributed list (residual aggregation)."""
+        group), with FedRA's layer masks, each client's position in the
+        distributed list (residual aggregation) and RSU (a tier), and the
+        releases of semi_sync's buffer."""
         if tr["groups"] is None or not kept_idx:
             server.aggregate([tr["ads_list"][i] for i in kept_idx],
                              kept_weights or [1.0],
-                             masks=kept_masks or None, indices=kept_idx)
+                             masks=kept_masks or None, indices=kept_idx,
+                             assoc=kept_assoc, released=released)
             return
         w_of = dict(zip(kept_idx, kept_weights))
         mask_of = dict(zip(kept_idx, kept_masks))
+        a_of = dict(zip(kept_idx, kept_assoc))
         gspecs = []
         for r in sorted(tr["groups"]):
             stacked, idxs = tr["groups"][r]
@@ -597,8 +675,9 @@ class IoVSimulator:
                 "weights": np.asarray([w_of[i] for i in gi], np.float32),
                 "masks": (np.stack([np.asarray(mask_of[i], np.float32)
                                     for i in gi]) if mask_of else None),
-                "indices": gi})
-        server.aggregate_grouped(gspecs)
+                "indices": gi,
+                "assoc": np.asarray([a_of[i] for i in gi], np.int64)})
+        server.aggregate_grouped(gspecs, released=released)
 
     # ------------------------------------------------------------------
     def run_scanned(self, rounds: Optional[int] = None

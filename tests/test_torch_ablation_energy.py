@@ -123,7 +123,19 @@ def test_fused_engine_takes_the_ours_family_only(method, monkeypatch):
     {"participation": ParticipationSpec(mode="semi_sync")},
 ], ids=["two_rsus", "semi_sync"])
 def test_tiers_and_semi_sync_raise_for_every_method(method, change):
+    """Tiers and semi_sync raise ValueError for every method the
+    reference refuses them for, as its servers do (a tier takes the
+    ``ours`` family and HetLoRA, semi_sync the ``ours`` family, neither
+    the residual rule), and build for the others."""
     cfg = dataclasses.replace(SimConfig(**dict(KW, method=method)),
                               **change)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        IoVSimulator(cfg, device="cpu")
+    tier = "rsu_tier" in change
+    refused = (method in ("homolora", "fedra", "ours_residual") if tier
+               else method not in ("ours",) + ABLATIONS)
+    if refused:
+        with pytest.raises(ValueError, match="residual|multi-RSU|semi_sync"):
+            IoVSimulator(cfg, device="cpu")
+    else:
+        sim = IoVSimulator(cfg, device="cpu")
+        assert all((s.tier if tier else s.participation) == change[
+            "rsu_tier" if tier else "participation"] for s in sim.servers)

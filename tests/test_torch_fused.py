@@ -25,8 +25,9 @@ from repro.core import cost_model as jcm
 from repro.core import energy_alloc as jea
 from repro.federated import fused_engine as jfused
 from repro_torch import interop
-from repro_torch.config import (EnergyAllocConfig, LoRAConfig,
-                                ParticipationSpec, RSUTierSpec, ShardSpec)
+from repro_torch.config import (CheckpointSpec, EnergyAllocConfig,
+                                LoRAConfig, ParticipationSpec, RSUTierSpec,
+                                ShardSpec)
 from repro_torch.core import aggregation as agg
 from repro_torch.core import cost_model as cm
 from repro_torch.core import energy_alloc as ea
@@ -362,23 +363,31 @@ def test_mirrored_state_readopts_exactly(per_round):
 
 @pytest.mark.parametrize("change", [
     {"engine": "fused_sharded"},
-    {"rsu_tier": RSUTierSpec(num_rsus_per_task=2)},
-    {"participation": ParticipationSpec(mode="semi_sync")},
+    {"rsu_tier": RSUTierSpec(num_rsus_per_task=2),
+     "shard": ShardSpec(num_shards=2)},
+    {"participation": ParticipationSpec(mode="semi_sync"),
+     "checkpoint": CheckpointSpec(interval=2, dir="ck")},
     {"shard": ShardSpec(num_shards=2)},
 ], ids=["fused_sharded", "two_rsus", "semi_sync", "two_shards"])
 def test_unported_fused_options_raise(change):
+    """The fused engine runs tiers and semi_sync; with them, as without,
+    the sharded fleet (item 12) and checkpoints (item 9) raise."""
     with pytest.raises(NotImplementedError, match="item"):
         _sim(**change)
 
 
 def test_engine_rejects_a_tier_and_the_sharded_fleet_itself():
+    """The engine takes a tier (its partials in the carry) and rejects
+    the sharded fleet itself, with a tier or without."""
     sim = _sim()
     sim.cfg = dataclasses.replace(sim.cfg, rsu_tier=RSUTierSpec(
         num_rsus_per_task=2))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    eng = fused.FusedRoundEngine(sim)
+    assert eng.K == 2 and tuple(eng.carry["partial_w"].shape) == (2, 2)
+    sim.cfg = dataclasses.replace(sim.cfg, shard=ShardSpec(num_shards=2))
+    with pytest.raises(NotImplementedError, match="item 12"):
         fused.FusedRoundEngine(sim)
     sim.cfg = dataclasses.replace(sim.cfg, rsu_tier=RSUTierSpec())
-    sim.cfg = dataclasses.replace(sim.cfg, shard=ShardSpec(num_shards=2))
     with pytest.raises(NotImplementedError, match="item 12"):
         fused.FusedRoundEngine(sim)
     sim.cfg = dataclasses.replace(sim.cfg, shard=ShardSpec())
