@@ -108,15 +108,16 @@ nothing is caught):
    ``fused_check`` round per ablation on the card: ``engine_check_dev``
    recorded, each lane's update spread against the serial replay held
    within 2x the serial trainer's card-vs-CPU spread (a replay one step
-   short must fail). At full width, each
-   method's batched rounds (the first profiled, but for HetLoRA, which
-   5e profiles, and the three that train ours' groups, whose one round
+   short must fail). At full width (6 of vit-base-paper's 12 layers,
+   to keep the run inside its time limit), each
+   method's batched rounds (the first profiled, but for HetLoRA and
+   the three that train ours' groups, whose one round
    runs unprofiled; launches held to the
    groups' prediction in both; every launch ``simt``, every loss,
    energy and accuracy finite); FedRA's left-out layers bit-identical
    after local training, which a planted fault (the mask applied after
    the optimizer step) must break; and each ablation's fused rounds (a
-   capture, then a replayed round with 1,080 / 180 kernel records) held
+   capture, then a replayed round with 540 / 90 kernel records) held
    to its batched rounds (ranks and active sets exactly, energy and
    latency within 1e-5). Then phase 2's rows at HetLoRA's largest lane
    group per rank.
@@ -124,29 +125,32 @@ nothing is caught):
    tier: 3 RSUs per task, a staleness-discounted sync every 2 rounds, a
    handoff charged 6 J and 0.4 s) and semi-synchronous participation
    (the default spec with two RSU outage windows, so that uploads defer
-   and come back), alone and together. At the reduced ViT (seed 2),
-   four rounds card against CPU, each round on the card from the CPU's
-   state: the tier under serial, batched and fused (and HetLoRA's under
-   serial and batched), semi_sync under serial, batched and fused, both
-   under fused; counts, deferred and released uploads, which partials
-   are live, their ages and the buffer's vehicles, ages and
-   destinations exactly; energy, latency, release weights and the
-   partials' and buffered uploads' weights within 1e-4; the global
-   states, partials and buffered deltas as a Frobenius spread within
-   (b)'s update limit of 5b (their largest entry difference recorded);
-   the runs must merge two or more live partials in a sync, charge a
-   handoff, defer an upload and release one. Three planted faults on the card's side
-   must break these gates: staleness discounts one round too old, a
+   and come back), alone and together. At the reduced ViT (seed 2,
+   three local steps), four rounds card against CPU, each round on the
+   card from the CPU's state: the tier under serial, batched and fused
+   (and HetLoRA's under serial and batched), semi_sync under serial,
+   batched and fused, both under fused; counts, deferred and released
+   uploads, which partials are live, their ages and the buffer's
+   vehicles, ages and destinations exactly; energy, latency, release
+   weights and the partials' and buffered uploads' weights within 1e-4;
+   the global states, partials and buffered deltas as a Frobenius spread
+   within 5e-4 (their largest entry difference recorded); the runs must
+   merge two or more live partials in a sync, charge a handoff, defer an
+   upload and release one. Three planted faults on the card's side must
+   break these gates: staleness discounts one round too old, a
    release landing at the RSU its vehicle trained under, a sync gate
    frozen at capture. At full width, four rounds of each configuration
-   under batched (HetLoRA's tier too) and fused, one profiled (for the
-   fused engine a replay): wall and device ms, busy share, peak memory,
+   under batched (HetLoRA's tier too, unprofiled: a window over its 15
+   groups costs ~50 s) and fused, one profiled (for the fused engine a
+   replay): wall and device ms, busy share, peak memory,
    launches (batched: the groups' prediction, with no global eval
    before a task's first sync; fused: one capture, 1,080 / 180 kernel
    records per replay); the fused rounds 0-1 equal to an eager run
    within 1e-6 (partials and buffer too) and to the batched rounds
    (counts exactly, energy and latency within 1e-5, each task's merged
-   delta at its first merge within 5b's spread limit).
+   delta at its first merge within 5b's spread limit); the tier's four
+   rounds again through ``run_scanned`` (records equal to the rounds run
+   one by one, its peak memory recorded).
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -1414,20 +1418,21 @@ def round_groups(sim, round_plans):
 
 
 def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
-                plain=1):
+                plain=1, arch=None):
     """Phases 5b, 5d and 5e: rounds of ``method`` at the full width of
     vit-base-paper on the card under ``engine`` (with ``modes``, a tier
     or semi_sync's SimConfig fields), ``n_profiled`` each under a
     profiler window, then ``plain`` more without it; every batched
     round's launches held to its groups' prediction. ``hook(sim)`` runs
-    before the first round. Keeps each round's plans, records and the
-    servers' states (merged deltas, or the baselines' global adapters;
-    under "_state", for :func:`engines_agree`)."""
+    before the first round. ``arch`` cuts the depth (default: all 12
+    layers). Keeps each round's plans, records and the servers' states
+    (merged deltas, or the baselines' global adapters; under "_state",
+    for :func:`engines_agree`)."""
     t_start = time.perf_counter()
-    sim = IoVSimulator(SimConfig(method=method, engine=engine,
-                                 train_arch=vit_base_paper.vit_base_paper(),
-                                 **(modes or {})),
-                       device="cuda")
+    sim = IoVSimulator(SimConfig(
+        method=method, engine=engine,
+        train_arch=arch or vit_base_paper.vit_base_paper(), **(modes or {})),
+        device="cuda")
     if hook is not None:
         hook(sim)
     cfg = sim.model_cfg
@@ -1500,7 +1505,7 @@ def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
     launched = counts()
     lora_v, flash_v = variant_counts(), flash_variant_counts()
     # ``plain`` more rounds, no profiler: the plain wall time
-    plain_ms = []
+    plain_ms, plain_groups = [], []
     for _ in range(plain):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1510,8 +1515,9 @@ def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         if engine != "serial":
-            predicted_launches(sim, plans[-nt:], rec, {
+            groups, _ = predicted_launches(sim, plans[-nt:], rec, {
                 k: v - before[k] for k, v in counts().items()}, per_fwd)
+            plain_groups.append([list(g) for g in groups])
         if not (np.isfinite(rec["energy"])
                 and np.isfinite(rec["accuracy"])):
             fail(f"full-width {method} {engine} unprofiled round: energy "
@@ -1544,7 +1550,7 @@ def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
             "unprofiled_round": {
                 "round": n_profiled,
                 "wall_ms": plain_ms[0] if plain_ms else None,
-                "wall_ms_each": plain_ms,
+                "wall_ms_each": plain_ms, "groups_each": plain_groups,
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "energy": rec["energy"], "accuracy": rec["accuracy"]},
             "_state": state}
@@ -1809,7 +1815,7 @@ def engines_agree(serial, batched, limit):
 REPLAY_TOL = 1e-6
 
 
-def fused_rounds(n_profiled, method="ours", plain=1, modes=None):
+def fused_rounds(n_profiled, method="ours", plain=1, modes=None, arch=None):
     """Phases 5c, 5d and 5e: fused rounds of ``method`` (with ``modes``,
     a tier or semi_sync's SimConfig fields) at the full width of
     vit-base-paper on the card: the first round, which runs the program
@@ -1821,12 +1827,13 @@ def fused_rounds(n_profiled, method="ours", plain=1, modes=None):
     profiler's kernel records against the launches counted at capture
     (one per LoRA linear and per attention of 15 forwards). Keeps the
     first replay's (round 1's) partials and buffers for
-    :func:`replay_gates`."""
+    :func:`replay_gates`. ``arch`` cuts the depth (default: all 12
+    layers)."""
     t_start = time.perf_counter()
-    sim = IoVSimulator(SimConfig(method=method, engine="fused",
-                                 train_arch=vit_base_paper.vit_base_paper(),
-                                 **(modes or {})),
-                       device="cuda")
+    sim = IoVSimulator(SimConfig(
+        method=method, engine="fused",
+        train_arch=arch or vit_base_paper.vit_base_paper(), **(modes or {})),
+        device="cuda")
     eng, cfg, nt = sim.fused, sim.model_cfg, sim.cfg.num_tasks
     per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
         T.init_adapters(cfg, sim.cfg.lora, rank=2, device="cpu"))),
@@ -2089,6 +2096,10 @@ ABLATIONS = ("ours_no_energy", "ours_no_mobility")
 # methods whose full-width batched round runs once, unprofiled, launches
 # held to its groups: the ours family trains ours' groups (5b profiles
 # those), HetLoRA its capability groups (5e profiles them under a tier)
+# 5d's full-width rounds run at half of vit-base-paper's depth (full
+# width, 6 of its 12 layers), to keep the script inside its time limit;
+# 5b, 5c and 5e run all 12
+DEPTH_5D = 6
 UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
                  "ours_residual")
 PARITY_ROUNDS = 2
@@ -2439,8 +2450,8 @@ def phase_5d():
     """Phase 5d: (a) card vs CPU at the reduced ViT, every method of
     METHODS_5D under serial and batched (with batched_check on the
     card), the ablations also under fused (fused_check on the card);
-    (b) full width: each method's batched rounds (the first profiled,
-    but for UNPROFILED_5D's one unprofiled round),
+    (b) full width at DEPTH_5D layers: each method's batched rounds (the
+    first profiled, but for UNPROFILED_5D's one unprofiled round),
     FedRA's masked-layer gate, the ablations' fused rounds (a capture,
     then a replayed round) against their batched rounds. Each path is
     driven with the counts set to 0 just before it and read just after
@@ -2456,8 +2467,10 @@ def phase_5d():
             check[f"{m} {engine}"] = check_round(m, engine)
     parity_s = time.perf_counter() - t0
     box = {}
+    arch = vit_base_paper.vit_base_paper().with_overrides(
+        num_layers=DEPTH_5D)
     batched = {m: full_rounds("batched", 0 if m in UNPROFILED_5D else 1,
-                              method=m,
+                              method=m, arch=arch,
                               hook=fedra_spy(box) if m == "fedra" else None)
                for m in METHODS_5D}
     fedra = fedra_gate(box)
@@ -2465,7 +2478,7 @@ def phase_5d():
     for run in batched.values():
         run["_state"].pop("merged")
     torch.cuda.empty_cache()
-    fused = {m: fused_rounds(1, method=m, plain=0)
+    fused = {m: fused_rounds(1, method=m, plain=0, arch=arch)
              for m in ABLATIONS}
     agree = {m: fused_vs_batched(fused[m], batched[m]) for m in ABLATIONS}
     for run in list(batched.values()) + list(fused.values()):
@@ -2526,8 +2539,8 @@ def print_5d(p5d):
         up = run["unprofiled_round"]
         window = (f" (profiler window "
                   f"{run['rounds'][0]['profiler_window_s']:.1f} s)"
-                  if run["rounds"] else " (not profiled; 5b profiles ours' "
-                  "groups, 5e HetLoRA's)")
+                  if run["rounds"] else " (not profiled: 5b profiles ours' "
+                  "groups; a window over HetLoRA's small groups costs ~50 s)")
         print(f"[5d] {m} batched round {up['round']} without the profiler: "
               f"wall {up['wall_ms']:.1f} ms, peak memory "
               f"{up['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
@@ -2585,12 +2598,17 @@ MODES_5E = {
                  OutageSpec(rsu_id=1, start=2, end=3)))}}
 MODES_5E["tier+semi"] = {**MODES_5E["tier"], **MODES_5E["semi"]}
 MODE_ROUNDS = 4
-# the reduced ViT's runs (one local step, as the CPU tests take): at this
-# seed a sync merges two or more live partials of a task, handoffs are
-# charged, uploads defer and come back, and under tier+semi one comes
+# the reduced ViT's runs (the default SimConfig's three local steps): at
+# this seed a sync merges two or more live partials of a task, handoffs
+# are charged, uploads defer and come back, and under tier+semi one comes
 # back under another RSU of its task in round 1 (the destination fault
 # below moves it)
-MODE_SEED, MODE_STEPS = 2, 1
+MODE_SEED, MODE_STEPS = 2, 3
+# 5e (a)'s limit on the trained state's card-vs-CPU Frobenius spread:
+# sound runs at three local steps read up to 1.2e-04 (partials of one to
+# three uploads), the planted faults 0.14 (discount) and 1.5 (release
+# destination) on an H100 80GB HBM3 at 700 W (PERF.md, Findings)
+MODE_FRO_LIMIT = 5e-4
 PARITY_5E = (("tier", "ours", "serial"), ("tier", "ours", "batched"),
              ("tier", "ours", "fused"), ("tier", "hetlora", "serial"),
              ("tier", "hetlora", "batched"), ("semi", "ours", "serial"),
@@ -2701,7 +2719,7 @@ def mode_parity(mode, method, engine, limit, rounds=MODE_ROUNDS,
     latency, release weights and the partials' and buffered uploads'
     weights within ROUND_TOL; the trained state (the global states, the
     partials, the buffered deltas) as a Frobenius spread ||card -
-    CPU||_F / ||CPU||_F within ``limit``, 5b's update limit, with the
+    CPU||_F / ||CPU||_F within ``limit`` (MODE_FRO_LIMIT), with the
     largest entry difference recorded: a partial or a buffered delta
     holds one to three vehicles' updates, whose entries on near-zero
     gradients Adam's first step moves by up to 2·lr apart on the two
@@ -2892,6 +2910,48 @@ def modes_agree(fused, batched, limit):
             "first_merge_spread": spread, "limit": limit}
 
 
+def scanned_rounds(want, modes):
+    """Phase 5e (b): the tier's rounds of :func:`fused_rounds` (their
+    records ``want``) again, from the same seed, through ``run_scanned``:
+    every round staged first, each task's fresh adapters drawn for every
+    round before its first sync, just before the round runs. Holds the
+    records to the rounds run one by one (counts exactly, energy and
+    latency within ENGINE_TOL) and records the wall time and the peak
+    memory, with what the card held before the run."""
+    release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = IoVSimulator(SimConfig(method="ours", engine="fused",
+                                 train_arch=vit_base_paper.vit_base_paper(),
+                                 **modes), device="cuda")
+    recs = sim.run_scanned(len(want))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    rel = {"energy": 0.0, "latency": 0.0}
+    for rnd, (got, rec) in enumerate(zip(recs, want)):
+        for gt, wt in zip(got["tasks"], rec["tasks"]):
+            for key in COUNT_KEYS_5E:
+                if gt.get(key) != wt.get(key):
+                    fail(f"5e tier run_scanned vs run_round: round {rnd} "
+                         f"task {gt['task']} {key} {gt.get(key)} vs "
+                         f"{wt.get(key)}")
+            for key in rel:
+                rel[key] = max(rel[key], abs(gt[key] - wt[key])
+                               / max(abs(wt[key]), 1e-12))
+    if not max(rel.values()) < ENGINE_TOL:
+        fail(f"5e tier run_scanned vs run_round: {rel} (tol {ENGINE_TOL})")
+    captures = sim.fused.captures
+    del sim
+    release()
+    return {"rounds": len(recs), "wall_ms": wall, "peak_memory_bytes": peak,
+            "held_before_bytes": base,
+            "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"], "tol": ENGINE_TOL,
+            "captures": captures}
+
+
 def release():
     """Free what earlier runs left: a simulator and its fused engine hold
     each other, so only the cycle collector frees a finished run's carry
@@ -2916,11 +2976,13 @@ def phase_5e(limit):
     the runs exercised; (c) three planted faults on the card's side,
     each of which must break (a)'s gates; (b) full width: each
     configuration's batched and fused rounds (one profiled round each),
-    the fused ones held to an eager run and to the batched ones."""
+    the fused ones held to an eager run and to the batched ones (within
+    ``limit``, 5b's update limit), and the tier's rounds again through
+    ``run_scanned``."""
     t0 = time.perf_counter()
     parity, events = {}, {}
     for mode, method, engine in PARITY_5E:
-        p = mode_parity(mode, method, engine, limit)
+        p = mode_parity(mode, method, engine, MODE_FRO_LIMIT)
         if p["violations"]:
             fail(f"5e {mode} {method} {engine} card vs CPU: "
                  f"{p['violations']}")
@@ -2937,7 +2999,8 @@ def phase_5e(limit):
                 "tier+semi", "fused", 2, trained_rsu),
             "sync gate frozen at capture": (
                 "tier", "fused", 2, frozen_sync)}.items():
-        p = mode_parity(mode, "ours", engine, limit, rounds, fault=fault)
+        p = mode_parity(mode, "ours", engine, MODE_FRO_LIMIT, rounds,
+                        fault=fault)
         if not p["violations"]:
             fail(f"5e planted fault '{label}' passes the gates")
         planted[label] = p
@@ -2948,8 +3011,13 @@ def phase_5e(limit):
     for name, method, mode in (("tier", "ours", "tier"),
                                ("tier hetlora", "hetlora", "tier"),
                                ("semi", "ours", "semi")):
-        batched[name] = full_rounds("batched", 1, method=method,
-                                    modes=modes[mode], plain=3)
+        # HetLoRA's 15 small groups cost a 49 s profiler window on an
+        # H100 80GB HBM3 at 700 W: its four rounds run unprofiled, their
+        # launches still held to the groups' prediction
+        het = method == "hetlora"
+        batched[name] = full_rounds("batched", 0 if het else 1,
+                                    method=method, modes=modes[mode],
+                                    plain=4 if het else 3)
         only_first_merges(batched[name])
         release()
     fused, replay = {}, {}
@@ -2968,13 +3036,15 @@ def phase_5e(limit):
         release()
     agree = {name: modes_agree(fused[name], batched[name], limit)
              for name in ("tier", "semi")}
+    tier_recs = fused["tier"]["_state"]["recs"]
     for run in list(batched.values()) + list(fused.values()):
         run.pop("_state")
+    scanned = scanned_rounds(tier_recs, modes["tier"])
     torch.cuda.empty_cache()
     return {"parity": parity, "events": events, "planted": planted,
             "parity_s": parity_s, "batched": batched, "fused": fused,
             "replay_vs_eager": replay, "replay_tol": REPLAY_TOL,
-            "fused_vs_batched": agree,
+            "fused_vs_batched": agree, "scanned": scanned,
             "seconds": time.perf_counter() - t0}
 
 
@@ -3011,8 +3081,17 @@ def print_5e(p5e):
           f"{p5e['parity_s']:.1f} s", flush=True)
     for name, run in list(p5e["batched"].items()) + list(
             p5e["fused"].items()):
-        rd = run["rounds"][0]
         up = run["unprofiled_round"]
+        if not run["rounds"]:
+            print(f"[5e] {name} {run['engine']} ({run['method']}) at full "
+                  f"width, unprofiled: rounds wall "
+                  f"{', '.join(f'{x:.1f}' for x in up['wall_ms_each'])} ms, "
+                  f"peak memory {up['peak_memory_bytes'] / 2**30:.2f} GiB; "
+                  f"launches {run['launches']} (each round's = its groups' "
+                  f"prediction), all simt; {run['seconds']:.1f} s in all",
+                  flush=True)
+            continue
+        rd = run["rounds"][0]
         fr = run.get("first_round")
         first = ("" if fr is None else
                  f"round 0 (eager, then the capture) wall "
@@ -3050,6 +3129,16 @@ def print_5e(p5e):
               f"{a['first_merge_round']}) spread "
               f"{a['first_merge_spread']:.3g} (limit {a['limit']:.3g})",
               flush=True)
+    sc = p5e["scanned"]
+    print(f"[5e] tier fused at full width through run_scanned("
+          f"{sc['rounds']}) (fresh adapters drawn per round until the first "
+          f"sync): counts equal to run_round's, energy rel "
+          f"{sc['energy_rel_err']:.3g}, latency rel "
+          f"{sc['latency_rel_err']:.3g} (tol {sc['tol']}); wall "
+          f"{sc['wall_ms']:.1f} ms with the simulator's construction, peak "
+          f"memory {sc['peak_memory_bytes'] / 2**30:.2f} GiB (held before "
+          f"the run {sc['held_before_bytes'] / 2**30:.2f} GiB), captures "
+          f"{sc['captures']}", flush=True)
     print(f"[5e] phase 5e took {p5e['seconds']:.1f} s", flush=True)
 
 
@@ -3315,8 +3404,9 @@ def main() -> int:
     for run, label in ((fulls["batched"], ""),
                        (p5e["batched"]["tier hetlora"], "hetlora ")):
         lanes_by_rank = {}
-        for rd in run["rounds"]:
-            for _, r, lanes, _ in rd["groups"]:
+        for groups in ([rd["groups"] for rd in run["rounds"]]
+                       + run["unprofiled_round"]["groups_each"]):
+            for _, r, lanes, _ in groups:
                 lanes_by_rank[r] = max(lanes_by_rank.get(r, 0), lanes)
         lane_rows += check_lane_shapes(lanes_by_rank, label)
     # and at the fused round's: the whole fleet, rank-padded
@@ -3350,20 +3440,23 @@ def main() -> int:
             fused["launches"]}
     for name, p in p5d["parity"].items():
         round_paths[f"vit-tiny-paper {name} 2 rounds (5d)"] = p["launches"]
+    half = f"vit-base-paper ({DEPTH_5D} layers)"
     for m, run in p5d["batched"].items():
         kind = "profiled" if run["rounds"] else "unprofiled"
-        round_paths[f"vit-base-paper {m} {kind} batched round (5d)"] = \
+        round_paths[f"{half} {m} {kind} batched round (5d)"] = \
             run["launches"]
     for m, run in p5d["fused"].items():
-        round_paths[f"vit-base-paper {m} 2 fused rounds, warm-up and "
+        round_paths[f"{half} {m} 2 fused rounds, warm-up and "
                     f"capture (5d)"] = run["launches"]
     for name, p in list(p5e["parity"].items()) + [
             (f"{k} (planted)", p) for k, p in p5e["planted"].items()]:
         round_paths[f"vit-tiny-paper {name} {p['rounds']} rounds (5e)"] = \
             p["launches"]
     for name, run in p5e["batched"].items():
-        round_paths[f"vit-base-paper {name} profiled batched round (5e)"] \
-            = run["launches"]
+        kind = ("profiled batched round" if run["rounds"] else
+                f"{len(run['unprofiled_round']['wall_ms_each'])} "
+                f"unprofiled batched rounds")
+        round_paths[f"vit-base-paper {name} {kind} (5e)"] = run["launches"]
     for name, run in p5e["fused"].items():
         round_paths[f"vit-base-paper {name} 4 fused rounds, first eager and "
                     f"the capture (5e)"] = run["launches"]

@@ -523,25 +523,21 @@ def sync_weights(data_w, ages, decay: float) -> torch.Tensor:
     return w / torch.clamp(torch.sum(w), min=1e-12)
 
 
-def merge_partials(partials_stacked: Any, data_w, ages, decay: float,
-                   fallback: Optional[Any] = None) -> Any:
+def merge_partials(partials_stacked: Any, data_w, ages, decay: float
+                   ) -> Tuple[Any, torch.Tensor]:
     """The ω̂-weighted sum of per-RSU partials over their segment axis
-    (merged-delta trees of ``ours`` and factor trees of HetLoRA alike).
-    With one partial the normalised weight is exactly 1.0 (x/x).
+    (merged-delta trees of ``ours`` and factor trees of HetLoRA alike),
+    and whether it is a merge: Σω > 0. With one partial the normalised
+    weight is exactly 1.0 (x/x).
 
-    fallback: a tree shaped like one segment, returned when every ω_k
-    underflows to zero, so that a merge of all-stale partials keeps the
-    previous global instead of writing zeros. The fused program gates its
-    merge on Σω > 0 itself and passes none."""
-    w = _f32(data_w) * staleness_weights(_f32(ages, _f32(data_w)), decay)
-    wn = w / torch.clamp(torch.sum(w), min=1e-12)
+    When every ω_k underflows to zero (all partials stale past the float
+    range) the sum is the zero tree and the flag is false: the caller
+    keeps its previous global instead (the reference's ``fallback=``;
+    the host server and the fused program both gate on this flag)."""
+    wn = sync_weights(data_w, ages, decay)
     merged = tree_map(lambda x: torch.sum(x.float() * _lanes_w(wn, x),
                                           dim=-3), partials_stacked)
-    if fallback is None:
-        return merged
-    alive = torch.sum(w) > 0
-    return tree_map(lambda m, f: torch.where(alive.to(m.device), m,
-                                             f.float()), merged, fallback)
+    return merged, torch.sum(wn) > 0
 
 
 def segment_weight_matrix(assoc, weights, num_segments: int
@@ -621,20 +617,12 @@ def unstack_partials(stacked: Any, num_segments: int) -> List[Any]:
 # on the lane axis) fold their releases in through the same functions.
 # ---------------------------------------------------------------------------
 
-def merge_delta_fleet(stacked: Any, scale: float) -> Any:
-    """Per-lane merged deltas of a rank-padded stacked adapter tree, no
-    reduction over the lanes: leaf (..., V, d_in, d_out) = scale·A_v·B_v.
-    Zero rank tails add exact zeros."""
-    out = _skeleton(stacked)
-    for path in tree_paths(out):
-        ad = tree_get(stacked, path)
-        out = tree_set(out, path, {"delta": merge_delta_lanes(ad, scale)})
-    return out
-
-
 def merge_delta_lanes(ad: Dict[str, torch.Tensor], scale: float
                       ) -> torch.Tensor:
-    """scale·A_v·B_v of one stacked target, lane by lane."""
+    """Per-lane merged deltas of one stacked target, no reduction over
+    the lanes: (..., V, d_in, d_out) = scale·A_v·B_v (the reference's
+    ``merge_delta_fleet``, one target at a time). Zero rank tails add
+    exact zeros."""
     return scale * torch.einsum("...vir,...vro->...vio", ad["a"].float(),
                                 ad["b"].float())
 

@@ -42,8 +42,10 @@ task that has no merged delta yet; everything else replays the serial
 maths in-program. The reference's ``run_scanned`` stages one fresh draw
 per task on the trivial tier, so a task whose first covered round keeps
 no upload (every one deferred, say) trains from zero adapters next round
-there; the port's :meth:`FusedRoundEngine.run_scanned` stages every
-round's draws, as the reference's does under a tier, and stays exact.
+there; the port's :meth:`FusedRoundEngine.run_scanned` draws every
+round's adapters, as the reference's does under a tier, and stays exact:
+it draws them just before the round runs, so one round's draws are held
+at a time.
 
 The ablations are static branches of the program, as in the
 reference: without ``mobility_aware`` (``ours_no_mobility``) a departing
@@ -415,17 +417,17 @@ class FusedRoundEngine:
     def _stage_round(self, allow_fresh: Sequence[bool], seed: int
                      ) -> Tuple[Dict[str, np.ndarray], List[Any]]:
         """Advance mobility one tick and stage every input of the round
-        program on the host. Returns (x, fresh): x holds numpy arrays
+        program on the host. Returns (x, lanes): x holds numpy arrays
         named as :meth:`_views` names them (``omega``: the distribution's
-        sketches at ``seed``); fresh[t] is (lanes, draws) of task t, its
-        active lanes and their max_rank draws stacked on the lane axis, or
-        None where none was staged."""
+        sketches at ``seed``); lanes[t] holds task t's active lanes where
+        it takes fresh adapters this round, else None
+        (:meth:`_draw_fresh` draws them)."""
         sim = self.sim
         sim.mobility.step()
         x = {k: np.zeros(shape, np.int64) for k, shape in self._int_layout}
         x.update({k: np.zeros(shape, np.float32)
                   for k, shape in self._f32_layout})
-        fresh: List[Any] = []
+        lanes: List[Any] = []
         dev_tx = np.asarray([p.tx_power for p in sim.dev_profiles])
         for t in range(self.T):
             view = sim.mobility.round_view_group(sim.rsu_groups[t])
@@ -448,14 +450,24 @@ class FusedRoundEngine:
                 x["tokens"][t, v] = b["tokens"]
                 x["labels"][t, v] = b["labels"]
             if allow_fresh[t] and len(ids):
-                fresh.append((ids, sim.servers[t].fresh_padded(len(ids))))
+                lanes.append(ids)
                 x["fresh_use"][t] = 1
             else:
-                fresh.append(None)
+                lanes.append(None)
         x["sync"][:] = (seed + 1) % self.tier.sync_period == 0
         x["omega"] = agg.draw_omegas(self._merged_like, self.Rmax, seed,
                                      sim.servers[0].draw_omega)
-        return x, fresh
+        return x, lanes
+
+    def _draw_fresh(self, lanes: Sequence[Any]) -> List[Any]:
+        """(lanes, draws) per task from each server's fresh-adapter
+        stream, max_rank draws stacked on the lane axis, or None where
+        ``lanes[t]`` is None. Each server's stream serves only these
+        draws, so drawing a round's adapters just before it runs keeps
+        the serial server's order."""
+        return [None if ids is None else
+                (ids, self.sim.servers[t].fresh_padded(len(ids)))
+                for t, ids in enumerate(lanes)]
 
     def _pack(self, x: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:
         """One round's staged arrays as the int64 and f32 vectors
@@ -688,11 +700,10 @@ class FusedRoundEngine:
         age = torch.where(refreshed, 0.0, torch.where(
             pw_old > 0, age_old + 1.0, age_old))
         is_sync = self._sync_gate(t)
-        omega = pw * agg.staleness_weights(age, decay)
-        do_merge = is_sync & (torch.sum(omega) > 0)
-        merged = _where_tree(do_merge, agg.merge_partials(parts, pw, age,
-                                                          decay),
-                             c["merged"][t])
+        merged, alive = agg.merge_partials(parts, pw, age, decay)
+        # a round without live partials keeps the previous global
+        do_merge = is_sync & alive
+        merged = _where_tree(do_merge, merged, c["merged"][t])
         _copy_tree(c["partials"][t], parts)
         # a sync opens a new window: only new uploads count toward the next
         c["partial_w"][t].copy_(torch.where(is_sync, 0.0, pw))
@@ -852,9 +863,9 @@ class FusedRoundEngine:
         record."""
         if not self._carry_ready:
             self._init_carry()
-        x, fresh = self._stage_round(
+        x, lanes = self._stage_round(
             [not hm for hm in self._has_merged_host], self._round)
-        self._upload(*self._pack(x), fresh)
+        self._upload(*self._pack(x), self._draw_fresh(lanes))
         self._execute()
         host = self.out.cpu().numpy()
         if self.check:
@@ -877,14 +888,15 @@ class FusedRoundEngine:
             self._init_carry()
         # a task without a global model at the start draws fresh adapters
         # for every round, as the serial server does until its first merge
-        # (under a tier, its first sync); each round's draws go into the
-        # fleet just before that round runs, and the program reads them
-        # only while the task has no merged delta
+        # (under a tier, its first sync); each round's draws are made and
+        # go into the fleet just before that round runs (one round's draws
+        # held at a time), and the program reads them only while the task
+        # has no merged delta
         allow = [not hm for hm in self._has_merged_host]
-        ints, f32s, fresh_r = [], [], []
+        ints, f32s, lanes_r = [], [], []
         for r in range(rounds):
-            x, fresh = self._stage_round(allow, self._round + r)
-            fresh_r.append(fresh)
+            x, lanes = self._stage_round(allow, self._round + r)
+            lanes_r.append(lanes)
             i, f = self._pack(x)
             ints.append(i)
             f32s.append(f)
@@ -897,10 +909,9 @@ class FusedRoundEngine:
             with torch.no_grad():
                 self.int_in.copy_(all_int[r])
                 self.f32_in.copy_(all_f32[r])
-                for t, f in enumerate(fresh_r[r]):
+                for t, f in enumerate(self._draw_fresh(lanes_r[r])):
                     if f is not None:
                         _scatter_lanes(self.fresh[t], *f)
-            fresh_r[r] = None
             self._execute()
             with torch.no_grad():
                 outs[r].copy_(self.out)

@@ -408,21 +408,18 @@ class RSUServer:
                 self.partial_age[k] += 1
         if (self.round + 1) % self.tier.sync_period == 0:
             live = [k for k in range(K) if self.partial_w[k] > 0]
-            # every live discount underflowed to 0.0: keep the previous
-            # global instead of merging to zeros (the fused program gates
-            # its merge on the same Σω > 0)
-            omega = (self.partial_w[live] * agg.staleness_weights(
-                self.partial_age[live], self.tier.staleness_decay)
-                .double().numpy()) if live else np.zeros(0)
-            if live and float(np.sum(omega)) > 0.0:
-                merged = agg.merge_partials(
+            if live:
+                merged, alive = agg.merge_partials(
                     agg.stack_partials([self.partials[k] for k in live]),
                     self.partial_w[live], self.partial_age[live],
                     self.tier.staleness_decay)
-                if self.method == "ours":
-                    self.merged = merged
-                else:
-                    self.global_adapters = merged
+                # every live discount underflowed to 0.0: keep the
+                # previous global instead of merging to zeros
+                if bool(alive):
+                    if self.method == "ours":
+                        self.merged = merged
+                    else:
+                        self.global_adapters = merged
             # a new window: only new uploads count toward the next sync
             self.partial_w[:] = 0.0
             self.partial_age[:] = 0

@@ -52,14 +52,17 @@ def _deltas(V, seed):
 
 
 def test_merge_delta_fleet_matches_reference():
+    """The port's per-target merge_delta_lanes over a fleet equals the
+    reference's merge_delta_fleet (the fused program calls it one target
+    at a time into a reused scratch)."""
     fleet, jfleet = _fleet(5, seed=7)
-    got = agg.merge_delta_fleet(fleet, 1.5)["q"]["delta"].numpy()
+    got = agg.merge_delta_lanes(fleet["q"], 1.5).numpy()
     want = np.asarray(jagg.merge_delta_fleet(jfleet, 1.5)["q"]["delta"])
     assert np.allclose(got, np.moveaxis(want, 0, 1), atol=1e-5)
     # a lane's delta is its own adapter's, lane by lane
     lane = {"a": fleet["q"]["a"].select(-3, 2), "b": fleet["q"]["b"]
             .select(-3, 2)}
-    assert torch.allclose(agg.merge_delta_fleet(fleet, 1.5)["q"]["delta"]
+    assert torch.allclose(agg.merge_delta_lanes(fleet["q"], 1.5)
                           .select(-3, 2), 1.5 * lane["a"] @ lane["b"],
                           atol=1e-5)
 

@@ -8,8 +8,10 @@ under each engine and ``run_scanned``, against the same rounds under
 ``mode="sync"``: equal histories once the semi_sync-only tallies (all
 zero) are taken out, equal merged deltas. A sync history has no
 tallies. And the ablations (``ours_no_energy``, ``ours_no_mobility``)
-under a tier with semi_sync, their fused rounds held to their serial
-ones.
+under a tier with semi_sync, run free, their fused rounds held to their
+serial ones (each held to the reference's serial run, round by round
+from one state, in ``test_torch_modes_no_energy.py`` and
+``test_torch_modes_no_mobility.py``).
 """
 import dataclasses
 

@@ -457,7 +457,8 @@ def test_merge_partials_with_period_one_equals_pooled_aggregation():
     assoc = rng.integers(0, K, V)
     parts, seg_w = agg.aggregate_merged_padded_segmented(
         fleet, weights, assoc, K, scale=1.5)
-    merged = agg.merge_partials(parts, seg_w, np.zeros(K), 0.42)
+    merged, alive = agg.merge_partials(parts, seg_w, np.zeros(K), 0.42)
+    assert bool(alive)
     pooled = agg.aggregate_merged_padded(fleet, torch.from_numpy(weights),
                                          scale=1.5)
     assert np.allclose(merged["q"]["delta"].numpy(),
@@ -473,7 +474,7 @@ def test_merge_partials_matches_reference_with_stale_partials():
     w, ages = np.asarray([3.0, 0.0, 5.0]), np.asarray([0, 4, 2])
     got = agg.merge_partials(
         {"x": {"delta": torch.from_numpy(np.moveaxis(parts, 0, 1))}}, w,
-        ages, 0.7)["x"]["delta"].numpy()
+        ages, 0.7)[0]["x"]["delta"].numpy()
     want = np.asarray(jagg.merge_partials(
         {"x": {"delta": jnp.asarray(parts)}}, jnp.asarray(w),
         jnp.asarray(ages, jnp.float32), 0.7)["x"]["delta"])
@@ -501,20 +502,28 @@ def test_hetlora_segmented_matches_per_subset():
 
 
 def test_merge_partials_all_stale_fallback():
-    """Every partial aged past the float range: without a fallback the
-    merge is the zero tree, with one the previous global survives; live
-    weights ignore the fallback."""
+    """Every partial aged past the float range: the sum is the zero tree
+    and the merge flag is false, where the reference's merge with a
+    ``fallback=`` returns the previous global (the port's server and
+    program keep it on the flag); live weights merge as the
+    reference's."""
     parts = {"x": {"delta": torch.ones((2, 3, 4))}}
+    jparts = {"x": {"delta": jnp.ones((2, 3, 4))}}
     w = np.ones(2)
-    fallback = {"x": {"delta": torch.full((3, 4), 7.0)}}
+    fallback = {"x": {"delta": jnp.full((3, 4), 7.0)}}
     stale = np.full(2, 4000.0)
-    assert float(agg.merge_partials(parts, w, stale, 0.5)["x"]["delta"]
-                 .abs().max()) == 0.0
-    kept = agg.merge_partials(parts, w, stale, 0.5, fallback=fallback)
-    assert torch.equal(kept["x"]["delta"], fallback["x"]["delta"])
-    live = agg.merge_partials(parts, w, np.zeros(2), 0.5)
-    assert torch.equal(live["x"]["delta"], agg.merge_partials(
-        parts, w, np.zeros(2), 0.5, fallback=fallback)["x"]["delta"])
+    merged, alive = agg.merge_partials(parts, w, stale, 0.5)
+    assert not bool(alive)
+    assert float(merged["x"]["delta"].abs().max()) == 0.0
+    kept = jagg.merge_partials(jparts, jnp.asarray(w),
+                               jnp.asarray(stale, jnp.float32), 0.5,
+                               fallback=fallback)
+    assert np.all(np.asarray(kept["x"]["delta"]) == 7.0)
+    live, alive = agg.merge_partials(parts, w, np.zeros(2), 0.5)
+    assert bool(alive)
+    assert np.array_equal(live["x"]["delta"].numpy(), np.asarray(
+        jagg.merge_partials(jparts, jnp.asarray(w), jnp.zeros(2), 0.5,
+                            fallback=fallback)["x"]["delta"]))
 
 
 def test_stack_and_unstack_partials_round_trip():
