@@ -139,7 +139,9 @@ nothing is caught):
    upload and release one. Three planted faults on the card's side must
    break these gates: staleness discounts one round too old, a
    release landing at the RSU its vehicle trained under, a sync gate
-   frozen at capture. At full width, four rounds of each configuration
+   frozen at capture. At full width (6 of vit-base-paper's 12 layers,
+   ``DEPTH_5E``, to keep the script inside its time limit), four rounds
+   of each configuration
    under batched (HetLoRA's tier too, unprofiled: a window over its 15
    groups costs ~50 s) and fused, one profiled (for the fused engine a
    replay): wall and device ms, busy share, peak memory,
@@ -151,6 +153,33 @@ nothing is caught):
    delta at its first merge within 5b's spread limit); the tier's four
    rounds again through ``run_scanned`` (records equal to the rounds run
    one by one, its peak memory recorded).
+   (f) Resumable runs and the scenario presets, through
+   ``scenarios.build_sim`` and ``restore_checkpoint``. At the reduced
+   ViT: rsu-outage under semi_sync (batched ``run``, fused chunked
+   ``run_scanned``, 4 rounds, a checkpoint every 2) and dense-rsu (6
+   rounds, every 3: its boundary holds live partials), each run
+   uninterrupted and stopped at its first boundary, restored into a
+   fresh simulator (one fused case into the live one, whose captured
+   graphs must replay the restored state) and finished: the histories'
+   JSON and every leaf of the final checkpoints equal; a boundary must
+   hold a buffered upload and one two live partials; two planted faults
+   (a restore that skips the channel's stream, buffered uploads one
+   lane off) must break the comparison, and a preset of another seed
+   must refuse the file before any state changes. A checkpoint written
+   on the card restored on the CPU and one written on the CPU restored
+   on the card, one round on each device from it, and rush-hour's round
+   0, held with (e)'s gates; no absent vehicle trains. At full width:
+   rsu-outage under semi_sync, fused ``run_scanned(6)`` in chunks of 2
+   (``keep_last=1``), uninterrupted against stopped at round 2, freed,
+   restored into a fresh simulator and finished: histories and final
+   checkpoints equal to the bit; each save's and the restore's ms,
+   bytes, host and device peaks; the profiler's records of the first
+   replay after the restore (576 / 96). Then each of the seven presets
+   at full width, batched, until a round trains, on one set of base
+   weights: launches equal to the groups' prediction, energy, latency
+   and accuracy finite, absent vehicles (rush-hour, sparse-rural)
+   training no lane. The checkpoints go to a temporary directory in the
+   checkout, removed at the end.
 6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -169,9 +198,11 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -180,8 +211,13 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.config import (LoRAConfig, OutageSpec,  # noqa: E402
-                                ParticipationSpec, RSUTierSpec, ServeSpec)
+import repro_torch.checkpoint.carry as carry_mod  # noqa: E402
+from repro_torch.checkpoint import (latest_checkpoint,  # noqa: E402
+                                    load_pytree, restore_checkpoint,
+                                    save_checkpoint)
+from repro_torch.config import (CheckpointSpec, LoRAConfig,  # noqa: E402
+                                OutageSpec, ParticipationSpec, RSUTierSpec,
+                                ServeSpec)
 from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
 from repro_torch.core import aggregation as agg  # noqa: E402
 from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
@@ -204,6 +240,7 @@ from repro_torch.interop import tree_map  # noqa: E402
 from repro_torch.federated.fused_engine import (  # noqa: E402
     FusedRoundEngine, _copy_tree)
 from repro_torch.optim.adam import leaves  # noqa: E402
+from repro_torch.sim import scenarios  # noqa: E402
 from repro_torch.sim.mobility_model import MobilitySimConfig  # noqa: E402
 from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
 
@@ -2100,6 +2137,9 @@ ABLATIONS = ("ours_no_energy", "ours_no_mobility")
 # width, 6 of its 12 layers), to keep the script inside its time limit;
 # 5b, 5c and 5e run all 12
 DEPTH_5D = 6
+# 5e's full-width rounds run at the same depth since 5f came (5e (a), the
+# reduced ViT card against the CPU, is unchanged)
+DEPTH_5E = 6
 UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
                  "ours_residual")
 PARITY_ROUNDS = 2
@@ -2910,7 +2950,7 @@ def modes_agree(fused, batched, limit):
             "first_merge_spread": spread, "limit": limit}
 
 
-def scanned_rounds(want, modes):
+def scanned_rounds(want, modes, arch):
     """Phase 5e (b): the tier's rounds of :func:`fused_rounds` (their
     records ``want``) again, from the same seed, through ``run_scanned``:
     every round staged first, each task's fresh adapters drawn for every
@@ -2923,8 +2963,7 @@ def scanned_rounds(want, modes):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim = IoVSimulator(SimConfig(method="ours", engine="fused",
-                                 train_arch=vit_base_paper.vit_base_paper(),
-                                 **modes), device="cuda")
+                                 train_arch=arch, **modes), device="cuda")
     recs = sim.run_scanned(len(want))
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
@@ -3007,6 +3046,8 @@ def phase_5e(limit):
     parity_s = time.perf_counter() - t0
     release()
     modes = MODES_5E
+    arch = vit_base_paper.vit_base_paper().with_overrides(
+        num_layers=DEPTH_5E)
     batched = {}
     for name, method, mode in (("tier", "ours", "tier"),
                                ("tier hetlora", "hetlora", "tier"),
@@ -3017,15 +3058,15 @@ def phase_5e(limit):
         het = method == "hetlora"
         batched[name] = full_rounds("batched", 0 if het else 1,
                                     method=method, modes=modes[mode],
-                                    plain=4 if het else 3)
+                                    plain=4 if het else 3, arch=arch)
         only_first_merges(batched[name])
         release()
     fused, replay = {}, {}
     for name in ("tier", "semi", "tier+semi"):
-        fused[name] = fused_rounds(1, plain=2, modes=modes[name])
+        fused[name] = fused_rounds(1, plain=2, modes=modes[name],
+                                   arch=arch)
         release()
-        eager = fused_run(vit_base_paper.vit_base_paper(), 2, capture=False,
-                          modes=modes[name])
+        eager = fused_run(arch, 2, capture=False, modes=modes[name])
         replay[name] = fused_state_diff(fused[name]["_state"], eager, 2)
         del eager
         if not replay[name] <= REPLAY_TOL:
@@ -3039,7 +3080,7 @@ def phase_5e(limit):
     tier_recs = fused["tier"]["_state"]["recs"]
     for run in list(batched.values()) + list(fused.values()):
         run.pop("_state")
-    scanned = scanned_rounds(tier_recs, modes["tier"])
+    scanned = scanned_rounds(tier_recs, modes["tier"], arch)
     torch.cuda.empty_cache()
     return {"parity": parity, "events": events, "planted": planted,
             "parity_s": parity_s, "batched": batched, "fused": fused,
@@ -3084,7 +3125,7 @@ def print_5e(p5e):
         up = run["unprofiled_round"]
         if not run["rounds"]:
             print(f"[5e] {name} {run['engine']} ({run['method']}) at full "
-                  f"width, unprofiled: rounds wall "
+                  f"width ({DEPTH_5E} layers), unprofiled: rounds wall "
                   f"{', '.join(f'{x:.1f}' for x in up['wall_ms_each'])} ms, "
                   f"peak memory {up['peak_memory_bytes'] / 2**30:.2f} GiB; "
                   f"launches {run['launches']} (each round's = its groups' "
@@ -3105,7 +3146,7 @@ def print_5e(p5e):
                     f"launches {rd['launches_total']} = predicted "
                     f"{rd['predicted_launches']}; groups {rd['groups']}")
         print(f"[5e] {name} {run['engine']} ({run['method']}) at full "
-              f"width: {first}round {rd['round']} wall "
+              f"width ({DEPTH_5E} layers): {first}round {rd['round']} wall "
               f"{rd['wall_ms']:.1f} ms (profiled), device "
               f"{rd['device_ms']:.1f} ms, busy {rd['busy_share']:.3f}, peak "
               f"memory {rd['peak_memory_bytes'] / 2**30:.2f} GiB; "
@@ -3117,11 +3158,12 @@ def print_5e(p5e):
                           f"x{t['count']}" for t in rd["top"][:4]),
               flush=True)
     for name, d in p5e["replay_vs_eager"].items():
-        print(f"[5e] {name} fused at full width, rounds 0-1 (round 1 a "
-              f"replay) vs eager: {d:.3g} (tol {p5e['replay_tol']})",
-              flush=True)
+        print(f"[5e] {name} fused at full width ({DEPTH_5E} layers), "
+              f"rounds 0-1 (round 1 a replay) vs eager: {d:.3g} (tol "
+              f"{p5e['replay_tol']})", flush=True)
     for name, a in p5e["fused_vs_batched"].items():
-        print(f"[5e] {name} fused vs batched at full width over "
+        print(f"[5e] {name} fused vs batched at full width ({DEPTH_5E} "
+              f"layers) over "
               f"{a['rounds']} rounds: ranks, counts, deferred and released "
               f"equal, energy rel {a['energy_rel_err']:.3g}, latency rel "
               f"{a['latency_rel_err']:.3g} (tol {a['tol']}); merged deltas "
@@ -3130,7 +3172,8 @@ def print_5e(p5e):
               f"{a['first_merge_spread']:.3g} (limit {a['limit']:.3g})",
               flush=True)
     sc = p5e["scanned"]
-    print(f"[5e] tier fused at full width through run_scanned("
+    print(f"[5e] tier fused at full width ({DEPTH_5E} layers) through "
+          f"run_scanned("
           f"{sc['rounds']}) (fresh adapters drawn per round until the first "
           f"sync): counts equal to run_round's, energy rel "
           f"{sc['energy_rel_err']:.3g}, latency rel "
@@ -3140,6 +3183,638 @@ def print_5e(p5e):
           f"the run {sc['held_before_bytes'] / 2**30:.2f} GiB), captures "
           f"{sc['captures']}", flush=True)
     print(f"[5e] phase 5e took {p5e['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: resumable runs and the scenario presets
+# ---------------------------------------------------------------------------
+
+# (a), (b): the reduced ViT; each case (preset, participation, engine,
+# checkpoint interval, rounds) runs its rounds with a checkpoint every
+# interval, against a run stopped at the first boundary and resumed.
+# rsu-outage under semi_sync holds deferred uploads at the round-2
+# boundary; dense-rsu syncs its partials every 2 rounds (rounds 1, 3,
+# 5), so its round-3 boundary holds the live partials of round 2 and the
+# resumed run's first round merges them.
+RESUME_ROUNDS, RESUME_EVERY = 4, 2
+RESUME_5F = (("rsu-outage", "semi_sync", "batched", 2, 4),
+             ("rsu-outage", "semi_sync", "fused", 2, 4),
+             ("dense-rsu", "sync", "batched", 3, 6),
+             ("dense-rsu", "sync", "fused", 3, 6))
+# (c): full width, rsu-outage under semi_sync, fused run_scanned in
+# chunks of RESUME_EVERY over FULL_HORIZON rounds (the preset built for
+# that horizon: its trace and outage windows)
+FULL_HORIZON = 6
+
+
+def preset_sim(name, part, engine, rounds, ckpt=None, keep_last=0,
+               device="cuda", arch=None, every=RESUME_EVERY, **kw):
+    """A scenario preset's simulator for ``rounds`` rounds, checkpointing
+    every ``every`` rounds into ``ckpt`` when given."""
+    over = dict(kw)
+    if ckpt is not None:
+        over["checkpoint"] = CheckpointSpec(interval=every, dir=ckpt,
+                                            keep_last=keep_last)
+    if arch is not None:
+        over["train_arch"] = arch
+    return scenarios.build_sim(name, rounds=rounds, engine=engine,
+                               participation=part, device=device, **over)
+
+
+def drive(sim, n):
+    """``n`` rounds as a user resumes them: ``run_scanned`` in chunks under
+    a fused engine, ``run`` otherwise."""
+    return (sim.run_scanned if sim.fused is not None else sim.run)(n)
+
+
+def history_json(sim):
+    return json.dumps(sim.history, sort_keys=True)
+
+
+def checkpoint_diff(a, b):
+    """Leaves of two checkpoint files that differ (by flat key; dtypes,
+    shapes and bits), read one entry at a time."""
+    with np.load(a) as za, np.load(b) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return [f"keys {sorted(set(za.files) ^ set(zb.files))}"]
+        out = []
+        for k in za.files:
+            x, y = za[k], zb[k]
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                out.append(k)
+        return out
+
+
+def boundary_state(path):
+    """What a checkpoint carries: buffered uploads and, per task, live
+    partials (the largest count over tasks)."""
+    st = load_pytree(path, numpy=True)
+    return {"buffered": int(sum(len(s["buffer"]["lanes"])
+                                for s in st["servers"])),
+            "live_partials": int(max(int((s["partial_w"] > 0).sum())
+                                     for s in st["servers"]))}
+
+
+def restore_skipping_channel(sim, ckpt_dir):
+    """Planted fault: a restore that leaves the channel's fading stream
+    where the fresh simulator had it."""
+    state = sim.channel._rng.bit_generator.state
+    done = restore_checkpoint(sim, ckpt_dir)
+    sim.channel._rng.bit_generator.state = state
+    return done
+
+
+def restore_buffer_one_lane_off(sim, ckpt_dir):
+    """Planted fault: a restore whose buffered uploads land one vehicle
+    lane over."""
+    done = restore_checkpoint(sim, ckpt_dir)
+    V = sim.cfg.num_vehicles
+    for srv in sim.servers:
+        srv.buffer = {(v + 1) % V: e for v, e in srv.buffer.items()}
+    if sim.fused is not None:
+        sim.fused.reset_carry()
+    return done
+
+
+def resume_case(root, name, part, engine, every, rounds, live=False):
+    """Phase 5f (a), one case: an uninterrupted run of ``rounds`` rounds
+    with a checkpoint every ``every`` against one stopped at the first
+    boundary and restored (into a fresh simulator, or with ``live`` into
+    the same one after it ran on), then finished. Returns the readings;
+    the histories (JSON) and every leaf of the final checkpoints must be
+    equal."""
+    label = f"{name} {part} {engine}" + (" live" if live else "")
+    d_ref, d_vic = (os.path.join(root, label.replace(" ", "_") + s)
+                    for s in ("_ref", "_vic"))
+    kw = dict(every=every)
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = preset_sim(name, part, engine, rounds, d_ref, **kw)
+    drive(ref, rounds)
+    want = history_json(ref)
+    del ref
+    release()
+    vic = preset_sim(name, part, engine, rounds, d_vic, **kw)
+    drive(vic, rounds if live else every)
+    if live:
+        res = vic
+        captures = res.fused.captures
+        ptrs = {k: v.data_ptr() for k, v in res.fused.carry.items()
+                if isinstance(v, torch.Tensor)}
+        done = restore_checkpoint(res, round_idx=every)
+    else:
+        del vic
+        release()
+        res = preset_sim(name, part, engine, rounds, d_vic, **kw)
+        done = restore_checkpoint(res)
+    if done != every or len(res.history) != every:
+        fail(f"5f {label}: restored round {done}, history "
+             f"{len(res.history)}")
+    drive(res, rounds - every)
+    launched = counts()
+    if launched["lora_matmul"] == 0 or launched["flash_attention"] == 0:
+        fail(f"5f {label}: the rounds launched {launched}")
+    if live and (res.fused.captures != captures or ptrs != {
+            k: v.data_ptr() for k, v in res.fused.carry.items()
+            if isinstance(v, torch.Tensor)}):
+        fail(f"5f {label}: the live restore recaptured or rebound the "
+             f"carry")
+    final = f"round_{rounds:06d}.npz"
+    diff = checkpoint_diff(os.path.join(d_ref, final),
+                           os.path.join(d_vic, final))
+    out = {"case": label, "every": every, "rounds": rounds,
+           "history_equal": history_json(res) == want,
+           "checkpoint_leaves_differing": diff,
+           "boundary": boundary_state(os.path.join(
+               d_vic, f"round_{every:06d}.npz")),
+           "launches": launched, "seconds": time.perf_counter() - t0,
+           "_want": want, "_dirs": (d_ref, d_vic)}
+    del res
+    release()
+    return out
+
+
+def faulted_resume(root, case, restore):
+    """Phase 5f (a), a planted fault: ``case``'s stopped run restored
+    through ``restore`` into a fresh simulator and finished; the
+    comparison with the uninterrupted run must fail."""
+    name, part, engine = case["case"].split()[:3]
+    every, rounds = case["every"], case["rounds"]
+    d_ref, d_vic = case["_dirs"]
+    d = os.path.join(root, f"fault_{restore.__name__}")
+    os.makedirs(d)
+    first = f"round_{every:06d}.npz"
+    shutil.copy(os.path.join(d_vic, first), os.path.join(d, first))
+    sim = preset_sim(name, part, engine, rounds, d, every=every)
+    restore(sim, d)
+    drive(sim, rounds - every)
+    final = f"round_{rounds:06d}.npz"
+    out = {"history_equal": history_json(sim) == case["_want"],
+           "checkpoint_leaves_differing": len(checkpoint_diff(
+               os.path.join(d_ref, final), os.path.join(d, final)))}
+    del sim
+    release()
+    return out
+
+
+def wrong_seed_raises(root, case):
+    """Phase 5f (a): a preset built with another seed refuses the
+    checkpoint before any state changes."""
+    name, part, engine = case["case"].split()[:3]
+    sim = preset_sim(name, part, engine, case["rounds"], seed=1)
+    try:
+        restore_checkpoint(sim, case["_dirs"][1])
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail("5f: a checkpoint restored into a preset of another seed")
+    untouched = (sim.history == [] and sim.mobility.tick == 0
+                 and all(s.merged is None and not s.buffer
+                         for s in sim.servers))
+    if not untouched:
+        fail("5f: a refused restore changed the simulator's state")
+    return msg
+
+
+def round_gates(card, cpu):
+    """One round on each device from one state, held with 5e's gates:
+    the counts exactly, energy, latency and weights within ROUND_TOL,
+    the trained state (global states, partials, buffered deltas) as a
+    Frobenius spread within MODE_FRO_LIMIT. Returns (readings,
+    violations)."""
+    bad = []
+    gr, cr = card.history[-1], cpu.history[-1]
+    row = {"energy": 0.0, "latency": 0.0, "rel_weight": 0.0,
+           "state": 0.0, "state_fro": 0.0}
+    for gt, ct in zip(gr["tasks"], cr["tasks"]):
+        for key in COUNT_KEYS_5E:
+            if gt.get(key) != ct.get(key):
+                bad.append(f"task {gt['task']} {key} {gt.get(key)} vs "
+                           f"{ct.get(key)}")
+        for key in ("energy", "latency", "rel_weight"):
+            if key in ct:
+                row[key] = max(row[key], abs(gt[key] - ct[key])
+                               / max(abs(ct[key]), 1e-12))
+    gs, cs = server_states(card), server_states(cpu)
+    if [s is None for s in gs] != [s is None for s in cs]:
+        bad.append("a global model on one device only")
+    else:
+        for g, c_ in zip(gs, cs):
+            e, f = _tree_rel(g, c_)
+            row["state"] = max(row["state"], e)
+            row["state_fro"] = max(row["state_fro"], f)
+    diff = mode_state_diff(mode_states(card), mode_states(cpu))
+    if diff.pop("exact"):
+        bad.append("live partials, ages or the buffer differ")
+    row.update(diff)
+    held = {**{k: ROUND_TOL for k in ("energy", "latency", "rel_weight",
+                                      "partial_w", "buffer_w")},
+            **{k: MODE_FRO_LIMIT for k in ("state_fro", "partials_fro",
+                                           "buffer_fro")}}
+    over = {k: row.get(k, 0.0) for k, tol in held.items()
+            if not row.get(k, 0.0) <= tol}
+    if over:
+        bad.append(f"over their limits: {over}")
+    return row, bad
+
+
+def present_spy(sim):
+    """Keep the fleet's presence after each mobility step."""
+    seen, step = [], sim.mobility.step
+
+    def spy():
+        step()
+        seen.append(sim.mobility.present.copy())
+    sim.mobility.step = spy
+    return seen
+
+
+def absent_trained(plans, present, nt):
+    """Vehicles that trained a lane while absent, per round."""
+    return [sorted(set(ids) - set(np.flatnonzero(present[i // nt])))
+            for i, (_, ids, _, _) in enumerate(plans)]
+
+
+def cross_device(root):
+    """Phase 5f (b): a checkpoint the card wrote restored on the CPU, and
+    one the CPU wrote restored on the card; each time one round on each
+    device from that state (the card training from the CPU's SVD
+    redistribution, :func:`share_distribution`), held with 5e's gates.
+    Then round 0 of rush-hour (a dynamic fleet) on both devices."""
+    name, part = "rsu-outage", "semi_sync"
+    rows, bad = {}, []
+    reset_counts()
+    card = preset_sim(name, part, "batched", RESUME_ROUNDS)
+    card.run(RESUME_EVERY)
+    d_card = os.path.join(root, "card_written")
+    save_checkpoint(card, d_card)
+    cpu = preset_sim(name, part, "batched", RESUME_ROUNDS, device="cpu")
+    restore_checkpoint(cpu, d_card)
+    share_distribution(card, cpu)
+    cpu.run_round()
+    card.run_round()
+    rows["card-written, restored on the CPU"], b = round_gates(card, cpu)
+    bad += [f"card-written: {x}" for x in b]
+    del card
+    release()
+    d_cpu = os.path.join(root, "cpu_written")
+    save_checkpoint(cpu, d_cpu)
+    card = preset_sim(name, part, "batched", RESUME_ROUNDS)
+    restore_checkpoint(card, d_cpu)
+    share_distribution(card, cpu)
+    cpu.run_round()
+    card.run_round()
+    rows["CPU-written, restored on the card"], b = round_gates(card, cpu)
+    bad += [f"CPU-written: {x}" for x in b]
+    buffered = [len(s.buffer) for s in cpu.servers]
+    del card, cpu
+    release()
+    sims, plans, present = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        sims[dev] = preset_sim("rush-hour", "sync", "batched", 24,
+                               device=dev)
+        plans[dev] = []
+        recording(sims[dev], plans[dev])
+        present[dev] = present_spy(sims[dev])
+        sims[dev].run_round()
+    rows["rush-hour round 0"], b = round_gates(sims["cuda"], sims["cpu"])
+    bad += [f"rush-hour: {x}" for x in b]
+    if plans["cuda"] != plans["cpu"]:
+        bad.append("rush-hour: active sets, ranks or departures differ")
+    nt = sims["cuda"].cfg.num_tasks
+    trained_absent = absent_trained(plans["cuda"], present["cuda"], nt)
+    absent = int((~present["cuda"][0]).sum())
+    if any(trained_absent) or absent == 0:
+        bad.append(f"rush-hour: {absent} absent, of them trained "
+                   f"{trained_absent}")
+    launched = counts()
+    del sims
+    release()
+    if bad:
+        fail(f"5f (b) card vs CPU: {bad}")
+    return {"rounds": rows, "buffered_after": buffered,
+            "rush_hour_absent": absent, "launches": launched}
+
+
+class HostPeak:
+    """The process's resident memory, sampled every 5 ms while inside:
+    ``peak`` is the most it rose above what it held on entry (bytes)."""
+
+    def __init__(self):
+        self.peak = 0
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+        self._base, self._stop = self._rss(), threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self._rss() - self._base)
+        self._thread = threading.Thread(target=watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss() - self._base)
+
+
+def timed_saves(log):
+    """Time every checkpoint the simulators write (wall ms with the
+    device-to-host copies, file bytes, host and device peaks), by
+    wrapping ``save_checkpoint`` where ``run``/``run_scanned`` call it."""
+    real = carry_mod.save_checkpoint
+
+    def save(sim, *a, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with HostPeak() as host:
+            path = real(sim, *a, **kw)
+        log.append({"round": len(sim.history),
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "bytes": os.path.getsize(path),
+                    "host_peak_bytes": host.peak,
+                    "device_peak_bytes":
+                        torch.cuda.max_memory_allocated() - base,
+                    "run_peak_before_bytes": before})
+        return path
+    carry_mod.save_checkpoint = save
+    return real
+
+
+def full_width_resume(root):
+    """Phase 5f (c): rsu-outage under semi_sync at the full width of
+    vit-base-paper, fused ``run_scanned`` over FULL_HORIZON rounds with a
+    checkpoint every RESUME_EVERY (keep_last 1): an uninterrupted run
+    against one stopped at the first boundary, freed, restored into a
+    fresh simulator and finished; no two simulators on the card at
+    once. Histories bit-equal, the final checkpoints' leaves equal;
+    save and restore times, bytes and peaks; the profiler's kernel
+    records of one replayed round after the restore."""
+    arch = vit_base_paper.vit_base_paper()
+    name, part = "rsu-outage", "semi_sync"
+    d_ref, d_vic = (os.path.join(root, s) for s in ("full_ref", "full_vic"))
+    saves = []
+    real = timed_saves(saves)
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = preset_sim(name, part, "fused", FULL_HORIZON, d_ref, keep_last=1,
+                     arch=arch)
+    forwards = ref.cfg.num_tasks * (ref.cfg.local_steps + 2)
+    want_records = {"lora_matmul": 72 * forwards,
+                    "flash_attention": 12 * forwards}
+    ref.run_scanned(FULL_HORIZON)
+    want = history_json(ref)
+    ref_s = time.perf_counter() - t0
+    del ref
+    release()
+    vic = preset_sim(name, part, "fused", FULL_HORIZON, d_vic, keep_last=1,
+                     arch=arch)
+    vic.run_scanned(RESUME_EVERY)
+    del vic
+    release()
+    boundary = boundary_state(latest_checkpoint(d_vic))
+    if boundary["buffered"] == 0:
+        fail(f"5f (c): the round-{RESUME_EVERY} checkpoint holds no "
+             f"buffered upload")
+    res = preset_sim(name, part, "fused", FULL_HORIZON, d_vic, keep_last=1,
+                     arch=arch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with HostPeak() as host:
+        done = restore_checkpoint(res)
+        torch.cuda.synchronize()
+    restore = {"ms": (time.perf_counter() - t1) * 1e3,
+               "host_peak_bytes": host.peak,
+               "device_peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "round": done}
+    # the profiler's records of the first replay after the restore (the
+    # resumed run's second round: its first runs eagerly, then captures)
+    eng, profiled, calls = res.fused, [], []
+    execute = eng._execute
+
+    def watched():
+        calls.append(1)
+        if len(calls) == 2:
+            profiled.append(device_profile(execute, top=6))
+        else:
+            execute()
+    eng._execute = watched
+    torch.cuda.reset_peak_memory_stats()
+    n_saves = len(saves)
+    res.run_scanned(FULL_HORIZON - done)
+    # the resumed run's peak, across the resets each save makes
+    peak = max([s["run_peak_before_bytes"] for s in saves[n_saves:]]
+               + [torch.cuda.max_memory_allocated()])
+    carry_mod.save_checkpoint = real
+    got = history_json(res)
+    captures = eng.captures
+    launched = counts()
+    del res, eng, execute, watched
+    release()
+    prof = profiled[0]
+    ours = prof["port_kernels"]
+    records = {"lora_matmul": ours.get("lora_mm_kernel", {}).get("count", 0),
+               "flash_attention": ours.get("fa_kernel", {}).get("count", 0)}
+    final = f"round_{FULL_HORIZON:06d}.npz"
+    diff = checkpoint_diff(os.path.join(d_ref, final),
+                           os.path.join(d_vic, final))
+    if got != want or diff:
+        fail(f"5f (c) full width: the resumed run differs from the "
+             f"uninterrupted one (history equal {got == want}, leaves "
+             f"{diff[:5]})")
+    if records != want_records or captures != 1:
+        fail(f"5f (c): a replayed round's records {records}, predicted "
+             f"{want_records}; captures {captures}")
+    if sorted(os.listdir(d_vic)) != [final]:
+        fail(f"5f (c): keep_last=1 left {sorted(os.listdir(d_vic))}")
+    return {"config": f"{name}, participation={part}, {arch.name} at full "
+            f"width ({arch.num_layers} layers, d {arch.d_model}), fused "
+            f"run_scanned({FULL_HORIZON}) in chunks of {RESUME_EVERY}",
+            "boundary": boundary, "saves": saves, "restore": restore,
+            "uninterrupted_s": ref_s, "resumed_peak_memory_bytes": peak,
+            "replayed_round": {k: prof[k] for k in (
+                "wall_ms", "device_ms", "busy_share", "window_s")},
+            "records_per_replayed_round": records,
+            "predicted_records": want_records, "captures": captures,
+            "launches": launched, "history_equal": True,
+            "checkpoint_leaves_equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def every_preset():
+    """Phase 5f (d): each preset at the full width of vit-base-paper under
+    the batched engine, every simulator on one set of base weights, round
+    by round until a round trains (sparse-rural's first two have no
+    vehicle in coverage): launches equal to the groups' prediction,
+    energy, latency and accuracy finite, no absent vehicle training a
+    lane (rush-hour's and sparse-rural's rounds must have absent
+    vehicles); the wall time of each round, unprofiled."""
+    release()
+    arch = vit_base_paper.vit_base_paper()
+    params = tree_map(lambda t: t.cuda(), T.init_params(
+        arch, seed=0, dtype=torch.float32, device="cpu"))
+    per_fwd = {"lora_matmul": arch.num_layers * len(tree_paths(
+        T.init_adapters(arch, LoRAConfig(), rank=2, device="cpu"))),
+        "flash_attention": arch.num_layers}
+    out = {}
+    for name in scenarios.list_scenarios():
+        sim = scenarios.build_sim(name, engine="batched", train_arch=arch,
+                                  params=params)
+        plans = []
+        recording(sim, plans)
+        present = present_spy(sim)
+        nt = sim.cfg.num_tasks
+        reset_counts()
+        walls, groups = [], []
+        while not groups and len(walls) < 3:
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = sim.run_round()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            groups, _ = predicted_launches(sim, plans[-nt:], rec, {
+                k: v - before[k] for k, v in counts().items()}, per_fwd)
+            finite = all(np.isfinite(t[k]) for t in rec["tasks"] + [rec]
+                         for k in ("energy", "latency", "accuracy"))
+            if not finite:
+                fail(f"5f (d) {name} round {len(walls) - 1}: an energy, "
+                     f"latency or accuracy is not finite")
+        launched = counts()
+        trained_absent = absent_trained(plans, present, nt)
+        absent = [int((~p).sum()) for p in present]
+        if not groups or launched["lora_matmul"] == 0 or any(trained_absent):
+            fail(f"5f (d) {name}: groups {groups}, launches {launched}, "
+                 f"absent vehicles that trained {trained_absent}")
+        if name in ("rush-hour", "sparse-rural") and not all(absent):
+            fail(f"5f (d) {name}: rounds without an absent vehicle "
+                 f"({absent})")
+        out[name] = {"wall_ms": walls[-1], "wall_ms_each": walls,
+                     "rounds": len(walls), "launches": launched,
+                     "groups": [list(g) for g in groups],
+                     "vehicles": sim.cfg.num_vehicles, "tasks": nt,
+                     "absent": absent,
+                     "active": [t["active"] for t in rec["tasks"]],
+                     "energy": rec["energy"], "latency": rec["latency"],
+                     "accuracy": rec["accuracy"]}
+        del sim
+        release()
+    return out
+
+
+def phase_5f():
+    """Phase 5f: (a) resume on the card at the reduced ViT, with two
+    planted faults and a refused config; (b) checkpoints across the card
+    and the CPU; (c) a full-width resume; (d) every preset at full width.
+    The checkpoints go to a temporary directory in the checkout, removed
+    at the end."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_ckpt_") as root:
+        cases = [resume_case(root, *c) for c in RESUME_5F]
+        cases.append(resume_case(root, *RESUME_5F[1], live=True))
+        for c in cases:
+            if not c["history_equal"] or c["checkpoint_leaves_differing"]:
+                fail(f"5f (a) {c['case']}: the resumed run differs "
+                     f"(history equal {c['history_equal']}, leaves "
+                     f"{c['checkpoint_leaves_differing'][:5]})")
+        if not (any(c["boundary"]["buffered"] for c in cases)
+                and any(c["boundary"]["live_partials"] >= 2 for c in cases)):
+            fail(f"5f (a): the boundaries held "
+                 f"{[c['boundary'] for c in cases]}; a buffered upload and "
+                 f"two live partials must occur")
+        planted = {}
+        for label, restore in (
+                ("a restore that skips the channel's stream",
+                 restore_skipping_channel),
+                ("buffered uploads one lane off",
+                 restore_buffer_one_lane_off)):
+            p = faulted_resume(root, cases[0], restore)
+            if p["history_equal"] and not p["checkpoint_leaves_differing"]:
+                fail(f"5f planted fault '{label}' passes the comparison")
+            planted[label] = p
+        refused = wrong_seed_raises(root, cases[0])
+        a_s = time.perf_counter() - t0
+        cross = cross_device(root)
+        b_s = time.perf_counter() - t0 - a_s
+        full = full_width_resume(root)
+    presets = every_preset()
+    for c in cases:
+        del c["_want"], c["_dirs"]
+    return {"cases": cases, "planted": planted, "refused": refused,
+            "a_s": a_s, "cross_device": cross, "b_s": b_s, "full": full,
+            "presets": presets, "seconds": time.perf_counter() - t0}
+
+
+def print_5f(p5f):
+    """Phase 5f's lines."""
+    for c in p5f["cases"]:
+        print(f"[5f] {c['case']}, reduced ViT, {c['rounds']} rounds, "
+              f"stopped at {c['every']} and resumed: history equal "
+              f"{c['history_equal']}, final checkpoints' leaves equal "
+              f"{not c['checkpoint_leaves_differing']}; the boundary held "
+              f"{c['boundary']}; launches {c['launches']}; "
+              f"{c['seconds']:.1f} s", flush=True)
+    for label, p in p5f["planted"].items():
+        print(f"[5f] planted fault '{label}': history equal "
+              f"{p['history_equal']}, {p['checkpoint_leaves_differing']} "
+              f"leaves differ: fails the comparison", flush=True)
+    print(f"[5f] a preset of another seed refuses the checkpoint before "
+          f"any state changes: {p5f['refused'][:90]}; (a) took "
+          f"{p5f['a_s']:.1f} s", flush=True)
+    x = p5f["cross_device"]
+    for label, r in x["rounds"].items():
+        print(f"[5f] {label}: one round on each device, counts equal; rel "
+              f"energy {r['energy']:.3g}, latency {r['latency']:.3g}, "
+              f"release weight {r['rel_weight']:.3g} (tol {ROUND_TOL}); "
+              f"Frobenius spread of the global states "
+              f"{r['state_fro']:.3g}, partials {r['partials_fro']:.3g}, "
+              f"buffered deltas {r['buffer_fro']:.3g} (limit "
+              f"{MODE_FRO_LIMIT}); largest entry (recorded) "
+              f"{r['state']:.3g}", flush=True)
+    print(f"[5f] rush-hour round 0: {x['rush_hour_absent']} vehicles "
+          f"absent, none trained; buffered uploads after the CPU-written "
+          f"restore {x['buffered_after']}; launches {x['launches']}; (b) "
+          f"took {p5f['b_s']:.1f} s", flush=True)
+    f = p5f["full"]
+    for s in f["saves"]:
+        print(f"[5f] full width save at round {s['round']}: "
+              f"{s['ms']:.1f} ms, {s['bytes'] / 2**30:.3f} GiB, host peak "
+              f"{s['host_peak_bytes'] / 2**30:.3f} GiB, device peak "
+              f"{s['device_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    r = f["restore"]
+    rr = f["replayed_round"]
+    print(f"[5f] {f['config']}: the boundary held {f['boundary']}; restore "
+          f"{r['ms']:.1f} ms, host peak {r['host_peak_bytes'] / 2**30:.3f} "
+          f"GiB, device peak {r['device_peak_bytes'] / 2**30:.3f} GiB; "
+          f"history and final checkpoint equal to the uninterrupted run's "
+          f"({f['uninterrupted_s']:.1f} s); the first replay after the "
+          f"restore: records {f['records_per_replayed_round']} (predicted "
+          f"{f['predicted_records']}), wall {rr['wall_ms']:.1f} ms, device "
+          f"{rr['device_ms']:.1f} ms, busy {rr['busy_share']:.3f}; "
+          f"captures {f['captures']}; resumed run's peak memory "
+          f"{f['resumed_peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"{f['seconds']:.1f} s", flush=True)
+    for name, p in p5f["presets"].items():
+        print(f"[5f] {name} at full width, batched round {p['rounds'] - 1} "
+              f"(the first that trains; unprofiled): wall "
+              f"{p['wall_ms']:.1f} ms, {p['vehicles']} vehicles, "
+              f"{p['tasks']} tasks, {p['absent']} absent, active "
+              f"{p['active']}, launches {p['launches']} = the groups' "
+              f"prediction ({len(p['groups'])} groups); energy "
+              f"{p['energy']:.2f} J, latency {p['latency']:.2f} s, accuracy "
+              f"{p['accuracy']:.4f}", flush=True)
+    print(f"[5f] phase 5f took {p5f['seconds']:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3397,6 +4072,8 @@ def main() -> int:
     print_5d(p5d)
     p5e = phase_5e(limit)
     print_5e(p5e)
+    p5f = phase_5f()
+    print_5f(p5f)
 
     # phase 2 at the batched round's lane shapes: V from its largest
     # group per rank, for ours and for HetLoRA (the most rank groups)
@@ -3452,14 +4129,28 @@ def main() -> int:
             (f"{k} (planted)", p) for k, p in p5e["planted"].items()]:
         round_paths[f"vit-tiny-paper {name} {p['rounds']} rounds (5e)"] = \
             p["launches"]
+    half5e = f"vit-base-paper ({DEPTH_5E} layers)"
     for name, run in p5e["batched"].items():
         kind = ("profiled batched round" if run["rounds"] else
                 f"{len(run['unprofiled_round']['wall_ms_each'])} "
                 f"unprofiled batched rounds")
-        round_paths[f"vit-base-paper {name} {kind} (5e)"] = run["launches"]
+        round_paths[f"{half5e} {name} {kind} (5e)"] = run["launches"]
     for name, run in p5e["fused"].items():
-        round_paths[f"vit-base-paper {name} 4 fused rounds, first eager and "
+        round_paths[f"{half5e} {name} 4 fused rounds, first eager and "
                     f"the capture (5e)"] = run["launches"]
+    for c in p5f["cases"]:
+        round_paths[f"vit-tiny-paper {c['case']} {c['rounds']} rounds and "
+                    f"the resumed {c['rounds'] - c['every']} (5f)"] = \
+            c["launches"]
+    round_paths["vit-tiny-paper rsu-outage rounds after card/CPU restores, "
+                "rush-hour round 0, both devices (5f)"] = \
+        p5f["cross_device"]["launches"]
+    round_paths[f"vit-base-paper rsu-outage semi_sync fused "
+                f"run_scanned({FULL_HORIZON}), stopped at {RESUME_EVERY} "
+                f"and resumed (5f)"] = p5f["full"]["launches"]
+    for name, p in p5f["presets"].items():
+        round_paths[f"vit-base-paper {name} batched rounds 0-"
+                    f"{p['rounds'] - 1} (5f)"] = p["launches"]
     # each phase-2 row's launches in each round: vit-base-paper's in the
     # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
     # round 0), by engine
@@ -3557,7 +4248,7 @@ def main() -> int:
                    "fused_agreement": fagree, "fused_replay": replay,
                    "full_batched_vs_serial": agree,
                    "full_group_budgets": g, "methods": p5d,
-                   "modes": p5e}, fh, indent=1)
+                   "modes": p5e, "resume_and_presets": p5f}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

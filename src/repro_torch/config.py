@@ -8,18 +8,19 @@ constants, :class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
 (:class:`TraceSpec`, :class:`OutageSpec`, :class:`RSUTierSpec`,
 :class:`ParticipationSpec`, :class:`ShardSpec`, :class:`CheckpointSpec`),
 and the ``--arch`` registry. Each keeps the reference's names, defaults
-and validation for the fields it has; fields only the unported parts read
-(MoE/MLA/SSM sub-configs, modality frontends, buffer donation,
-adapter-cache and block-pool sizes) are left out until a slice needs them.
-The spec classes are data here: the simulator refuses the non-trivial
-tiers, participation modes, shardings, checkpoints and traces it does not
-run yet.
+and validation for the fields it has. :class:`ModelConfig` has all of the
+reference's fields, so that a config's checkpoint fingerprint is the
+reference's; the MoE/MLA/SSM sub-configs, shared attention and modality
+frontends stay at their defaults (another value raises until item 11).
+Fields only other unported parts read (buffer donation, adapter-cache
+and block-pool sizes) are left out until a slice needs them. The
+simulator refuses the shardings it does not run yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 # Block kinds understood by models/transformer.py (BLOCK_ATTN and
 # BLOCK_RWKV6 are ported)
@@ -28,6 +29,13 @@ BLOCK_MLA = "mla"            # DeepSeek-style multi-head latent attention + MLP/
 BLOCK_MAMBA2 = "mamba2"      # Mamba2 (SSD) block
 BLOCK_RWKV6 = "rwkv6"        # RWKV6 time-mix + channel-mix
 BLOCK_SHARED_ATTN = "shared_attn"  # Zamba2 shared transformer block
+
+
+# ModelConfig's fields that only the unported architectures set, with the
+# reference's defaults
+_UNPORTED_FIELDS = (("shared_attn_every", 0), ("moe", None), ("mla", None),
+                    ("ssm", None), ("frontend", None),
+                    ("num_prefix_embeds", 0))
 
 
 @dataclass(frozen=True)
@@ -55,10 +63,28 @@ class ModelConfig:
     tie_embeddings: bool = False
     logits_softcap: float = 0.0
     block_pattern: Optional[Tuple[str, ...]] = None   # None -> all BLOCK_ATTN
+    shared_attn_every: int = 0       # zamba2's shared attention (item 11)
+    # the reference's MoE / MLA / SSM sub-configs and modality frontends:
+    # kept at their defaults so that dataclasses.asdict, and with it a
+    # SimConfig's checkpoint fingerprint, equals the reference's
+    moe: Optional[Any] = None
+    mla: Optional[Any] = None
+    ssm: Optional[Any] = None
     rwkv: Optional[RWKVConfig] = None
+    frontend: Optional[str] = None   # None | "vision" | "audio"
+    num_prefix_embeds: int = 0
     sliding_window: Optional[int] = None
     source: str = ""
     dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        unported = {k: getattr(self, k) for k, default in _UNPORTED_FIELDS
+                    if getattr(self, k) != default}
+        if unported:
+            raise NotImplementedError(
+                f"{self.name}: {unported} needs the other architectures' "
+                "blocks, which the port has not taken over yet (ROADMAP "
+                "Queue 1, item 11)")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -102,7 +128,8 @@ class ModelConfig:
             else:
                 raise NotImplementedError(
                     f"{self.name}: the port counts the params of 'attn' and "
-                    f"'rwkv6' blocks only, not {kind!r}")
+                    f"'rwkv6' blocks only, not {kind!r} (ROADMAP Queue 1, "
+                    "item 11)")
             total += blk
             active += blk
         counts["blocks_total"] = total
@@ -166,8 +193,7 @@ class MobilityConfig:
 class TraceSpec:
     """Declarative trajectory source for the mobility model: pre-staged
     per-round positions and presence instead of online Gauss-Markov
-    dynamics. The port keeps the spec as data; replaying it waits for the
-    scenarios slice (the mobility model raises)."""
+    dynamics (``sim/trajectories.py`` builds it)."""
     kind: str = "synthetic"      # "synthetic" | "tdrive"
     length: int = 64             # staged round ticks; replay wraps modulo
     path: Optional[str] = None   # tdrive: path to a T-Drive format file

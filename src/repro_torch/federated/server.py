@@ -31,6 +31,8 @@ the reference's draws. By default fresh adapters and layer masks come
 from one CPU ``torch.Generator(seed)`` and Ω from
 :func:`repro_torch.core.svd.default_omega`, moved to the device
 afterwards, so one seed gives the same run on the card and on the CPU.
+A checkpoint stores that generator's state where the reference stores
+its key (:meth:`RSUServer.key_state`, :meth:`RSUServer.load_key`).
 """
 from __future__ import annotations
 
@@ -157,6 +159,30 @@ class RSUServer:
         fleet and rank-masks them in its round program."""
         return stack_trees([self._fresh(self.lora.max_rank)
                             for _ in range(n)])
+
+    # ------------------------------------------------------------------
+    # The stream cursor (the checkpoint's ``servers/<t>/key`` leaf)
+    # ------------------------------------------------------------------
+    def key_state(self) -> np.ndarray:
+        """The server's fresh-draw stream as a checkpoint leaf: the CPU
+        generator's state bytes (uint8), where the reference stores its
+        ``jax.random`` key."""
+        return self._gen.get_state().numpy().copy()
+
+    def load_key(self, key) -> None:
+        """Resume the fresh-draw stream from :meth:`key_state`'s bytes. A
+        reference-written key (two uint32 words of a ``jax.random`` key)
+        cannot continue JAX's stream here: the generator is re-seeded
+        deterministically from its two words, and the port's fresh draws
+        from there are its own (as in any run without injected draws;
+        ``draw_adapters`` / ``draw_layer_mask`` hand it the reference's)."""
+        key = np.asarray(key)
+        if key.dtype == np.uint32 and key.shape == (2,):
+            self._gen = torch.Generator().manual_seed(
+                (int(key[0]) << 32) | int(key[1]))
+        else:
+            self._gen.set_state(torch.from_numpy(
+                np.ascontiguousarray(key, np.uint8)))
 
     def load_merged(self, merged, round_: int) -> None:
         """Adopt server state computed off-host (the fused engine's

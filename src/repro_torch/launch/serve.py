@@ -110,7 +110,8 @@ class ServeEngine:
         self.spec = spec or ServeSpec()
         if self.spec.paged:
             raise NotImplementedError(
-                "paged KV (ServeSpec.block_size > 0) is not ported yet")
+                "paged KV (ServeSpec.block_size > 0) is not ported yet "
+                "(ROADMAP Queue 1, item 1: serving, the rest)")
         self.params = params
         self.slot_rank = self.spec.resolve_max_rank(lora)
         self.dtype = dtype

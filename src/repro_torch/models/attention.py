@@ -123,7 +123,8 @@ def attend(q, k, v, *, causal: bool, q_positions, kv_positions=None,
                               sm_scale=sm_scale, cap=cap)
     raise NotImplementedError(
         f"attention with Sq={Sq}, Sk={Sk} needs the blocked online-softmax "
-        "route, which the port has not taken over yet")
+        "route, which the port has not taken over yet (ROADMAP Queue 1, "
+        "item 1: serving, the rest)")
 
 
 def apply_attention(p, adapters, x, cfg: ModelConfig, lora_scale,

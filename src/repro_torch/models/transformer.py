@@ -56,7 +56,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: the port runs 'attn' and 'rwkv6' blocks only, "
-            f"not {kinds}")
+            f"not {kinds} (ROADMAP Queue 1, item 11)")
 
 
 def _layer(tree: Any, i: int) -> Any:

@@ -8,10 +8,14 @@ connectivity, early departures, RSU handoffs. Coverage honors
 effective radius). Departure *prediction* (used by §IV-E fault tolerance)
 extrapolates the current velocity over the expected round duration.
 
+Trace replay (``trace=TraceSpec(...)``): pre-staged per-round positions
+and presence built once by :func:`repro_torch.sim.trajectories.build_trace`
+(T-Drive ingestion or statistically matched synthesis), replayed tick by
+tick; a vehicle absent at a tick is active for no task (dynamic fleets),
+and departure prediction reads the trace's finite-difference velocity.
+
 numpy, the same calls in the same order as the reference, so one seed
-gives its trajectories bit for bit. Trace replay (``trace=TraceSpec``)
-needs ``sim/trajectories.py``, which the scenarios slice brings; a config
-with a trace raises until then.
+gives its trajectories bit for bit.
 """
 from __future__ import annotations
 
@@ -115,11 +119,19 @@ class MobilityModel:
         # {"tick", "prev", "cur"} — see round_view_group (idempotent per
         # tick: re-querying the same tick never re-advances "prev")
         self._assoc_log: Dict[int, Dict[str, np.ndarray]] = {}
+        self._trace = None
         if cfg.trace is not None:
-            raise NotImplementedError(
-                "trace replay (MobilitySimConfig.trace) needs "
-                "sim/trajectories.py, which the port has not taken over yet "
-                "(ROADMAP Queue 1, item 10)")
+            # replay: tick 0 of the trace, and none of the online draws
+            # below, so the mobility stream stays the reference's
+            from repro_torch.sim.trajectories import build_trace
+            self._trace = build_trace(
+                cfg.trace, area=cfg.area, num_vehicles=cfg.num_vehicles,
+                dt=cfg.dt, rsu_centers=[r.xy for r in rsus])
+            pos, pres = self._trace.at(0)
+            self.pos = np.array(pos)
+            self.vel = self._trace.velocity_at(0).copy()
+            self.present = np.array(pres)
+            return
         self.present = np.ones(cfg.num_vehicles, bool)
         self.pos = rng.uniform(0, cfg.area, size=(cfg.num_vehicles, 2))
         angles = rng.uniform(0, 2 * np.pi, cfg.num_vehicles)
@@ -220,6 +232,12 @@ class MobilityModel:
     def step(self) -> None:
         c = self.cfg
         self.tick += 1
+        if self._trace is not None:
+            pos, pres = self._trace.at(self.tick)
+            self.pos = np.array(pos)
+            self.vel = self._trace.velocity_at(self.tick).copy()
+            self.present = np.array(pres)
+            return
         rng = self._rng
         # Gauss-Markov velocity update
         noise = rng.normal(0, c.speed_std, self.vel.shape)

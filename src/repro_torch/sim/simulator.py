@@ -47,9 +47,14 @@ to ``max_delay`` rounds late, and its history records gain
 its schema). The other methods raise ``ValueError`` with either, as in
 the reference.
 
-What the port does not run yet raises (ROADMAP Queue 1): the sharded
-fused engine (item 12), checkpoints and the checkpoint-chunked
-``run_scanned`` (item 9), trace replay (item 10).
+An enabled ``SimConfig.checkpoint`` writes the complete state every
+``interval`` completed rounds (``run``) or at every chunk boundary
+(``run_scanned``), and :func:`repro_torch.checkpoint.restore_checkpoint`
+resumes from it bit for bit, under any engine and on either device
+(``checkpoint/carry.py``). A ``MobilitySimConfig.trace`` replays staged
+trajectories (``sim/trajectories.py``; the presets of
+``sim/scenarios.py``). The sharded fused engine raises (ROADMAP Queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -278,9 +283,6 @@ class IoVSimulator:
             raise NotImplementedError(
                 f"SimConfig.shard={cfg.shard} needs the sharded fused "
                 "engine (ROADMAP Queue 1, item 12)")
-        if cfg.checkpoint.enabled:
-            raise NotImplementedError(
-                "checkpoints are not ported yet (ROADMAP Queue 1, item 9)")
 
     # ------------------------------------------------------------------
     def _select_ranks(self, ti: int, active: np.ndarray):
@@ -613,8 +615,9 @@ class IoVSimulator:
                     - cfg.ucb.alpha * tau_t / cfg.ucb.latency_ref)
         mean_rank = float(np.mean([int(r) for r in ranks[active_ids]])
                           ) if len(active_ids) else 0.0
-        trec = {"task": self.tasks[ti].name, "accuracy": acc,
-                "latency": tau_t, "energy": e_t, "reward": reward_t,
+        trec = {"task": self.tasks[ti].name, "accuracy": float(acc),
+                "latency": float(tau_t), "energy": float(e_t),
+                "reward": float(reward_t),
                 "lambda": lam, "mean_rank": mean_rank,
                 "active": int(len(active_ids)),
                 "departing": int(departing.sum()),
@@ -686,23 +689,47 @@ class IoVSimulator:
         round's mobility, channel draws and data batches staged on the
         host first (the same RNG streams as per-round execution), then
         run on the device without the host between rounds (see
-        :meth:`FusedRoundEngine.run_scanned`). Appends to and returns the
-        new part of ``history``. Checkpoint chunking waits for ROADMAP
-        Queue 1, item 9 (an enabled checkpoint raises at construction)."""
+        :meth:`FusedRoundEngine.run_scanned`). Appends to ``history`` and
+        returns the new records.
+
+        With an enabled ``SimConfig.checkpoint`` the horizon runs in
+        ``interval``-sized chunks with a full-state checkpoint at every
+        boundary (the last chunk may be shorter). The staging streams are
+        consumed in round order either way, so the chunked run replays
+        the unchunked one."""
         if self.fused is None:
             raise ValueError("run_scanned requires engine='fused' "
                              f"(engine={self.engine!r})")
-        return self.fused.run_scanned(rounds or self.cfg.rounds)
+        n = rounds or self.cfg.rounds
+        ck = self.cfg.checkpoint
+        if not ck.enabled:
+            return self.fused.run_scanned(n)
+        from repro_torch.checkpoint.carry import save_checkpoint
+        out: List[Dict[str, Any]] = []
+        done = 0
+        while done < n:
+            chunk = min(ck.interval, n - done)
+            out.extend(self.fused.run_scanned(chunk))
+            done += chunk
+            save_checkpoint(self)
+        return out
 
     def run(self, rounds: Optional[int] = None, log_every: int = 0
             ) -> List[Dict[str, Any]]:
+        """``rounds`` rounds (default ``cfg.rounds``), with a checkpoint
+        after every ``interval``-th completed round of the history when
+        ``SimConfig.checkpoint`` is enabled. Returns ``history``."""
         n = rounds or self.cfg.rounds
+        ck = self.cfg.checkpoint
         for i in range(n):
             rec = self.run_round()
             if log_every and (i % log_every == 0):
                 print(f"[{self.cfg.method}] round {i:3d} "
                       f"acc={rec['accuracy']:.3f} reward={rec['reward']:.2f} "
                       f"E={rec['energy']:.0f}J lat={rec['latency']:.1f}s")
+            if ck.enabled and len(self.history) % ck.interval == 0:
+                from repro_torch.checkpoint.carry import save_checkpoint
+                save_checkpoint(self)
         return self.history
 
     # ------------------------------------------------------------------

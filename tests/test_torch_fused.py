@@ -13,6 +13,7 @@ factors 1e-5 against ``redistribute`` (one Ω); per-round against scanned
 execution exactly equal; ``engine_check_dev`` < 1e-5.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -365,15 +366,23 @@ def test_mirrored_state_readopts_exactly(per_round):
     {"engine": "fused_sharded"},
     {"rsu_tier": RSUTierSpec(num_rsus_per_task=2),
      "shard": ShardSpec(num_shards=2)},
-    {"participation": ParticipationSpec(mode="semi_sync"),
-     "checkpoint": CheckpointSpec(interval=2, dir="ck")},
     {"shard": ShardSpec(num_shards=2)},
-], ids=["fused_sharded", "two_rsus", "semi_sync", "two_shards"])
+], ids=["fused_sharded", "two_rsus", "two_shards"])
 def test_unported_fused_options_raise(change):
-    """The fused engine runs tiers and semi_sync; with them, as without,
-    the sharded fleet (item 12) and checkpoints (item 9) raise."""
-    with pytest.raises(NotImplementedError, match="item"):
+    """The fused engine runs tiers, semi_sync and checkpoints; with them,
+    as without, the sharded fleet (item 12) raises."""
+    with pytest.raises(NotImplementedError, match="item 12"):
         _sim(**change)
+
+
+def test_fused_engine_takes_semi_sync_with_checkpoints(tmp_path):
+    """semi_sync with checkpoints: the chunked scan writes one at its
+    boundary, and its buffer's carry is there to restore into."""
+    sim = _sim(participation=ParticipationSpec(mode="semi_sync"),
+               checkpoint=CheckpointSpec(interval=1, dir=str(tmp_path)))
+    assert "buf_delta" in sim.fused.carry
+    assert len(sim.run_scanned(1)) == 1
+    assert sorted(os.listdir(tmp_path)) == ["round_000001.npz"]
 
 
 def test_engine_rejects_a_tier_and_the_sharded_fleet_itself():

@@ -19,6 +19,7 @@ accuracy and the servers' merged deltas 1e-4 (f32 training through two
 GEMM libraries).
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -277,13 +278,29 @@ def test_summary_and_history_shape(runs):
 @pytest.mark.parametrize("change", [
     {"engine": "fused_sharded"},
     {"shard": ShardSpec(num_shards=2)},
-    {"checkpoint": CheckpointSpec(interval=2, dir="ck")},
-    {"mobility_sim": MobilitySimConfig(trace=TraceSpec())},
-], ids=["fused_sharded", "two_shards", "checkpoint", "trace"])
+], ids=["fused_sharded", "two_shards"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(SimConfig(**KW), **change)
     with pytest.raises(NotImplementedError):
         IoVSimulator(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["checkpoint", "trace"])
+def test_checkpoint_and_trace_options_run(tmp_path, option):
+    """Checkpoints and trace replay run (their parity with the reference:
+    ``test_torch_resume.py``, ``test_torch_trajectories.py``)."""
+    change = ({"checkpoint": CheckpointSpec(interval=1, dir=str(tmp_path))}
+              if option == "checkpoint" else
+              {"mobility_sim": MobilitySimConfig(trace=TraceSpec(length=3))})
+    sim = IoVSimulator(dataclasses.replace(SimConfig(**KW), **change),
+                       device="cpu")
+    assert len(sim.run(1)) == 1
+    if option == "checkpoint":
+        assert os.listdir(tmp_path) == ["round_000001.npz"]
+    else:
+        assert sim.mobility.tick == 1
+        assert np.array_equal(sim.mobility.pos,
+                              sim.mobility._trace.positions[1])
 
 
 def test_run_scanned_raises():
@@ -310,21 +327,27 @@ def test_engine_none_resolves_to_batched(monkeypatch):
             == "batched")
 
 
-@pytest.mark.parametrize("engine", ["fused", "fused_check",
-                                    "fused_sharded"])
+@pytest.mark.parametrize("engine", ["fused_sharded"])
 def test_unported_engine_from_the_environment_raises(monkeypatch, engine):
-    """fused_sharded is not ported; fused and fused_check are (tiers and
-    semi_sync included), so from the environment they raise with what
-    no engine runs yet: a checkpoint, whose carry would also hold the
-    tier's partials and the upload buffer (item 9)."""
+    """fused_sharded is not ported (item 12)."""
     monkeypatch.setenv("REPRO_SIM_ENGINE", engine)
-    change = {} if engine == "fused_sharded" else {
-        "rsu_tier": RSUTierSpec(num_rsus_per_task=2),
-        "participation": ParticipationSpec(mode="semi_sync"),
-        "checkpoint": CheckpointSpec(interval=2, dir="ck")}
-    with pytest.raises(NotImplementedError, match="item"):
-        IoVSimulator(SimConfig(**dict(KW, engine=None, **change)),
-                     device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        IoVSimulator(SimConfig(**dict(KW, engine=None)), device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["fused", "fused_check"])
+def test_fused_engine_from_the_environment_takes_every_mode(monkeypatch,
+                                                            engine):
+    """From the environment the fused engines take a tier, semi_sync and
+    checkpoints together, with a fused engine's carry to restore into."""
+    monkeypatch.setenv("REPRO_SIM_ENGINE", engine)
+    sim = IoVSimulator(SimConfig(**dict(
+        KW, engine=None, rsu_tier=RSUTierSpec(num_rsus_per_task=2),
+        participation=ParticipationSpec(mode="semi_sync"),
+        checkpoint=CheckpointSpec(interval=2, dir="ck"))), device="cpu")
+    assert sim.engine == engine and sim.fused.check == (engine ==
+                                                         "fused_check")
+    assert sim.fused.K == 2 and "buf_w" in sim.fused.carry
 
 
 def test_unknown_engine_raises():

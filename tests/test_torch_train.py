@@ -538,7 +538,20 @@ def test_mobility_and_channel_match_reference_over_ten_ticks():
                                       jview["staying"])
 
 
-def test_trace_replay_raises_until_ported():
-    ms = MobilitySimConfig(num_vehicles=4, trace=config.TraceSpec())
-    with pytest.raises(NotImplementedError, match="trace"):
-        MobilityModel(ms, MobilityModel.place_rsus(1, 3000.0, 1100.0))
+def test_trace_replay_matches_the_reference():
+    """Trace replay: the reference's positions, velocities and presence,
+    wrapping past the staged horizon (more in
+    ``test_torch_trajectories.py``)."""
+    spec = dict(length=5, arrivals="staggered", min_dwell=2, seed=3)
+    m = MobilityModel(MobilitySimConfig(num_vehicles=6, trace=config
+                                        .TraceSpec(**spec)),
+                      MobilityModel.place_rsus(1, 3000.0, 1100.0))
+    jm = JMobility(JMobilityCfg(num_vehicles=6, trace=jconfig
+                                .TraceSpec(**spec)),
+                   JMobility.place_rsus(1, 3000.0, 1100.0))
+    for _ in range(8):
+        for a, b in ((m.pos, jm.pos), (m.vel, jm.vel),
+                     (m.present, jm.present)):
+            assert np.array_equal(a, b)
+        m.step()
+        jm.step()
