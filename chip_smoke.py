@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths on one card, through the entry
-points a user calls, with seeded random weights: multi-tenant LoRA
-serving of qwen2-0.5b (attn blocks: ``lora_matmul`` and
-``flash_attention``) and of rwkv6-7b (rwkv6 blocks: ``lora_matmul`` and
-``wkv6``), both at their published widths. Phases (any failure raises;
-nothing is caught):
+Drives the port's serving paths on one card, through the entry points
+a user calls, with seeded random weights: multi-tenant LoRA serving of
+qwen2-0.5b, smollm-135m and starcoder2-15b (attn blocks:
+``lora_matmul`` and ``flash_attention``; dense and block-paged KV) and
+of rwkv6-7b (rwkv6 blocks: ``lora_matmul`` and ``wkv6``), all at their
+published widths, and adapters served from a trained checkpoint.
+Phases (any failure raises; nothing is caught):
 
 1. Print the card's name and power limit; build the CUDA kernels from the
    sources in this checkout (one nvcc per source, all at once) and print
@@ -180,7 +181,35 @@ nothing is caught):
    and accuracy finite, absent vehicles (rush-hour, sparse-rural)
    training no lane. The checkpoints go to a temporary directory in the
    checkout, removed at the end.
-6. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+6. Serving, the rest. (a) qwen2-0.5b at full depth and width in bf16,
+   4 lanes at ranks 8/16/32/64 in the 64 slot: a block-paged engine
+   (blocks of 16, a 128-slot ring) and a dense one driven in lockstep
+   through admit, retire, re-admit into a recycled lane, evict_oldest
+   and a ring wrap (140 steps): every step's logits and greedy tokens
+   bit-equal, the allocator's invariants after every mutation, blocks
+   recycled, each lane's gathered cache equal to the dense one wherever
+   pos >= 0, the pools and tables never moved, 96 split-K launches a
+   step in both; decode ms/step and lane-tok/s paged against dense, in
+   turns; a pool one block short must raise BlockPoolExhausted at the
+   step its last lane outgrows it. (b) Train -> checkpoint -> serve at
+   the full width of vit-base-paper: the dense-rsu preset, batched,
+   three rounds (merged deltas and live partials), checkpointed;
+   ``AdapterStore.from_checkpoint`` against ``from_sim`` of the live
+   simulator, bit-equal for every task, RSU and rank, one SVD (cache
+   miss) per key; a foreign config refused; the time of one max-rank
+   redistribute and of a get that hits; trained tenants admitted by the
+   store into a paged and a dense engine through retire, re-admit and
+   evict_oldest, bit-equal. (c) starcoder2-15b (40 layers, d 6144, 48
+   heads of 128 on 4) and smollm-135m at full depth and width in bf16:
+   the weights' init and peak memory, a 4 x 128 prefill (every
+   ``lora_matmul`` launch on an unbiased linear ``wgmma``, every flash
+   launch ``mma``), a paged and a dense engine in lockstep with a
+   retire/admit (bit-equal), and the paged engine's ``generate`` with
+   one retire/admit (every launch split-K). Phase 2 adds both archs'
+   bf16 rows (``lora_matmul`` prefill and decode, flash at S 128), and
+   phase 3 their 2-layer card-vs-CPU parity (starcoder2-15b with a
+   32-token prompt).
+7. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
 ``lora_matmul`` (simt) for 768->768, 768->3072 and 3072->768 at a train
@@ -194,6 +223,7 @@ attention at S 24 in f32 and bf16 at a train step's B 10 with head dim
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 Details go to chiprun_out/chip_smoke.json.
 """
+import dataclasses
 import gc
 import json
 import os
@@ -218,9 +248,12 @@ from repro_torch.checkpoint import (latest_checkpoint,  # noqa: E402
 from repro_torch.config import (CheckpointSpec, LoRAConfig,  # noqa: E402
                                 OutageSpec, ParticipationSpec, RSUTierSpec,
                                 ServeSpec)
-from repro_torch.configs import qwen2_0_5b, rwkv6_7b, vit_base_paper  # noqa: E402
+from repro_torch.configs import (qwen2_0_5b, rwkv6_7b,  # noqa: E402
+                                 smollm_135m, starcoder2_15b,
+                                 vit_base_paper)
 from repro_torch.core import aggregation as agg  # noqa: E402
 from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
+from repro_torch.core import kv_blocks as kvb  # noqa: E402
 from repro_torch.core.aggregation import (  # noqa: E402
     tree_get, tree_paths, tree_paths_delta)
 from repro_torch.core.lora import (  # noqa: E402
@@ -232,10 +265,12 @@ from repro_torch.kernels.lora_matmul import ops as lm_ops  # noqa: E402
 from repro_torch.kernels.lora_matmul.ref import lora_matmul_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
-from repro_torch.launch.adapter_cache import PagedAdapter  # noqa: E402
+from repro_torch.launch.adapter_cache import (  # noqa: E402
+    GLOBAL_RSU, AdapterStore, PagedAdapter)
 from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E402
                                       make_decode_step)
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.common import is_glu  # noqa: E402
 from repro_torch.interop import tree_map  # noqa: E402
 from repro_torch.federated.fused_engine import (  # noqa: E402
     FusedRoundEngine, _copy_tree)
@@ -454,9 +489,12 @@ def per_layer(cfg):
     if cfg.rwkv is not None:   # w_r/w_k/w_v/w_o/ck/cv, and the wkv
         return ({"lora_matmul": 6, "flash_attention": 0, "wkv6": 1},
                 {"lora_matmul": 6, "flash_attention": 0, "wkv6": 0})
-    # o/up/gate/down (q/k/v are biased: plain), and attention
-    return ({"lora_matmul": 4, "flash_attention": 1, "wkv6": 0},
-            {"lora_matmul": 4, "flash_attention": 0, "wkv6": 0})
+    # every unbiased LoRA linear of q/k/v/o/up/(gate)/down (biased q/k/v
+    # take the plain expression), and attention
+    n = 7 - (3 if cfg.qkv_bias else 0) - (0 if is_glu(cfg.activation)
+                                          else 1)
+    return ({"lora_matmul": n, "flash_attention": 1, "wkv6": 0},
+            {"lora_matmul": n, "flash_attention": 0, "wkv6": 0})
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +508,8 @@ def lora_cases(cfg):
     if cfg.rwkv is not None:
         linears = (("w_r/w_k/w_v/w_o", d, d), ("ck", d, f), ("cv", f, d))
     else:
-        linears = (("o", d, d), ("up/gate", d, f), ("down", f, d))
+        up = "up/gate" if is_glu(cfg.activation) else "up"
+        linears = (("o", d, d), (up, d, f), ("down", f, d))
     for linear, K, N in linears:
         for mode, L, M in (("prefill", 1, 512), ("decode", len(RANKS), 1)):
             yield linear, mode, L, M, K, N
@@ -577,13 +616,15 @@ def check_lora(cfg, dtype):
     return rows
 
 
-def check_flash(cfg, dtype):
+def check_flash(cfg, dtype, lengths=None):
     rows = []
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B = 4
     kind = fa_ops.variant(dtype, D)
     # the served prefill (S 128), a ragged one, and a long qwen2 prompt
-    for S in ((128, 100, 2048) if dtype == torch.bfloat16 else (128, 100)):
+    if lengths is None:
+        lengths = (128, 100, 2048) if dtype == torch.bfloat16 else (128, 100)
+    for S in lengths:
         g = torch.Generator(device="cuda").manual_seed(S)
         q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
         k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(dtype)
@@ -3817,6 +3858,500 @@ def print_5f(p5f):
     print(f"[5f] phase 5f took {p5f['seconds']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serving, the rest (paged KV, the adapter store, two more archs)
+# ---------------------------------------------------------------------------
+
+BLOCK_6 = 16          # paged KV block size (tokens)
+CACHE_6 = 128         # a lane's ring (tokens)
+STEPS_6A = 140        # lanes 2 and 3 run on past the 128-slot ring
+GEN_6A = 24           # tokens per timed generate, after a 16-token prompt
+
+
+def tenant(cfg, lora, rank, seed, device="cuda", task=0, slot=SLOT):
+    """A rank-``rank`` tenant padded into the slot, drawn on ``device``
+    (b off its zero init, so it changes outputs)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    ads = T.init_adapters(cfg, lora, rank=rank, generator=g)
+
+    def fix(node):
+        if "a" in node and "b" in node:
+            return {"a": node["a"], "b": 0.02 * torch.randn(
+                node["b"].shape, generator=g, device=device)}
+        return {k: fix(v) for k, v in node.items()}
+    ads = {"segments": [fix(sg) for sg in ads["segments"]]}
+    return PagedAdapter(task=task, rsu=-1, version=0, rank=rank,
+                        slot_rank=slot, scale=lora.alpha / rank,
+                        adapters=pad_adapter_tree(ads, slot))
+
+
+def pool_ptrs(eng):
+    return ([leaf.data_ptr() for pool in eng._pools
+             for leaf in pool.values()], eng._tables.data_ptr())
+
+
+def lockstep(paged, dense, schedule, steps):
+    """Drive a paged and a dense engine through one schedule (step ->
+    [("admit", PagedAdapter) | ("retire", lane)], applied before that
+    step), each lane greedy on its own stream, a churned lane's stream
+    restarting at token 1. Every step's logits and tokens must be
+    bit-equal, the allocator's invariants must hold after every mutation,
+    and the pools and tables must not move. Returns the engines' lane
+    choices per event and the recycled-block count."""
+    ptrs = pool_ptrs(paged)
+    B = paged.max_batch
+    toks = [np.ones(B, np.int64), np.ones(B, np.int64)]
+    lanes = []
+    for t in range(steps):
+        for action, arg in schedule.get(t, ()):
+            got = []
+            for eng, tk in zip((paged, dense), toks):
+                lane = (eng.admit(arg) if action == "admit"
+                        else eng.retire(arg))
+                tk[lane] = 1
+                got.append(lane)
+            paged.allocator.check()
+            if got[0] != got[1]:
+                fail(f"6: paged and dense engines chose lanes {got}")
+            lanes.append((t, action, got[0]))
+        out = [eng.step(tk) for eng, tk in zip((paged, dense), toks)]
+        paged.allocator.check()
+        if not torch.equal(out[0], out[1]):
+            fail(f"6: paged != dense at step {t}: max abs "
+                 f"{maxabs(out[0], out[1]):.3g}")
+        toks = [o.argmax(-1).cpu().numpy() for o in out]
+        if not np.array_equal(toks[0], toks[1]):
+            fail(f"6: paged and dense greedy tokens differ at step {t}")
+    if pool_ptrs(paged) != ptrs:
+        fail("6: the paged engine's pools or tables moved")
+    return lanes
+
+
+def lane_caches_agree(paged, dense):
+    """Each lane's gathered cache equals the dense one: positions at
+    every slot, K and V wherever pos >= 0. Returns the live slots."""
+    live_slots = 0
+    for lane in range(paged.max_batch):
+        _, rp = kvb.split_cache_tree(paged.cfg, paged.lane_cache(lane))
+        _, rd = kvb.split_cache_tree(dense.cfg, dense.lane_cache(lane))
+        for a, b in zip(rp, rd):
+            if not torch.equal(a["pos"], b["pos"]):
+                fail(f"6: lane {lane}'s positions differ, paged vs dense")
+            live = (a["pos"] >= 0)[..., None, None]
+            for name in ("k", "v"):
+                if not torch.equal(torch.where(live, a[name], 0),
+                                   torch.where(live, b[name], 0)):
+                    fail(f"6: lane {lane}'s live {name} differs")
+            live_slots += int((a["pos"][0] >= 0).sum())
+    return live_slots
+
+
+def decode_launch_gate(label, launched, variants, want):
+    """Every lora_matmul launch of a decode run is split-K, want of
+    them; no flash or wkv6 launch."""
+    if launched != {"lora_matmul": want, "flash_attention": 0, "wkv6": 0} \
+            or variants != {"wgmma": 0, "splitk": want, "simt": 0}:
+        fail(f"6 {label}: launches {launched}, by variant {variants}; "
+             f"want {want} split-K")
+
+
+def timed_generate(eng, prompts, n, label, per_step):
+    """One counted, timed ``generate`` of ``n`` tokens after the prompts
+    (counts reset just before, read just after)."""
+    for lane in range(eng.max_batch):
+        eng.reset_lane(lane)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.generate(prompts, n)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    steps = prompts.shape[1] + n - 1
+    launched, variants = counts(), variant_counts()
+    decode_launch_gate(label, launched, variants, per_step * steps)
+    return {"steps": steps, "ms_per_step": sec / steps * 1e3,
+            "lane_tokens_per_s": eng.max_batch * steps / sec,
+            "launches": launched, "lora_matmul_variants": variants,
+            "flash_attention_variants": flash_variant_counts()}
+
+
+def exhaustion_planted(params, cfg, lora, dtype):
+    """A pool one block short of full occupancy must raise mid-step, at
+    the step where the last lane's next block is due, and leave the
+    allocator whole."""
+    spec = ServeSpec(max_batch=len(RANKS), cache_len=2 * BLOCK_6,
+                     max_rank=SLOT, block_size=BLOCK_6)
+    spec = dataclasses.replace(spec,
+                               max_blocks=spec.resolve_max_blocks() - 1)
+    eng = ServeEngine(params, cfg, lora, spec, dtype=dtype)
+    toks = np.ones(len(RANKS), np.int64)
+    raised = None
+    for t in range(2 * BLOCK_6):
+        try:
+            eng.step(toks)
+        except kvb.BlockPoolExhausted as e:
+            raised = (t, str(e))
+            break
+    if raised is None or raised[0] != BLOCK_6:
+        fail(f"6a planted fault: a pool one block short raised {raised}, "
+             f"want BlockPoolExhausted at step {BLOCK_6}")
+    eng.allocator.check()
+    if eng.allocator_stats()["oom_events"] != 1:
+        fail(f"6a planted fault: stats {eng.allocator_stats()}")
+    return {"max_blocks": spec.max_blocks, "raised_at_step": raised[0],
+            "message": raised[1][:80]}
+
+
+def phase_6a():
+    """Paged vs dense at qwen2-0.5b's full depth and width in bf16: a
+    churn schedule (admit, retire, re-admit into a recycled lane,
+    evict_oldest, a ring wrap) in lockstep, bit-equal; live cache slots
+    equal; launches per step; decode time paged against dense; a planted
+    exhausted pool."""
+    t0 = time.perf_counter()
+    cfg = qwen2_0_5b.qwen2_0_5b()
+    lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    tenants = [tenant(cfg, lora, r, 60 + i) for i, r in
+               enumerate(RANKS + (32, 16))]
+
+    def engine(block_size):
+        return ServeEngine(params, cfg, lora, ServeSpec(
+            max_batch=len(RANKS), cache_len=CACHE_6, max_rank=SLOT,
+            block_size=block_size, admission="evict_oldest"),
+            dtype=torch.bfloat16)
+    paged, dense = engine(BLOCK_6), engine(0)
+    schedule = {0: [("admit", x) for x in tenants[:4]],
+                40: [("retire", 1)],
+                60: [("admit", tenants[4])],     # lane 1: recycled blocks
+                80: [("admit", tenants[5])]}     # full: evicts lane 0
+    per_step = per_layer(cfg)[1]["lora_matmul"] * cfg.num_layers
+    reset_counts()
+    lanes = lockstep(paged, dense, schedule, STEPS_6A)
+    launched, variants = counts(), variant_counts()
+    decode_launch_gate("a lockstep", launched, variants,
+                       2 * per_step * STEPS_6A)
+    stats = paged.allocator_stats()
+    if stats["recycles"] == 0 or stats["oom_events"]:
+        fail(f"6a: allocator stats {stats}: no block recycled")
+    if max(paged._positions) <= CACHE_6:
+        fail("6a: the ring never wrapped")
+    live = lane_caches_agree(paged, dense)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size,
+                                                (len(RANKS), 16))
+    runs = {}
+    for label, eng in (("dense", dense), ("paged", paged), ("paged", paged),
+                       ("dense", dense)):   # in turns
+        runs.setdefault(label, []).append(
+            timed_generate(eng, prompts, GEN_6A, f"a {label}", per_step))
+    planted = exhaustion_planted(params, cfg, lora, torch.bfloat16)
+    del paged, dense, params, tenants
+    release()
+    return {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, "
+            f"bf16, {len(RANKS)} lanes at ranks {list(RANKS)} in the "
+            f"{SLOT} slot, block {BLOCK_6}, ring {CACHE_6}",
+            "lockstep_steps": STEPS_6A, "events": lanes,
+            "allocator": stats, "live_slots_equal": live,
+            "lockstep_launches": launched,
+            "lockstep_lora_matmul_variants": variants,
+            "timed": runs, "planted_exhaustion": planted,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_6b(root):
+    """Train -> checkpoint -> serve at the full width of vit-base-paper:
+    the dense-rsu preset, batched, three rounds (a sync after round 1, so
+    the servers hold merged deltas and live partials), checkpointed; the
+    store from the checkpoint against the store from the live simulator
+    (bits per task, RSU and rank; one SVD per key); trained tenants
+    admitted by the store into a paged and a dense engine through
+    retire, re-admit and evict_oldest, bit-equal; a foreign config
+    refused; the time of the store's one SVD and of a get that hits."""
+    t0 = time.perf_counter()
+    arch = vit_base_paper.vit_base_paper()
+    sim = preset_sim("dense-rsu", "sync", "batched", 3, arch=arch)
+    drive(sim, 3)
+    train_s = time.perf_counter() - t0
+    d = os.path.join(root, "store")
+    save_checkpoint(sim, ckpt_dir=d)
+    lora = sim.cfg.lora
+    live = AdapterStore.from_sim(sim)
+    t1 = time.perf_counter()
+    restored = AdapterStore.from_checkpoint(sim.cfg, d)
+    load_ms = (time.perf_counter() - t1) * 1e3
+    keys = 0
+    served = {}
+    for t in range(live.num_tasks):
+        rsus = live.rsus(t)
+        if rsus != restored.rsus(t):
+            fail(f"6b: task {t} RSUs {rsus} live, {restored.rsus(t)} "
+                 f"from the checkpoint")
+        for rsu in rsus:
+            if rsu == GLOBAL_RSU and live.servers[t]["merged"] is None:
+                continue
+            keys += 1
+            for rank in lora.candidate_ranks:
+                a, b = (st.get(t, rsu=rsu, rank=rank)
+                        for st in (live, restored))
+                # matched by key: a file stores its keys sorted
+                if not all(leaves(tree_map(torch.equal, a.adapters,
+                                           b.adapters))):
+                    fail(f"6b: task {t} rsu {rsu} rank {rank}: the "
+                         f"checkpoint serves other bits than the live "
+                         f"simulator")
+        served[t] = rsus
+    if not any(len(r) > 1 for r in served.values()):
+        fail(f"6b: no live partial to serve ({served})")
+    for st in (live, restored):
+        if st.cache.misses != keys or \
+                st.cache.hits != keys * (len(lora.candidate_ranks) - 1):
+            fail(f"6b: {st.cache.misses} misses, {st.cache.hits} hits for "
+                 f"{keys} keys: want one SVD per key")
+    misses, hits = live.cache.misses, live.cache.hits
+    other = dataclasses.replace(sim.cfg, seed=sim.cfg.seed + 1)
+    try:
+        AdapterStore.from_checkpoint(other, d)
+        fail("6b: a checkpoint of another config was served")
+    except ValueError as e:
+        if "DIFFERENT SimConfig" not in str(e):
+            raise
+        refused = str(e)[:70]
+    # the store's one SVD at full width, and a get that hits
+    merged, version = live.servers[0]["merged"], live.version(0)
+    svd_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        agg.redistribute(merged, rank=lora.max_rank, scale=lora.scale,
+                         max_rank=lora.max_rank, seed=version)
+        torch.cuda.synchronize()
+        svd_ms.append((time.perf_counter() - t1) * 1e3)
+    hit_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        live.get(0, rank=8)
+        torch.cuda.synchronize()
+        hit_ms.append((time.perf_counter() - t1) * 1e3)
+
+    def engine(block_size):
+        return ServeEngine(sim.params, sim.model_cfg, lora, ServeSpec(
+            max_batch=4, cache_len=64, block_size=BLOCK_6,
+            admission="evict_oldest") if block_size else ServeSpec(
+            max_batch=4, cache_len=64, admission="evict_oldest"))
+    paged, dense = engine(BLOCK_6), engine(0)
+    # trained tenants: each servable (task, rsu) key in turn, the RSU
+    # partials first, at ranks across the candidate set
+    pairs = sorted(((t, r) for t, rs in enumerate(served.values())
+                    for r in rs if r != GLOBAL_RSU
+                    or live.servers[t]["merged"] is not None),
+                   key=lambda tr: tr[1] == GLOBAL_RSU)
+    ranks = (8, 32, 4, 16, 2, 32)
+    tenants = [live.get(*pairs[i % len(pairs)], rank=r)
+               for i, r in enumerate(ranks)]
+    schedule = {0: [("admit", x) for x in tenants[:4]],
+                20: [("retire", 2)],
+                30: [("admit", tenants[4])],
+                40: [("admit", tenants[5])]}
+    per_step = per_layer(arch)[1]["lora_matmul"] * arch.num_layers
+    reset_counts()
+    steps = 80                                   # the 64-slot ring wraps
+    lanes = lockstep(paged, dense, schedule, steps)
+    launched, variants = counts(), variant_counts()
+    decode_launch_gate("b lockstep", launched, variants,
+                       2 * per_step * steps)
+    stats = paged.allocator_stats()
+    if stats["recycles"] == 0:
+        fail(f"6b: allocator stats {stats}: no block recycled")
+    live_slots = lane_caches_agree(paged, dense)
+    out = {"config": f"dense-rsu, {arch.name} at full width "
+           f"({arch.num_layers} layers, d {arch.d_model}), batched, 3 "
+           f"rounds; serving slot {lora.max_rank}, ranks "
+           f"{list(lora.candidate_ranks)}",
+           "train_s": train_s, "checkpoint_load_ms": load_ms,
+           "servable": served, "keys": keys,
+           "misses": misses, "hits": hits,
+           "refused": refused, "redistribute_ms": svd_ms,
+           "get_hit_ms": statistics.median(hit_ms),
+           "events": lanes, "lockstep_steps": steps, "allocator": stats,
+           "live_slots_equal": live_slots, "launches": launched,
+           "lora_matmul_variants": variants,
+           "flash_attention_variants": flash_variant_counts(),
+           "seconds": time.perf_counter() - t0}
+    del sim, live, restored, paged, dense, tenants, merged
+    release()
+    return out
+
+
+def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
+    """Phase 6c: ``cfg`` at full depth and width in bf16: its weights'
+    init and peak memory; a 4 x 128 prefill (every lora_matmul launch on
+    an unbiased linear wgmma, every flash launch mma); then a paged and a
+    dense ServeEngine(max_batch=4), lanes at ranks 8/16/32/64, in
+    lockstep with a retire/admit (bit-equal), and the paged engine's
+    counted ``generate`` with one retire/admit."""
+    t0 = time.perf_counter()
+    lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
+    release()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0,
+            "weights_bytes": sum(x.numel() * x.element_size()
+                                 for x in leaves(params)),
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    in_prefill, in_step = per_layer(cfg)
+    prefill = make_prefill_step(cfg, lora, device="cuda")
+    ads = tenant(cfg, lora, SLOT, 5).adapters
+    tokens = torch.randint(0, cfg.vocab_size, (4, 128),
+                           generator=torch.Generator().manual_seed(6))
+    prefill(params, ads, {"tokens": tokens})         # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    logits = prefill(params, ads, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    p_counts, p_var, p_fa = counts(), variant_counts(), flash_variant_counts()
+    want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
+    if p_counts != want or p_var != {"wgmma": want["lora_matmul"],
+                                     "splitk": 0, "simt": 0} \
+            or p_fa != {"mma": want["flash_attention"], "simt": 0}:
+        fail(f"6c {cfg.name} prefill: launches {p_counts}, lora_matmul "
+             f"{p_var}, flash {p_fa}; want {want}, all wgmma and mma")
+    if not torch.isfinite(logits).all():
+        fail(f"6c {cfg.name} prefill logits not finite")
+    del logits, ads
+    tenants = [tenant(cfg, lora, r, 20 + i) for i, r in
+               enumerate(RANKS + (32,))]
+
+    def engine(block_size):
+        return ServeEngine(params, cfg, lora, ServeSpec(
+            max_batch=len(RANKS), cache_len=CACHE_6, max_rank=SLOT,
+            block_size=block_size), dtype=torch.bfloat16)
+    paged, dense = engine(BLOCK_6), engine(0)
+    for eng in (paged, dense):
+        for lane, x in enumerate(tenants[:4]):
+            eng.assign(lane, x)
+    per_step = in_step["lora_matmul"] * cfg.num_layers
+    reset_counts()
+    lanes = lockstep(paged, dense, {lock_steps // 2: [
+        ("retire", 3), ("admit", tenants[4])]}, lock_steps)
+    l_counts, l_var = counts(), variant_counts()
+    decode_launch_gate(f"c {cfg.name} lockstep", l_counts, l_var,
+                       2 * per_step * lock_steps)
+    del dense
+    release()
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                (len(RANKS), prompt_len))
+    for lane in range(paged.max_batch):
+        paged.reset_lane(lane)
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    gen1 = paged.generate(prompts, gen_tokens)
+    paged.retire(3)
+    paged.admit(tenants[3], lane=3)
+    gen2 = paged.generate(prompts, gen_tokens)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    steps = 2 * (prompt_len + gen_tokens - 1)
+    d_counts, d_var = counts(), variant_counts()
+    decode_launch_gate(f"c {cfg.name} generate", d_counts, d_var,
+                       per_step * steps)
+    if not gen1.shape == gen2.shape == (len(RANKS), gen_tokens):
+        fail("6c generate returned the wrong shape")
+    out = {"model": cfg.name,
+           "config": f"{cfg.name}, {cfg.num_layers} layers, full width "
+           f"(d {cfg.d_model}, {cfg.num_heads} heads of "
+           f"{cfg.resolved_head_dim}, {cfg.num_kv_heads} kv), bf16",
+           "init": init, "peak_bytes":
+           torch.cuda.max_memory_allocated() - base,
+           "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
+                       "launches": p_counts, "lora_matmul_variants": p_var,
+                       "flash_attention_variants": p_fa},
+           "lockstep_steps": lock_steps, "events": lanes,
+           "lockstep_launches": l_counts,
+           "lockstep_lora_matmul_variants": l_var,
+           "allocator": paged.allocator_stats(),
+           "decode": {"steps": steps, "ms_per_step": sec / steps * 1e3,
+                      "lane_tokens_per_s": len(RANKS) * steps / sec,
+                      "launches": d_counts, "lora_matmul_variants": d_var,
+                      "launches_per_step": {k: v / steps for k, v in
+                                            d_counts.items()}},
+           "launches": {k: p_counts[k] + d_counts[k] for k in p_counts},
+           "lora_matmul_variants": {k: p_var[k] + d_var[k] for k in p_var},
+           "flash_attention_variants": p_fa,
+           "seconds": time.perf_counter() - t0}
+    del params, paged, tenants
+    release()
+    return out
+
+
+def phase_6():
+    """Phase 6, serving, the rest: (a) paged vs dense, qwen2-0.5b; (b)
+    train -> checkpoint -> serve, vit-base-paper; (c) starcoder2-15b and
+    smollm-135m served paged at full depth and width."""
+    t0 = time.perf_counter()
+    a = phase_6a()
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_ckpt_") as root:
+        b = phase_6b(root)
+    c = [served_paged(starcoder2_15b.starcoder2_15b(), 10, 8, 16),
+         served_paged(smollm_135m.smollm_135m(), 16, 16, 32)]
+    return {"a": a, "b": b, "c": c, "seconds": time.perf_counter() - t0}
+
+
+def print_6(p6):
+    a, b = p6["a"], p6["b"]
+    print(f"[6a] {a['config']}: {a['lockstep_steps']} steps in lockstep, "
+          f"paged == dense bit for bit (logits and greedy tokens) through "
+          f"{a['events'][4:]} (step, event, lane) and a ring wrap; "
+          f"allocator {a['allocator']}, its invariants after every "
+          f"mutation; {a['live_slots_equal']} live slots equal; pools and "
+          f"tables fixed; launches {a['lockstep_launches']['lora_matmul']} "
+          f"(split-K) for both engines", flush=True)
+    for label, rs in a["timed"].items():
+        print(f"[6a] {label} decode, generate 16 + {GEN_6A}: " + "; ".join(
+            f"{r['ms_per_step']:.2f} ms/step, {r['lane_tokens_per_s']:.1f} "
+            f"lane-tok/s" for r in rs) + f"; launches per step "
+            f"{rs[0]['launches']['lora_matmul'] / rs[0]['steps']:.0f} "
+            f"split-K", flush=True)
+    pl = a["planted_exhaustion"]
+    print(f"[6a] planted fault: a pool of {pl['max_blocks']} blocks (one "
+          f"short) raised BlockPoolExhausted at step "
+          f"{pl['raised_at_step']} ({pl['message']}...); {a['seconds']:.1f} s",
+          flush=True)
+    print(f"[6b] {b['config']}: trained in {b['train_s']:.1f} s; store from "
+          f"the checkpoint ({b['checkpoint_load_ms']:.1f} ms) == store from "
+          f"the live simulator, bit for bit, for {b['keys']} (task, rsu) "
+          f"keys x every rank (servable {b['servable']}); misses "
+          f"{b['misses']}, hits {b['hits']}; one max-rank redistribute "
+          f"{', '.join(f'{x:.1f}' for x in b['redistribute_ms'])} ms, a get "
+          f"that hits {b['get_hit_ms']:.3f} ms; a foreign config refused "
+          f"({b['refused']}...)", flush=True)
+    print(f"[6b] store.admit of trained tenants, paged vs dense, "
+          f"{b['lockstep_steps']} steps in lockstep through {b['events'][4:]}"
+          f": bit-equal; allocator {b['allocator']}; {b['live_slots_equal']}"
+          f" live slots equal; launches {b['launches']['lora_matmul']} "
+          f"(split-K); {b['seconds']:.1f} s", flush=True)
+    for c in p6["c"]:
+        p, d = c["prefill"], c["decode"]
+        print(f"[6c] {c['config']}: init {c['init']['s']:.1f} s, weights "
+              f"{c['init']['weights_bytes'] / 2**30:.2f} GiB, init peak "
+              f"{c['init']['peak_bytes'] / 2**30:.2f} GiB, run peak "
+              f"{c['peak_bytes'] / 2**30:.2f} GiB; prefill 4x128 "
+              f"{p['ms']:.2f} ms, launches {p['launches']} (lora_matmul "
+              f"{p['lora_matmul_variants']}, flash "
+              f"{p['flash_attention_variants']}); paged == dense over "
+              f"{c['lockstep_steps']} steps with a retire/admit; paged "
+              f"decode {d['steps']} steps x 4 lanes {d['ms_per_step']:.2f} "
+              f"ms/step, {d['lane_tokens_per_s']:.1f} lane-tok/s, launches "
+              f"per step {d['launches_per_step']} (split-K); allocator "
+              f"{c['allocator']}; {c['seconds']:.1f} s", flush=True)
+    print(f"[6] phase 6 took {p6['seconds']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -3848,6 +4383,14 @@ def main() -> int:
             rows += check_lora(cfg, dtype)
             if cfg.rwkv is None:
                 rows += check_flash(cfg, dtype)
+    # the two archs phase 6 serves: starcoder2-15b's 6144 / 24576 widths
+    # (wgmma prefill, split-K decode at K 24576) and head dim 128 with a
+    # GQA repeat of 12, smollm-135m's 576 / 1536 and 9 heads on 3
+    starcoder, smollm = (starcoder2_15b.starcoder2_15b(),
+                         smollm_135m.smollm_135m())
+    for cfg in (starcoder, smollm):
+        rows += check_lora(cfg, torch.bfloat16)
+        rows += check_flash(cfg, torch.bfloat16, (128,))
     rows += check_wkv(rwkv)
     steps = wkv_chunk_steps(rwkv)
     for r in rows:
@@ -3898,7 +4441,8 @@ def main() -> int:
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}){extra}", flush=True)
 
-    pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100)]
+    pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100),
+            parity(smollm, lora, 64), parity(starcoder, lora, 32)]
     for par in pars:
         print(f"[3] {par['config']}: prefill max abs "
               f"{par['prefill_max_abs_err']:.3g}, decode max abs "
@@ -4074,6 +4618,29 @@ def main() -> int:
     print_5e(p5e)
     p5f = phase_5f()
     print_5f(p5f)
+    # serving, the rest: each path driven with the counts set to 0 just
+    # before it and read just after (lockstep, timed_generate,
+    # served_paged)
+    p6 = phase_6()
+    print_6(p6)
+    serve6 = [("qwen2-0.5b paged and dense engines in lockstep, churn "
+               "(6a)", {"launches": p6["a"]["lockstep_launches"],
+                        "lora_matmul_variants":
+                        p6["a"]["lockstep_lora_matmul_variants"],
+                        "flash_attention_variants": {"mma": 0, "simt": 0}})]
+    for label, rs in p6["a"]["timed"].items():
+        serve6 += [(f"qwen2-0.5b {label} generate {i} (6a)", r)
+                   for i, r in enumerate(rs)]
+    serve6.append(("vit-base-paper store-served paged and dense engines "
+                   "in lockstep (6b)", p6["b"]))
+    for c in p6["c"]:
+        serve6.append((f"{c['model']} prefill and paged generate (6c)", c))
+        serve6.append((f"{c['model']} paged and dense engines in lockstep "
+                       f"(6c)", {"launches": c["lockstep_launches"],
+                                 "lora_matmul_variants":
+                                 c["lockstep_lora_matmul_variants"],
+                                 "flash_attention_variants":
+                                 {"mma": 0, "simt": 0}}))
 
     # phase 2 at the batched round's lane shapes: V from its largest
     # group per rank, for ours and for HetLoRA (the most rank groups)
@@ -4204,11 +4771,12 @@ def main() -> int:
         by_path = {run["model"]: run["launches"][name] for run in runs}
         if name != "wkv6":
             by_path.update({p: c[name] for p, c in round_paths.items()})
+            by_path.update({p: r["launches"][name] for p, r in serve6})
         extra = {}
         if name == "lora_matmul":
             extra["launches_by_variant"] = {
                 k: sum(run["lora_matmul_variants"][k]
-                       for run in runs + round_runs)
+                       for run in runs + round_runs + [r for _, r in serve6])
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
         if name != "wkv6":
@@ -4219,7 +4787,7 @@ def main() -> int:
         if name == "flash_attention":
             extra["launches_by_variant"] = {
                 k: sum(run["flash_attention_variants"][k]
-                       for run in runs + round_runs)
+                       for run in runs + round_runs + [r for _, r in serve6])
                 for k in fa_ops.launches_by_variant}
             extra["block"] = head["block"]
         if name == "wkv6":
@@ -4248,7 +4816,8 @@ def main() -> int:
                    "fused_agreement": fagree, "fused_replay": replay,
                    "full_batched_vs_serial": agree,
                    "full_group_budgets": g, "methods": p5d,
-                   "modes": p5e, "resume_and_presets": p5f}, fh, indent=1)
+                   "modes": p5e, "resume_and_presets": p5f,
+                   "serving_rest": p6}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -12,9 +12,9 @@ and validation for the fields it has. :class:`ModelConfig` has all of the
 reference's fields, so that a config's checkpoint fingerprint is the
 reference's; the MoE/MLA/SSM sub-configs, shared attention and modality
 frontends stay at their defaults (another value raises until item 11).
-Fields only other unported parts read (buffer donation, adapter-cache
-and block-pool sizes) are left out until a slice needs them. The
-simulator refuses the shardings it does not run yet.
+:class:`ServeSpec` leaves out the reference's ``donate`` (JAX buffer
+donation), which has no torch counterpart. The simulator refuses the
+shardings it does not run yet.
 """
 from __future__ import annotations
 
@@ -347,14 +347,26 @@ class ServeSpec:
     ``max_batch`` lanes decode together; each holds its own KV cache slice
     of ``cache_len`` tokens and a rank-padded adapter slot ``max_rank``
     columns wide (0 resolves to ``LoRAConfig.max_rank``).
-    ``block_size > 0`` asks for paged KV, which the port does not run yet:
-    the serve engine refuses it.
+    ``cache_capacity`` bounds the host-side adapter cache (entries keyed
+    ``(task, rsu, version)``), not device memory.
+
+    ``block_size > 0`` switches the ring-buffer caches to block-paged KV
+    (``core/kv_blocks.py``): attention caches live in a shared pool of
+    ``max_blocks`` fixed-size blocks behind per-lane block tables.
+    ``max_blocks=0`` sizes the pool for full occupancy (every lane at full
+    cache length, plus the null block). ``admission`` picks the lane for
+    ``ServeEngine.admit`` when the caller names none: ``"strict"`` refuses
+    when every lane is occupied, ``"evict_oldest"`` retires the
+    longest-admitted tenant. The reference's ``donate`` (JAX buffer
+    donation) has no counterpart: the port updates its caches in place.
     """
-    max_batch: int = 4
-    cache_len: int = 128
-    max_rank: int = 0
-    sliding_window: Optional[int] = None
-    block_size: int = 0
+    max_batch: int = 4           # concurrent decode lanes (tenants)
+    cache_len: int = 128         # per-lane KV/state cache length (tokens)
+    max_rank: int = 0            # adapter slot width; 0 => lora.max_rank
+    cache_capacity: int = 32     # host adapter-cache entries (LRU-bounded)
+    sliding_window: Optional[int] = None   # cap attention window at decode
+    block_size: int = 0          # paged-KV block size (tokens); 0 => dense
+    max_blocks: int = 0          # pool size incl. null block; 0 => auto
     admission: str = "strict"    # admit() lane policy: strict|evict_oldest
 
     def resolve_max_rank(self, lora: LoRAConfig) -> int:
@@ -364,6 +376,14 @@ class ServeSpec:
     def paged(self) -> bool:
         return self.block_size > 0
 
+    def resolve_max_blocks(self) -> int:
+        """Pool size: explicit, or full occupancy (+1 for the null block)."""
+        if not self.paged:
+            return 0
+        if self.max_blocks:
+            return self.max_blocks
+        return self.max_batch * (self.cache_len // self.block_size) + 1
+
     def __post_init__(self):
         if self.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -371,10 +391,22 @@ class ServeSpec:
             raise ValueError("cache_len must be >= 1")
         if self.max_rank < 0:
             raise ValueError("max_rank must be >= 0 (0 = lora.max_rank)")
+        if self.cache_capacity < 1:
+            raise ValueError("cache_capacity must be >= 1")
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError("sliding_window must be >= 1 or None")
         if self.block_size < 0:
             raise ValueError("block_size must be >= 0 (0 = dense caches)")
+        if self.block_size and self.cache_len % self.block_size:
+            raise ValueError(
+                f"cache_len ({self.cache_len}) must be a multiple of "
+                f"block_size ({self.block_size}) — the lane ring is a "
+                "whole number of blocks")
+        if self.max_blocks < 0:
+            raise ValueError("max_blocks must be >= 0 (0 = auto-size)")
+        if self.max_blocks and self.max_blocks < 2:
+            raise ValueError("max_blocks must be >= 2 (null block + at "
+                             "least one usable block)")
         if self.admission not in ("strict", "evict_oldest"):
             raise ValueError(
                 f"admission must be 'strict' or 'evict_oldest', "

@@ -17,21 +17,31 @@ and RoPE angle, and every LoRA linear of a step is one kernel launch for
 all lanes. ``assign``/``evict``/``admit``/``retire``/``reset_lane`` are
 in-place copies into one lane, so sibling lanes are never disturbed.
 
-Paged KV (``ServeSpec.block_size > 0``) is not ported: the engine raises.
+With ``ServeSpec.block_size > 0`` the engine runs block-paged: the
+attention caches live in shared pools behind a
+:class:`~repro_torch.core.kv_blocks.BlockAllocator`, lanes grow block by
+block as their streams lengthen, and ``retire``/``reset_lane`` return
+blocks to the free list for the next admission. Pools and the device
+copy of the block tables have fixed shapes and are updated in place, so
+churn never reallocates them. Recurrent state (rwkv6) stays a per-lane
+dense carry, so a paged rwkv6 engine has no pools and decodes as the
+dense one does.
 
 CLI (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --block-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.config import LoRAConfig, ModelConfig, ServeSpec
+from repro_torch.core import kv_blocks as kvb
 from repro_torch.interop import tree_map
 from repro_torch.launch.adapter_cache import PagedAdapter
 from repro_torch.models import transformer as T
@@ -99,6 +109,11 @@ class ServeEngine:
     lane batch is one contiguous operand of the ``lora_matmul`` kernel.
     Decode sends the per-lane scales and an all-ones rank mask as kernel
     operands (the slots' zero tails already make padding exact).
+
+    With ``spec.block_size > 0`` the attention caches are block-paged
+    (see the module docstring); :meth:`lane_cache` gives a lane's
+    dense-equivalent view and :meth:`allocator_stats` the allocator's
+    counters.
     """
 
     def __init__(self, params, cfg: ModelConfig, lora: LoRAConfig,
@@ -108,10 +123,6 @@ class ServeEngine:
         self.cfg = cfg
         self.lora = lora
         self.spec = spec or ServeSpec()
-        if self.spec.paged:
-            raise NotImplementedError(
-                "paged KV (ServeSpec.block_size > 0) is not ported yet "
-                "(ROADMAP Queue 1, item 1: serving, the rest)")
         self.params = params
         self.slot_rank = self.spec.resolve_max_rank(lora)
         self.dtype = dtype
@@ -127,10 +138,26 @@ class ServeEngine:
         self._scales = torch.zeros(B, dtype=torch.float32, device=self.device)
         self._mask = torch.ones((B, self.slot_rank), dtype=torch.float32,
                                 device=self.device)
-        self._caches = T.init_caches(cfg, B, self.spec.cache_len,
-                                     dtype=dtype, device=self.device)
         self._cache0 = T.init_caches(cfg, 1, self.spec.cache_len,
                                      dtype=dtype, device=self.device)
+        self.paged = self.spec.paged
+        self.allocator: Optional[kvb.BlockAllocator] = None
+        if self.paged:
+            bs = self.spec.block_size
+            num_blocks = self.spec.resolve_max_blocks()
+            self.allocator = kvb.BlockAllocator(
+                num_blocks, B, self.spec.cache_len // bs)
+            self._tables = torch.zeros(self.allocator.tables.shape,
+                                       dtype=torch.long, device=self.device)
+            state0, paged0 = kvb.split_cache_tree(cfg, self._cache0)
+            self._cache0 = state0
+            self._pools = tuple(kvb.make_pool(c, num_blocks, bs)
+                                for c in paged0)
+            self._caches = kvb.strip_paged(cfg, T.init_caches(
+                cfg, B, 1, dtype=dtype, device=self.device))
+        else:
+            self._caches = T.init_caches(cfg, B, self.spec.cache_len,
+                                         dtype=dtype, device=self.device)
         self._positions = np.zeros(B, np.int64)
         self.assigned: Dict[int, Optional[PagedAdapter]] = \
             {i: None for i in range(B)}
@@ -207,13 +234,47 @@ class ServeEngine:
 
     def reset_lane(self, lane: int) -> None:
         """Fresh cache (every leaf back to its init value: empty KV
-        slots, zero recurrent state) and position 0 for ``lane``."""
+        slots, zero recurrent state) and position 0 for ``lane``. Paged,
+        the lane's blocks go back to the free list with their pool
+        positions stamped -1, and only the recurrent carry is reset."""
+        if self.paged:
+            freed = self.allocator.free_lane(lane)
+            for pool in self._pools:
+                kvb.release_blocks(pool, freed)
+
         def put(full, one):
             full[:, lane].copy_(one[:, 0])
         _zip_apply(self._caches, self._cache0, put)
         self._positions[lane] = 0
 
+    def lane_cache(self, lane: int) -> Dict[str, Any]:
+        """The lane's dense-equivalent cache tree, leaves ``(L, 1, Sc,
+        ...)`` (a copy; paged, its blocks gathered through its table).
+        Test and debug surface — decode never builds it."""
+        state = tree_map(lambda c: c[:, lane:lane + 1].clone(), self._caches)
+        if not self.paged:
+            return state
+        row = torch.as_tensor(self.allocator.tables[lane],
+                              device=self.device)
+        return kvb.merge_lane_caches(
+            self.cfg, state, [kvb.gather_lane(p, row) for p in self._pools])
+
+    def allocator_stats(self) -> Dict[str, Any]:
+        """Block-allocator counters (empty dict when dense)."""
+        return self.allocator.stats() if self.paged else {}
+
     # -- decode ---------------------------------------------------------
+    def _ensure_blocks(self) -> None:
+        """Back every lane's write slot for this step with a physical
+        block. Streams grow one block at a time; a wrapped ring reuses
+        the lane's own blocks (already mapped). Raises
+        :class:`~repro_torch.core.kv_blocks.BlockPoolExhausted` when the
+        pool is out — loudly, never by taking a sibling's block."""
+        Sc, bs = self.spec.cache_len, self.spec.block_size
+        for lane in range(self.max_batch):
+            self.allocator.ensure(lane,
+                                  (int(self._positions[lane]) % Sc) // bs)
+
     @torch.no_grad()
     def step(self, tokens: Sequence[int]) -> torch.Tensor:
         """Decode one token on every lane. tokens: (max_batch,) ints.
@@ -221,11 +282,22 @@ class ServeEngine:
         B = self.max_batch
         toks = torch.as_tensor(np.asarray(tokens, np.int64).reshape(B, 1),
                                device=self.device)
+        # a copy on the device before the host counter moves on (the
+        # reference's step reads a host array it then increments)
         pos = torch.as_tensor(self._positions, device=self.device)
-        logits, _ = T.decode_step(
-            self.params, self._adapters, self.cfg, self._slot_lora, toks,
-            self._caches, pos, sliding_window=self.spec.sliding_window,
-            scale=(self._scales, self._mask))
+        scale = (self._scales, self._mask)
+        window = self.spec.sliding_window
+        if self.paged:
+            self._ensure_blocks()
+            self._tables.copy_(torch.from_numpy(self.allocator.tables))
+            logits, _, _ = T.decode_step_paged(
+                self.params, self._adapters, self.cfg, self._slot_lora,
+                toks, self._caches, self._pools, self._tables, pos,
+                sliding_window=window, scale=scale)
+        else:
+            logits, _ = T.decode_step(
+                self.params, self._adapters, self.cfg, self._slot_lora,
+                toks, self._caches, pos, sliding_window=window, scale=scale)
         self._positions += 1
         return logits[:, 0]
 
@@ -263,6 +335,8 @@ def main():
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--prompt-len", type=int, default=16)
     parser.add_argument("--tokens", type=int, default=32)
+    parser.add_argument("--block-size", type=int, default=0,
+                        help="paged KV block size (0: dense caches)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
 
@@ -275,27 +349,24 @@ def main():
 
     B = args.batch
     clen = args.prompt_len + args.tokens
-    caches = T.init_caches(cfg, B, clen, dtype=torch.float32,
-                           device=args.device)
+    if args.block_size:        # the lane ring is a whole number of blocks
+        clen = -(-clen // args.block_size) * args.block_size
+    eng = ServeEngine(params, cfg, lora,
+                      ServeSpec(max_batch=B, cache_len=clen,
+                                block_size=args.block_size),
+                      device=args.device)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (B, args.prompt_len))
-    decode = make_decode_step(cfg, lora, device=args.device)
 
-    # prompt through the decode step, then greedy generation
+    # prompt through the decode step, then greedy generation, every lane
+    # on the base model
     t0 = time.perf_counter()
-    tok = prompt[:, :1]
-    outs = []
-    for pos in range(clen - 1):
-        logits, caches = decode(params, None, tok, caches, pos)
-        if pos + 1 < args.prompt_len:
-            tok = prompt[:, pos + 1:pos + 2]
-        else:
-            tok = torch.argmax(logits, dim=-1).cpu().numpy()
-            outs.append(tok[:, 0])
+    gen = eng.generate(prompt, args.tokens)
     dt = time.perf_counter() - t0
-    gen = np.stack(outs, 1)
     print(f"served {B} requests x {gen.shape[1]} tokens in {dt:.2f}s "
           f"({B * gen.shape[1] / dt:.1f} tok/s on {args.device})")
+    if eng.paged:
+        print("blocks:", eng.allocator_stats())
     print("sample:", gen[0][:16])
 
 

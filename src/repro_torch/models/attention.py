@@ -9,8 +9,11 @@ Routes (:func:`attention_path`), in precedence order:
              ``flash_attention`` kernel on a card, its plain version on
              the CPU
   'direct' — other short sequences: materialized (Sq, Sk) scores
-  'blocked'— the reference's blocked online-softmax jnp route; not ported,
-             so :func:`attend` raises
+  'blocked'— everything else (Sq != Sk past ``DIRECT_ATTN_MAX_SEQ``, a
+             logits softcap, hd_k != hd_v, decode with ``FAST_DECODE``
+             off): the reference's blocked online-softmax route over
+             ``KV_BLOCK``-key blocks, plain tensor code on every device
+             (the reference computes it in jnp, outside any kernel)
 
 Decode lanes carry their own positions: q_positions is (B, Sq), and each
 lane writes its new keys at its own ring slot ``position % Sc`` and
@@ -27,6 +30,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.lora import apply_lora_linear
 from repro_torch.models import runmode
 from repro_torch.models.common import apply_rope, fan_in_init
+
+KV_BLOCK = 512
 
 NEG_INF = -1e30
 
@@ -80,6 +85,53 @@ def _direct_attend(q, k, v, *, causal, q_positions, kv_positions,
     return out.reshape(B, Sq, H, hd_v).to(q.dtype)
 
 
+def _flash_body(q, k, v, mask_fn, sm_scale, cap=0.0):
+    """Blockwise online-softmax attention, the reference's ``_flash_body``.
+
+    q: (B, Sq, H, hd_k); k: (B, Sk, Hkv, hd_k); v: (B, Sk, Hkv, hd_v).
+    ``mask_fn(kv_pos)`` gives the (B, Sq, KV_BLOCK) visibility of the
+    block's keys at kv-axis indices ``kv_pos``. The kv axis is zero-padded
+    to whole blocks and the (acc, m, l) state runs over the blocks in
+    order. Masked scores are the finite ``NEG_INF``, as in the reference,
+    so a row whose every key is masked averages its values over all the
+    padded slots instead of giving NaN. Returns (B, Sq, H, hd_v).
+    """
+    B, Sq, H, hd_k = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    rep = H // Hkv
+    nblk = max(1, (Sk + KV_BLOCK - 1) // KV_BLOCK)
+    pad = nblk * KV_BLOCK - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.float()
+    acc = torch.zeros((B, Sq, H, hd_v), dtype=torch.float32, device=q.device)
+    m = torch.full((B, Sq, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=q.device)
+    for blk in range(nblk):
+        k0 = blk * KV_BLOCK
+        kf = k[:, k0:k0 + KV_BLOCK].float()
+        vf = v[:, k0:k0 + KV_BLOCK].float()
+        if rep > 1:
+            kf = kf.repeat_interleave(rep, dim=2)
+            vf = vf.repeat_interleave(rep, dim=2)
+        s = torch.einsum("bqhd,bkhd->bqhk", qf, kf) * sm_scale
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        kv_pos = k0 + torch.arange(KV_BLOCK, device=q.device)
+        msk = mask_fn(kv_pos) & (kv_pos < Sk)[None, None, :]
+        s = torch.where(msk[:, :, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vf)
+        l = l * corr + p.sum(dim=-1)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.to(q.dtype)
+
+
 def attention_path(*, causal: bool, Sq: int, Sk: int, cap: float = 0.0,
                    hd_k: Optional[int] = None,
                    hd_v: Optional[int] = None) -> str:
@@ -121,10 +173,19 @@ def attend(q, k, v, *, causal: bool, q_positions, kv_positions=None,
                               kv_positions=kv_positions,
                               sliding_window=sliding_window,
                               sm_scale=sm_scale, cap=cap)
-    raise NotImplementedError(
-        f"attention with Sq={Sq}, Sk={Sk} needs the blocked online-softmax "
-        "route, which the port has not taken over yet (ROADMAP Queue 1, "
-        "item 1: serving, the rest)")
+
+    def mask_fn(kv_pos):
+        # kv_pos: (KV_BLOCK,) indices into the kv axis; the padded tail
+        # reads the last key's position and is masked by the caller
+        kp = kv_positions[:, kv_pos.clamp(0, Sk - 1)][:, None, :]
+        msk = (kp >= 0).expand(B, Sq, kv_pos.shape[0])   # empty slots: -1
+        if causal:
+            msk = msk & (kp <= q_positions[:, :, None])
+        if sliding_window is not None:
+            msk = msk & (kp > q_positions[:, :, None] - sliding_window)
+        return msk
+
+    return _flash_body(q, k, v, mask_fn, sm_scale, cap)
 
 
 def apply_attention(p, adapters, x, cfg: ModelConfig, lora_scale,

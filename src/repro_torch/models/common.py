@@ -37,7 +37,9 @@ def fan_in_init(gen: torch.Generator, shape,
     """LeCun-normal on the penultimate axis (in-features)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    # in place: one f32 draw of the leaf lives at a time (starcoder2-15b's
+    # stacked up-projection is 24 GB of it)
+    return x.div_(math.sqrt(fan_in)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

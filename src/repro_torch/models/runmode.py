@@ -11,13 +11,13 @@ from __future__ import annotations
 import torch
 
 # FAST_DECODE: single-token decode attends directly over the cache with
-# one grouped product (no blocked path, no materialized GQA repeat).
+# one grouped product (no blocked path, no materialized GQA repeat); off,
+# decode takes the blocked route.
 FAST_DECODE = True
 
 # DIRECT_ATTN_MAX_SEQ: full-sequence attention off the flash route with
-# Sq, Sk at or below this materializes the (Sq, Sk) scores directly.
-# Longer sequences need the blocked online-softmax route, which the port
-# has not taken over yet.
+# Sq, Sk at or below this materializes the (Sq, Sk) scores directly;
+# longer sequences take the blocked online-softmax route.
 DIRECT_ATTN_MAX_SEQ = 64
 
 

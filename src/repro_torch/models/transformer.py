@@ -12,6 +12,8 @@ Public API:
     init_adapters(cfg, lora, *, seed, rank, device)   -> LoRA adapter tree
     forward(params, adapters, cfg, lora, batch)       -> (logits, aux)
     decode_step(params, adapters, cfg, lora, token, caches, position)
+    decode_step_paged(params, adapters, cfg, lora, token, state_caches,
+                      pools, tables, position)
     init_caches(cfg, batch, cache_len, dtype, device)
     loss_fn(params, adapters, cfg, lora, batch)       -> (loss, metrics)
 
@@ -303,6 +305,45 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     x = _run_layers(params, adapters, x, cfg, scale, positions, window,
                     caches=caches)
     return _lm_head(params, cfg, x), caches
+
+
+def decode_step_paged(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
+                      token: torch.Tensor, state_caches, pools, tables,
+                      position, *, sliding_window=None, scale=None
+                      ) -> Tuple[torch.Tensor, Any, Tuple]:
+    """One-token decode of every lane against block-paged KV pools.
+
+    The ring-buffer caches live in shared pools (``core/kv_blocks.py``)
+    and each lane reads them through its row of ``tables`` (B, T). Every
+    layer's lanes are gathered once into the dense ``(L, B, Sc, ...)``
+    view (``Sc = T * block_size``), the UNCHANGED :func:`decode_step`
+    runs on it — so paged decode gives dense decode's bits by
+    construction — and each lane's just-written ring slot
+    ``position[b] % Sc`` goes back to the pool at ``(tables[b, ring //
+    block_size], ring % block_size)``. The reference vmaps one lane of
+    this; here all lanes run in one step, as the dense engine's do.
+
+    state_caches: the cache tree with the paged slots emptied
+    (``kv_blocks.split_cache_tree``): only recurrent state remains, and
+    is updated in place. pools: tuple in ``kv_blocks.paged_slots(cfg)``
+    order, updated in place. position: (B,) absolute positions.
+    Returns (logits (B, 1, V), state_caches, pools).
+    """
+    from repro_torch.core import kv_blocks as kvb
+    gathered = [kvb.gather_lanes(pool, tables) for pool in pools]
+    caches = kvb.merge_lane_caches(cfg, state_caches, gathered)
+    logits, caches = decode_step(params, adapters, cfg, lora, token, caches,
+                                 position, sliding_window=sliding_window,
+                                 scale=scale)
+    if pools:
+        bs = kvb.pool_block_size(pools[0])
+        pos = torch.as_tensor(position, device=logits.device).reshape(-1)
+        pos = pos.expand(token.shape[0]).long()
+        idx = pos % (tables.shape[1] * bs)
+        for slot, pool in zip(kvb.paged_slots(cfg), pools):
+            written = kvb.written_slots(kvb.get_slot(caches, slot), idx)
+            kvb.scatter_written(pool, written, tables, pos, bs)
+    return logits, state_caches, pools
 
 
 # ---------------------------------------------------------------------------

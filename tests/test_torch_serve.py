@@ -94,14 +94,20 @@ def test_config_copy_matches_reference(which):
 
 
 def test_lora_and_serve_spec_copies_match_reference():
+    """Every field the two ServeSpecs share has the reference's default;
+    the one the port leaves out is ``donate`` (JAX buffer donation)."""
     assert LORA.scale == JLORA.scale
-    for f in dataclasses.fields(ServeSpec):
-        assert getattr(ServeSpec(), f.name) == getattr(JServeSpec(), f.name)
+    ours = {f.name for f in dataclasses.fields(ServeSpec)}
+    theirs = {f.name for f in dataclasses.fields(JServeSpec)}
+    assert theirs - ours == {"donate"} and ours <= theirs
+    for name in ours:
+        assert getattr(ServeSpec(), name) == getattr(JServeSpec(), name)
     assert ServeSpec(max_rank=0).resolve_max_rank(LORA) == SLOT
     with pytest.raises(ValueError):
         ServeSpec(admission="lifo")
     assert get_arch("qwen2-0.5b") == qwen2_0_5b.qwen2_0_5b()
-    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b", "vit-base-paper"]
+    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b", "smollm-135m",
+                            "starcoder2-15b", "vit-base-paper"]
 
 
 def test_interop_round_trip_is_exact(weights):
@@ -252,12 +258,63 @@ def test_attend_routes_match_reference(route):
     assert _maxabs(got, want) < 1e-5
 
 
-def test_attend_refuses_the_unported_blocked_route():
-    q = torch.zeros(1, 80, 4, 32)
-    k = torch.zeros(1, 100, 2, 32)
-    with pytest.raises(NotImplementedError):
-        attention.attend(q, k, k, causal=True,
-                         q_positions=torch.arange(20, 100)[None])
+# (case, Sq, Sk, hd_k, hd_v, window, cap): the blocked route's triggers
+# (Sq != Sk past DIRECT_ATTN_MAX_SEQ, a softcap, hd_k != hd_v, decode
+# with FAST_DECODE off) and its edges (padding to whole KV_BLOCKs, three
+# blocks, a window, empty ring slots, a row with every key masked)
+BLOCKED = {
+    "Sk 100, padded": (80, 100, 32, 32, None, 0.0),
+    "Sk 1100, three blocks": (80, 1100, 32, 32, None, 0.0),
+    "window": (80, 1100, 32, 32, 16, 0.0),
+    "softcap 30": (100, 100, 32, 32, None, 30.0),
+    "hd_k 192, hd_v 128": (80, 80, 192, 128, None, 0.0),
+    "empty ring slots": (80, 600, 32, 32, 64, 0.0),
+    "a fully masked row": (80, 100, 32, 32, None, 0.0),
+    "decode, FAST_DECODE off": (1, 700, 32, 32, None, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCKED))
+def test_attend_blocked_route_matches_reference(case, monkeypatch):
+    """The blocked online-softmax route (plain tensor code on every
+    device) against the reference's jnp route, GQA (4 query heads on 2),
+    f32, to 1e-5. A row with every key masked averages its values over
+    the padded block, as the reference's finite NEG_INF makes it."""
+    Sq, Sk, hd_k, hd_v, window, cap = BLOCKED[case]
+    rng = np.random.default_rng(len(case))
+    B, H, Hkv = 2, 4, 2
+    q = rng.standard_normal((B, Sq, H, hd_k)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, hd_k)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, hd_v)).astype(np.float32)
+    kvp = np.tile(np.arange(Sk), (B, 1))
+    qp = np.tile(np.arange(Sk - Sq, Sk), (B, 1))
+    if case == "empty ring slots":
+        kvp[1, 400:] = -1
+        kvp[0, ::7] = -1
+    if case == "a fully masked row":
+        kvp[0] += 30                     # keys start past query 0's position
+        qp[0, 0] = 10
+    fast = case != "decode, FAST_DECODE off"
+    monkeypatch.setattr(attention.runmode, "FAST_DECODE", fast)
+    assert attention.attention_path(causal=True, Sq=Sq, Sk=Sk, cap=cap,
+                                    hd_k=hd_k, hd_v=hd_v) == "blocked"
+    got = attention.attend(*(torch.from_numpy(a) for a in (q, k, v)),
+                           causal=True, q_positions=torch.from_numpy(qp),
+                           kv_positions=torch.from_numpy(kvp),
+                           sliding_window=window, cap=cap)
+    with jrunmode.overrides(FAST_DECODE=fast):
+        assert jattn.attention_path(causal=True, Sq=Sq, Sk=Sk, cap=cap,
+                                    hd_k=hd_k, hd_v=hd_v) == "jnp_flash"
+        want = jattn.attend(q, k, v, causal=True,
+                            q_positions=jnp.asarray(qp),
+                            kv_positions=jnp.asarray(kvp),
+                            sliding_window=window, cap=cap)
+    assert got.shape == (B, Sq, H, hd_v)
+    assert _maxabs(got, want) <= 1e-5
+    if case == "a fully masked row":
+        padded = -(-Sk // attention.KV_BLOCK) * attention.KV_BLOCK
+        mean = v[0].repeat(2, axis=1).sum(0) / padded     # (H, hd_v)
+        assert _maxabs(got[0, 0], mean) <= 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -414,14 +471,6 @@ def test_assign_checks_slot_width_and_admission(weights):
 # ---------------------------------------------------------------------------
 # Boundaries of the slice
 # ---------------------------------------------------------------------------
-
-def test_serve_engine_refuses_paged_kv(weights):
-    _, params = weights
-    with pytest.raises(NotImplementedError):
-        ServeEngine(params, CFG, LORA,
-                    ServeSpec(max_batch=2, cache_len=8, block_size=4),
-                    device="cpu")
-
 
 @pytest.mark.parametrize("kind", ["mamba2", "mla"])
 def test_transformer_refuses_unported_block_kinds(kind):
