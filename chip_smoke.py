@@ -5,10 +5,13 @@
 
 Drives the port's serving paths on one card, through the entry points
 a user calls, with seeded random weights: multi-tenant LoRA serving of
-qwen2-0.5b, smollm-135m and starcoder2-15b (attn blocks:
-``lora_matmul`` and ``flash_attention``; dense and block-paged KV) and
-of rwkv6-7b (rwkv6 blocks: ``lora_matmul`` and ``wkv6``), all at their
-published widths, and adapters served from a trained checkpoint.
+qwen2-0.5b, smollm-135m, starcoder2-15b, gemma-7b, paligemma-3b and
+musicgen-medium (attn blocks: ``lora_matmul`` and ``flash_attention``,
+head dims 64 to 256; dense and block-paged KV), grok-1-314b (attn + MoE)
+and deepseek-v2-236b (MLA + MoE: ``lora_matmul``; its attention is off
+the flash route, as in the reference) and of rwkv6-7b (rwkv6 blocks:
+``lora_matmul`` and ``wkv6``), all at their published widths, and
+adapters served from a trained checkpoint.
 Phases (any failure raises; nothing is caught):
 
 1. Print the card's name and power limit; build the CUDA kernels from the
@@ -109,7 +112,7 @@ Phases (any failure raises; nothing is caught):
    ``fused_check`` round per ablation on the card: ``engine_check_dev``
    recorded, each lane's update spread against the serial replay held
    within 2x the serial trainer's card-vs-CPU spread (a replay one step
-   short must fail). At full width (6 of vit-base-paper's 12 layers,
+   short must fail). At full width (3 of vit-base-paper's 12 layers,
    to keep the run inside its time limit), each
    method's batched rounds (the first profiled, but for HetLoRA and
    the three that train ours' groups, whose one round
@@ -140,7 +143,7 @@ Phases (any failure raises; nothing is caught):
    upload and release one. Three planted faults on the card's side must
    break these gates: staleness discounts one round too old, a
    release landing at the RSU its vehicle trained under, a sync gate
-   frozen at capture. At full width (6 of vit-base-paper's 12 layers,
+   frozen at capture. At full width (3 of vit-base-paper's 12 layers,
    ``DEPTH_5E``, to keep the script inside its time limit), four rounds
    of each configuration
    under batched (HetLoRA's tier too, unprofiled: a window over its 15
@@ -175,7 +178,8 @@ Phases (any failure raises; nothing is caught):
    restored into a fresh simulator and finished: histories and final
    checkpoints equal to the bit; each save's and the restore's ms,
    bytes, host and device peaks; the profiler's records of the first
-   replay after the restore (576 / 96). Then each of the seven presets
+   replay after the restore (288 / 48: 6 of the 12 layers, ``DEPTH_5F``).
+   Then each of the seven presets
    at full width, batched, until a round trains, on one set of base
    weights: launches equal to the groups' prediction, energy, latency
    and accuracy finite, absent vehicles (rush-hour, sparse-rural)
@@ -208,7 +212,21 @@ Phases (any failure raises; nothing is caught):
    one retire/admit (every launch split-K). Phase 2 adds both archs'
    bf16 rows (``lora_matmul`` prefill and decode, flash at S 128), and
    phase 3 their 2-layer card-vs-CPU parity (starcoder2-15b with a
-   32-token prompt).
+   32-token prompt). (d) The same run for gemma-7b (28 layers, head dim
+   256), paligemma-3b (18 layers, 8 heads of 256 on 1, its prefill after
+   256 prefix embeddings from the stubbed frontend), musicgen-medium (48
+   layers), grok-1-314b (4 of its 64 layers: 8 experts of 32768, top-2,
+   per-expert adapters, logits softcap 30) and deepseek-v2-236b (3 of its
+   60 layers: MLA, 160 routed + 2 shared experts, top-6), one model at a
+   time, each freed before the next: every flash launch of a prefill
+   ``mma`` (28, 18, 48, 4 and 0), paged == dense through a retire/admit.
+   Phase 2 adds flash at head dim 256 in bf16 and f32 at gemma-7b's and
+   paligemma-3b's prefills (and bf16 at musicgen-medium's and grok-1's),
+   and ``lora_matmul`` bf16 at every distinct shape of the five archs'
+   prefills and decode steps; phase 3 their card-vs-CPU parity, drawn on
+   the card: 2 layers of the dense three (paligemma-3b with a prefix),
+   one of grok-1 and deepseek-v2 (1 decode step: the CPU runs every
+   expert over its capacity).
 7. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
@@ -248,9 +266,11 @@ from repro_torch.checkpoint import (latest_checkpoint,  # noqa: E402
 from repro_torch.config import (CheckpointSpec, LoRAConfig,  # noqa: E402
                                 OutageSpec, ParticipationSpec, RSUTierSpec,
                                 ServeSpec)
-from repro_torch.configs import (qwen2_0_5b, rwkv6_7b,  # noqa: E402
-                                 smollm_135m, starcoder2_15b,
-                                 vit_base_paper)
+from repro_torch.config import BLOCK_ATTN  # noqa: E402
+from repro_torch.configs import (deepseek_v2_236b, gemma_7b,  # noqa: E402
+                                 grok1_314b, musicgen_medium, paligemma_3b,
+                                 qwen2_0_5b, rwkv6_7b, smollm_135m,
+                                 starcoder2_15b, vit_base_paper)
 from repro_torch.core import aggregation as agg  # noqa: E402
 from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
 from repro_torch.core import kv_blocks as kvb  # noqa: E402
@@ -477,6 +497,9 @@ def shared_memory(qwen, rwkv):
     train_tiles = fa_ops.plan(TRAIN_S)
     return {f"fa_mma_kernel<{D}> {tiles} warps": fa(1, D, tiles),
             f"fa_kernel<f32,{D}>": fa(0, D, 0),
+            # gemma-7b's and paligemma-3b's head dim
+            f"fa_mma_kernel<256> {tiles} warps": fa(1, 256, tiles),
+            "fa_kernel<f32,256>": fa(0, 256, 0),
             # the reduced ViT's head dim at the round's S 24
             f"fa_mma_kernel<16> {train_tiles} warps": fa(1, 16, train_tiles),
             "fa_kernel<f32,16>": fa(0, 16, 0),
@@ -484,16 +507,28 @@ def shared_memory(qwen, rwkv):
             f"wkv6_kernel<f32,f32,{K},{vs},{vt}>": wk(0, 0, K, vs)}
 
 
+def kernel_linears(cfg):
+    """(path, K, N) of a layer's linears on the lora_matmul kernel: every
+    LoRA-targeted, unbiased 2-D one (biased q/k/v take the plain
+    expression; routed experts and MLA's kv_up, which has no adapter, are
+    plain products, as in the reference)."""
+    return [(path, din, dout) for path, din, dout in
+            T._lora_targets(cfg.blocks()[0], cfg, LoRAConfig())
+            if not isinstance(din, tuple)
+            and not (cfg.qkv_bias and path[0] == "attn"
+                     and path[1] in ("q", "k", "v"))]
+
+
 def per_layer(cfg):
     """Kernel launches per layer of one prefill and of one decode step."""
     if cfg.rwkv is not None:   # w_r/w_k/w_v/w_o/ck/cv, and the wkv
         return ({"lora_matmul": 6, "flash_attention": 0, "wkv6": 1},
                 {"lora_matmul": 6, "flash_attention": 0, "wkv6": 0})
-    # every unbiased LoRA linear of q/k/v/o/up/(gate)/down (biased q/k/v
-    # take the plain expression), and attention
-    n = 7 - (3 if cfg.qkv_bias else 0) - (0 if is_glu(cfg.activation)
-                                          else 1)
-    return ({"lora_matmul": n, "flash_attention": 1, "wkv6": 0},
+    # the kernel's linears, and attention on the flash route (attn blocks;
+    # MLA's q/k head dim differs from its v head dim)
+    n = len(kernel_linears(cfg))
+    fa = int(cfg.blocks()[0] == BLOCK_ATTN)
+    return ({"lora_matmul": n, "flash_attention": fa, "wkv6": 0},
             {"lora_matmul": n, "flash_attention": 0, "wkv6": 0})
 
 
@@ -514,6 +549,20 @@ def lora_cases(cfg):
         for mode, L, M in (("prefill", 1, 512), ("decode", len(RANKS), 1)):
             yield linear, mode, L, M, K, N
     yield linears[0][0], "2 lanes x 100", 2, 100, d, d
+
+
+def arch_lora_cases(cfg, prefill_rows=512):
+    """The new archs' served shapes: each distinct (K, N) of the kernel's
+    linears (``kernel_linears``), in prefill (one lane, 4 x 128 rows, or
+    4 x (256 + 128) with paligemma-3b's prefix) and in decode (4 lanes x
+    1 row)."""
+    seen = {}
+    for path, K, N in kernel_linears(cfg):
+        seen.setdefault((K, N), []).append("/".join(path[1:]))
+    for (K, N), names in seen.items():
+        for mode, L, M in (("prefill", 1, prefill_rows),
+                           ("decode", len(RANKS), 1)):
+            yield "+".join(names), mode, L, M, K, N
 
 
 def launched_variant(fn):
@@ -553,9 +602,9 @@ def rank_pin(x, w, scale, dtype):
     return kind
 
 
-def check_lora(cfg, dtype):
+def check_lora(cfg, dtype, cases=None):
     rows = []
-    for linear, mode, L, M, K, N in lora_cases(cfg):
+    for linear, mode, L, M, K, N in (cases or lora_cases(cfg)):
         g = torch.Generator(device="cuda").manual_seed(K * 7 + N + L)
         x = torch.randn((L, M, K), generator=g, device="cuda").to(dtype)
         w = (torch.randn((K, N), generator=g, device="cuda")
@@ -1030,20 +1079,31 @@ def paged(cfg, lora, rank, seed, device):
                         adapters=to(pad_adapter_tree(ads, SLOT), device))
 
 
-def parity(cfg_full, lora, seq):
-    cfg = cfg_full.with_overrides(num_layers=2,
-                                  block_pattern=cfg_full.blocks()[:2]
+def parity(cfg_full, lora, seq, layers=2, steps=8):
+    """Full width at ``layers`` layers, f32, the same weights on the card
+    and on the CPU: prefill logits (with ``prefix_embeds`` where the
+    config takes them) and ``steps`` multi-tenant decode steps. The
+    weights are drawn on the card and copied to the host (a 20 GB MoE
+    layer draws in a second there, in minutes on the host)."""
+    cfg = cfg_full.with_overrides(num_layers=layers,
+                                  block_pattern=cfg_full.blocks()[:layers]
                                   if cfg_full.block_pattern else None)
-    params_cpu = T.init_params(cfg, seed=1, dtype=torch.float32, device="cpu")
-    params_gpu = to(params_cpu, "cuda")
+    params_gpu = T.init_params(cfg, seed=1, dtype=torch.float32,
+                               device="cuda")
+    params_cpu = to(params_gpu, "cpu")
     ads_cpu = nontrivial(T.init_adapters(cfg, lora, seed=2, rank=SLOT,
                                          device="cpu"), 2)
-    tokens = torch.randint(0, cfg.vocab_size, (2, seq),
-                           generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq),
+                                     generator=g)}
+    tokens = batch["tokens"]
+    if cfg.num_prefix_embeds:
+        batch["prefix_embeds"] = 0.5 * torch.randn(
+            (2, cfg.num_prefix_embeds, cfg.d_model), generator=g)
     want = make_prefill_step(cfg, lora, device="cpu")(params_cpu, ads_cpu,
-                                                      {"tokens": tokens})
+                                                      batch)
     got = make_prefill_step(cfg, lora, device="cuda")(
-        params_gpu, to(ads_cpu, "cuda"), {"tokens": tokens})
+        params_gpu, to(ads_cpu, "cuda"), batch)
     prefill_err = maxabs(got.cpu(), want)
     if not prefill_err <= E2E_TOL:
         fail(f"{cfg.name} prefill card vs CPU: max abs {prefill_err} > "
@@ -1055,7 +1115,7 @@ def parity(cfg_full, lora, seq):
                                   "cuda", seed0=10)
     toks = np.array([1, 2, 3, 4])
     decode_err = 0.0
-    for step in range(8):
+    for step in range(steps):
         got = eng_gpu.step(toks).cpu()
         want = eng_cpu.step(toks)
         err = maxabs(got, want)
@@ -1073,10 +1133,15 @@ def parity(cfg_full, lora, seq):
     logits, _ = decode(params_gpu, None, tokens[:, :1], caches, 0)
     if not torch.isfinite(logits).all():
         fail("decode factory logits not finite")
-    return {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, "
-            f"f32, prefill 2x{seq}", "tol": E2E_TOL,
-            "prefill_max_abs_err": prefill_err,
-            "decode_max_abs_err": decode_err, "decode_steps": 8}
+    pre = (f" after a {cfg.num_prefix_embeds}-row prefix"
+           if cfg.num_prefix_embeds else "")
+    out = {"config": f"{cfg.name}, {cfg.num_layers} layers, full width, "
+           f"f32, prefill 2x{seq}{pre}", "tol": E2E_TOL,
+           "prefill_max_abs_err": prefill_err,
+           "decode_max_abs_err": decode_err, "decode_steps": steps}
+    del params_cpu, params_gpu, eng_cpu, eng_gpu, caches
+    release()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2174,13 +2239,13 @@ ABLATIONS = ("ours_no_energy", "ours_no_mobility")
 # methods whose full-width batched round runs once, unprofiled, launches
 # held to its groups: the ours family trains ours' groups (5b profiles
 # those), HetLoRA its capability groups (5e profiles them under a tier)
-# 5d's full-width rounds run at half of vit-base-paper's depth (full
-# width, 6 of its 12 layers), to keep the script inside its time limit;
-# 5b, 5c and 5e run all 12
-DEPTH_5D = 6
-# 5e's full-width rounds run at the same depth since 5f came (5e (a), the
-# reduced ViT card against the CPU, is unchanged)
-DEPTH_5E = 6
+# 5d's and 5e's full-width rounds run at a quarter of vit-base-paper's
+# depth (full width, 3 of its 12 layers) and 5f's full-width resume at
+# half (DEPTH_5F), to keep the script inside its time limit on a slow
+# host; 5b and 5c run all 12 (5e (a), the reduced ViT card against the
+# CPU, is unchanged)
+DEPTH_5D = 3
+DEPTH_5E = 3
 UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
                  "ours_residual")
 PARITY_ROUNDS = 2
@@ -3591,16 +3656,21 @@ def timed_saves(log):
     return real
 
 
+DEPTH_5F = 6
+
+
 def full_width_resume(root):
     """Phase 5f (c): rsu-outage under semi_sync at the full width of
-    vit-base-paper, fused ``run_scanned`` over FULL_HORIZON rounds with a
+    vit-base-paper (DEPTH_5F of its 12 layers), fused ``run_scanned``
+    over FULL_HORIZON rounds with a
     checkpoint every RESUME_EVERY (keep_last 1): an uninterrupted run
     against one stopped at the first boundary, freed, restored into a
     fresh simulator and finished; no two simulators on the card at
     once. Histories bit-equal, the final checkpoints' leaves equal;
     save and restore times, bytes and peaks; the profiler's kernel
     records of one replayed round after the restore."""
-    arch = vit_base_paper.vit_base_paper()
+    arch = vit_base_paper.vit_base_paper().with_overrides(
+        num_layers=DEPTH_5F)
     name, part = "rsu-outage", "semi_sync"
     d_ref, d_vic = (os.path.join(root, s) for s in ("full_ref", "full_vic"))
     saves = []
@@ -3610,8 +3680,9 @@ def full_width_resume(root):
     ref = preset_sim(name, part, "fused", FULL_HORIZON, d_ref, keep_last=1,
                      arch=arch)
     forwards = ref.cfg.num_tasks * (ref.cfg.local_steps + 2)
-    want_records = {"lora_matmul": 72 * forwards,
-                    "flash_attention": 12 * forwards}
+    # six LoRA linears (q/k/v/o/up/down) and one attention a layer
+    want_records = {"lora_matmul": 6 * arch.num_layers * forwards,
+                    "flash_attention": arch.num_layers * forwards}
     ref.run_scanned(FULL_HORIZON)
     want = history_json(ref)
     ref_s = time.perf_counter() - t0
@@ -4183,13 +4254,15 @@ def phase_6b(root):
     return out
 
 
-def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
-    """Phase 6c: ``cfg`` at full depth and width in bf16: its weights'
-    init and peak memory; a 4 x 128 prefill (every lora_matmul launch on
-    an unbiased linear wgmma, every flash launch mma); then a paged and a
-    dense ServeEngine(max_batch=4), lanes at ranks 8/16/32/64, in
-    lockstep with a retire/admit (bit-equal), and the paged engine's
-    counted ``generate`` with one retire/admit."""
+def served_paged(cfg, lock_steps, prompt_len, gen_tokens, label="6c"):
+    """Phases 6c and 6d: ``cfg`` at full width in bf16 (full depth, or
+    the depth ``cfg`` is cut to): its weights' init and peak memory; a
+    4 x 128 prefill, after the config's prefix embeddings where it takes
+    them (every lora_matmul launch on an unbiased linear wgmma, every
+    flash launch mma); then a paged and a dense ServeEngine(max_batch=4),
+    lanes at ranks 8/16/32/64, in lockstep with a retire/admit
+    (bit-equal), and the paged engine's counted ``generate`` with one
+    retire/admit (tokens only, as the engine takes)."""
     t0 = time.perf_counter()
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
     release()
@@ -4204,13 +4277,18 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
     in_prefill, in_step = per_layer(cfg)
     prefill = make_prefill_step(cfg, lora, device="cuda")
     ads = tenant(cfg, lora, SLOT, 5).adapters
-    tokens = torch.randint(0, cfg.vocab_size, (4, 128),
-                           generator=torch.Generator().manual_seed(6))
-    prefill(params, ads, {"tokens": tokens})         # warm-up
+    g = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 128),
+                                     generator=g)}
+    if cfg.num_prefix_embeds:     # a VLM's stubbed frontend
+        batch["prefix_embeds"] = (0.5 * torch.randn(
+            (4, cfg.num_prefix_embeds, cfg.d_model), generator=g)).to(
+            "cuda", torch.bfloat16)
+    prefill(params, ads, batch)                      # warm-up
     torch.cuda.synchronize()
     reset_counts()
     t1 = time.perf_counter()
-    logits = prefill(params, ads, {"tokens": tokens})
+    logits = prefill(params, ads, batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t1) * 1e3
     p_counts, p_var, p_fa = counts(), variant_counts(), flash_variant_counts()
@@ -4218,11 +4296,14 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
     if p_counts != want or p_var != {"wgmma": want["lora_matmul"],
                                      "splitk": 0, "simt": 0} \
             or p_fa != {"mma": want["flash_attention"], "simt": 0}:
-        fail(f"6c {cfg.name} prefill: launches {p_counts}, lora_matmul "
+        fail(f"{label} {cfg.name} prefill: launches {p_counts}, lora_matmul "
              f"{p_var}, flash {p_fa}; want {want}, all wgmma and mma")
-    if not torch.isfinite(logits).all():
-        fail(f"6c {cfg.name} prefill logits not finite")
-    del logits, ads
+    seq = cfg.num_prefix_embeds + 128
+    if tuple(logits.shape) != (4, seq, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        fail(f"{label} {cfg.name} prefill logits {tuple(logits.shape)} not "
+             f"finite or not (4, {seq}, V)")
+    del logits, ads, batch
     tenants = [tenant(cfg, lora, r, 20 + i) for i, r in
                enumerate(RANKS + (32,))]
 
@@ -4239,7 +4320,7 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
     lanes = lockstep(paged, dense, {lock_steps // 2: [
         ("retire", 3), ("admit", tenants[4])]}, lock_steps)
     l_counts, l_var = counts(), variant_counts()
-    decode_launch_gate(f"c {cfg.name} lockstep", l_counts, l_var,
+    decode_launch_gate(f"{label[1:]} {cfg.name} lockstep", l_counts, l_var,
                        2 * per_step * lock_steps)
     del dense
     release()
@@ -4258,17 +4339,18 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
     sec = time.perf_counter() - t1
     steps = 2 * (prompt_len + gen_tokens - 1)
     d_counts, d_var = counts(), variant_counts()
-    decode_launch_gate(f"c {cfg.name} generate", d_counts, d_var,
+    decode_launch_gate(f"{label[1:]} {cfg.name} generate", d_counts, d_var,
                        per_step * steps)
     if not gen1.shape == gen2.shape == (len(RANKS), gen_tokens):
-        fail("6c generate returned the wrong shape")
+        fail(f"{label} generate returned the wrong shape")
     out = {"model": cfg.name,
            "config": f"{cfg.name}, {cfg.num_layers} layers, full width "
            f"(d {cfg.d_model}, {cfg.num_heads} heads of "
-           f"{cfg.resolved_head_dim}, {cfg.num_kv_heads} kv), bf16",
+           f"{cfg.resolved_head_dim}, {cfg.num_kv_heads} kv{shape_note(cfg)})"
+           f", bf16",
            "init": init, "peak_bytes":
            torch.cuda.max_memory_allocated() - base,
-           "prefill": {"batch": 4, "seq": 128, "ms": prefill_ms,
+           "prefill": {"batch": 4, "seq": seq, "ms": prefill_ms,
                        "launches": p_counts, "lora_matmul_variants": p_var,
                        "flash_attention_variants": p_fa},
            "lockstep_steps": lock_steps, "events": lanes,
@@ -4287,6 +4369,48 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens):
     del params, paged, tenants
     release()
     return out
+
+
+def shape_note(cfg):
+    """The MoE / MLA widths of a config, for its printed line."""
+    note = ""
+    if cfg.mla is not None:
+        note += (f", MLA latent {cfg.mla.kv_lora_rank} + rope "
+                 f"{cfg.mla.qk_rope_head_dim}, q rank {cfg.mla.q_lora_rank}")
+    if cfg.moe is not None:
+        note += (f", {cfg.moe.num_experts} experts of "
+                 f"{cfg.moe.expert_d_ff or cfg.d_ff} top-{cfg.moe.top_k}")
+        if cfg.moe.num_shared_experts:
+            note += f" + {cfg.moe.num_shared_experts} shared"
+    return note
+
+
+# phase 6d: one layer of grok-1 (3.2 G params of experts) or deepseek-v2
+# (2.4 G) does not fit twice on the card, and no config shrinks its
+# experts, so those two run at a cut depth; the rest at full depth
+DEPTH_6D = {"grok-1-314b": 4, "deepseek-v2-236b": 3}
+ARCHS_6D = (gemma_7b.gemma_7b, paligemma_3b.paligemma_3b,
+            musicgen_medium.musicgen_medium, grok1_314b.grok1_314b,
+            deepseek_v2_236b.deepseek_v2_236b)
+
+
+def phase_6d():
+    """The MoE, MLA and head-dim-256 archs served at full width in bf16,
+    one model at a time, each freed before the next (``served_paged``):
+    init and peak memory, a 4 x 128 prefill (paligemma-3b after its 256
+    prefix rows), paged and dense engines in lockstep through a
+    retire/admit, bit-equal, and decode ms/step."""
+    t0 = time.perf_counter()
+    runs = []
+    for make in ARCHS_6D:
+        cfg = make()
+        depth = DEPTH_6D.get(cfg.name)
+        if depth:
+            cfg = cfg.with_overrides(
+                num_layers=depth, block_pattern=cfg.blocks()[:depth]
+                if cfg.block_pattern else None)
+        runs.append(served_paged(cfg, 6, 4, 8, label="6d"))
+    return {"runs": runs, "seconds": time.perf_counter() - t0}
 
 
 def phase_6():
@@ -4352,6 +4476,24 @@ def print_6(p6):
     print(f"[6] phase 6 took {p6['seconds']:.1f} s", flush=True)
 
 
+def print_6d(p6d):
+    for c in p6d["runs"]:
+        p, d = c["prefill"], c["decode"]
+        print(f"[6d] {c['config']}: init {c['init']['s']:.1f} s, weights "
+              f"{c['init']['weights_bytes'] / 2**30:.2f} GiB, init peak "
+              f"{c['init']['peak_bytes'] / 2**30:.2f} GiB, run peak "
+              f"{c['peak_bytes'] / 2**30:.2f} GiB; prefill 4x{p['seq']} "
+              f"{p['ms']:.2f} ms, launches {p['launches']} (lora_matmul "
+              f"{p['lora_matmul_variants']}, flash "
+              f"{p['flash_attention_variants']}); paged == dense over "
+              f"{c['lockstep_steps']} steps with a retire/admit; paged "
+              f"decode {d['steps']} steps x 4 lanes {d['ms_per_step']:.2f} "
+              f"ms/step, {d['lane_tokens_per_s']:.1f} lane-tok/s, launches "
+              f"per step {d['launches_per_step']} (split-K); allocator "
+              f"{c['allocator']}; {c['seconds']:.1f} s", flush=True)
+    print(f"[6d] phase 6d took {p6d['seconds']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -4391,6 +4533,20 @@ def main() -> int:
     for cfg in (starcoder, smollm):
         rows += check_lora(cfg, torch.bfloat16)
         rows += check_flash(cfg, torch.bfloat16, (128,))
+    # the archs phase 6d serves: flash at head dim 256 in both dtypes at
+    # gemma-7b's prefill (16 heads on 16, S 128) and paligemma-3b's (8 on
+    # 1, 256 prefix rows + 128), bf16 at musicgen-medium's (24 of 64) and
+    # grok-1's (48 of 128 on 8); every lora_matmul shape of their
+    # prefills and decode steps (deepseek-v2's MLA never reaches flash)
+    gemma, pali, musicgen, grok, deepseek = (make() for make in ARCHS_6D)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += check_flash(gemma, dtype, (128,))
+        rows += check_flash(pali, dtype, (pali.num_prefix_embeds + 128,))
+    for cfg in (musicgen, grok):
+        rows += check_flash(cfg, torch.bfloat16, (128,))
+    for cfg in (gemma, pali, musicgen, grok, deepseek):
+        rows += check_lora(cfg, torch.bfloat16, list(arch_lora_cases(
+            cfg, 4 * (cfg.num_prefix_embeds + 128))))
     rows += check_wkv(rwkv)
     steps = wkv_chunk_steps(rwkv)
     for r in rows:
@@ -4443,6 +4599,14 @@ def main() -> int:
 
     pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100),
             parity(smollm, lora, 64), parity(starcoder, lora, 32)]
+    # phase 6d's archs: 2 layers of the dense ones
+    # (paligemma-3b after its 256 prefix rows), one of grok-1 and
+    # deepseek-v2 (~20 GB of f32 each; the CPU's decode runs every expert
+    # over its capacity of 8 per lane, ~2 s a step there, so 1 step)
+    pars += [parity(gemma, lora, 64), parity(pali, lora, 16),
+             parity(musicgen, lora, 64),
+             parity(grok, lora, 16, layers=1, steps=1),
+             parity(deepseek, lora, 16, layers=1, steps=1)]
     for par in pars:
         print(f"[3] {par['config']}: prefill max abs "
               f"{par['prefill_max_abs_err']:.3g}, decode max abs "
@@ -4623,6 +4787,8 @@ def main() -> int:
     # served_paged)
     p6 = phase_6()
     print_6(p6)
+    p6d = phase_6d()
+    print_6d(p6d)
     serve6 = [("qwen2-0.5b paged and dense engines in lockstep, churn "
                "(6a)", {"launches": p6["a"]["lockstep_launches"],
                         "lora_matmul_variants":
@@ -4633,14 +4799,16 @@ def main() -> int:
                    for i, r in enumerate(rs)]
     serve6.append(("vit-base-paper store-served paged and dense engines "
                    "in lockstep (6b)", p6["b"]))
-    for c in p6["c"]:
-        serve6.append((f"{c['model']} prefill and paged generate (6c)", c))
+    for c, label in ([(c, "6c") for c in p6["c"]]
+                     + [(c, "6d") for c in p6d["runs"]]):
+        serve6.append((f"{c['model']} prefill and paged generate ({label})",
+                       c))
         serve6.append((f"{c['model']} paged and dense engines in lockstep "
-                       f"(6c)", {"launches": c["lockstep_launches"],
-                                 "lora_matmul_variants":
-                                 c["lockstep_lora_matmul_variants"],
-                                 "flash_attention_variants":
-                                 {"mma": 0, "simt": 0}}))
+                       f"({label})", {"launches": c["lockstep_launches"],
+                                      "lora_matmul_variants":
+                                      c["lockstep_lora_matmul_variants"],
+                                      "flash_attention_variants":
+                                      {"mma": 0, "simt": 0}}))
 
     # phase 2 at the batched round's lane shapes: V from its largest
     # group per rank, for ours and for HetLoRA (the most rank groups)
@@ -4817,7 +4985,7 @@ def main() -> int:
                    "full_batched_vs_serial": agree,
                    "full_group_budgets": g, "methods": p5d,
                    "modes": p5e, "resume_and_presets": p5f,
-                   "serving_rest": p6}, fh, indent=1)
+                   "serving_rest": p6, "serving_archs": p6d}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

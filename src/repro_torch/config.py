@@ -2,7 +2,8 @@
 
 The port imports nothing from ``repro``, so it keeps its own copies of
 the pieces of ``repro/config.py`` the ported slices read: the block-kind
-constants, :class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
+constants, :class:`MoEConfig`, :class:`MLAConfig`, :class:`RWKVConfig`,
+:class:`ModelConfig`, :class:`LoRAConfig`,
 :class:`ServeSpec`, the federated round's configs (:class:`UCBDualConfig`,
 :class:`EnergyAllocConfig`, :class:`MobilityConfig`) and scenario specs
 (:class:`TraceSpec`, :class:`OutageSpec`, :class:`RSUTierSpec`,
@@ -10,8 +11,8 @@ constants, :class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
 and the ``--arch`` registry. Each keeps the reference's names, defaults
 and validation for the fields it has. :class:`ModelConfig` has all of the
 reference's fields, so that a config's checkpoint fingerprint is the
-reference's; the MoE/MLA/SSM sub-configs, shared attention and modality
-frontends stay at their defaults (another value raises until item 11).
+reference's; the SSM sub-config and shared attention (zamba2) stay at
+their defaults (another value raises until item 11).
 :class:`ServeSpec` leaves out the reference's ``donate`` (JAX buffer
 donation), which has no torch counterpart. The simulator refuses the
 shardings it does not run yet.
@@ -22,8 +23,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-# Block kinds understood by models/transformer.py (BLOCK_ATTN and
-# BLOCK_RWKV6 are ported)
+# Block kinds understood by models/transformer.py (all but BLOCK_MAMBA2
+# and BLOCK_SHARED_ATTN are ported)
 BLOCK_ATTN = "attn"          # full (GQA/MQA) attention + MLP
 BLOCK_MLA = "mla"            # DeepSeek-style multi-head latent attention + MLP/MoE
 BLOCK_MAMBA2 = "mamba2"      # Mamba2 (SSD) block
@@ -31,11 +32,29 @@ BLOCK_RWKV6 = "rwkv6"        # RWKV6 time-mix + channel-mix
 BLOCK_SHARED_ATTN = "shared_attn"  # Zamba2 shared transformer block
 
 
-# ModelConfig's fields that only the unported architectures set, with the
-# reference's defaults
-_UNPORTED_FIELDS = (("shared_attn_every", 0), ("moe", None), ("mla", None),
-                    ("ssm", None), ("frontend", None),
-                    ("num_prefix_embeds", 0))
+# ModelConfig's fields that only the unported architecture (zamba2) sets,
+# with the reference's defaults
+_UNPORTED_FIELDS = (("shared_attn_every", 0), ("ssm", None))
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    expert_d_ff: Optional[int] = None    # if None, use model d_ff
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0          # 0 => full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -64,13 +83,15 @@ class ModelConfig:
     logits_softcap: float = 0.0
     block_pattern: Optional[Tuple[str, ...]] = None   # None -> all BLOCK_ATTN
     shared_attn_every: int = 0       # zamba2's shared attention (item 11)
-    # the reference's MoE / MLA / SSM sub-configs and modality frontends:
-    # kept at their defaults so that dataclasses.asdict, and with it a
-    # SimConfig's checkpoint fingerprint, equals the reference's
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    # the reference's SSM sub-config: kept at its default so that
+    # dataclasses.asdict, and with it a SimConfig's checkpoint
+    # fingerprint, equals the reference's
     ssm: Optional[Any] = None
     rwkv: Optional[RWKVConfig] = None
+    # modality frontends are stubs, as in the reference: the caller
+    # hands num_prefix_embeds embeddings of width d_model to forward
     frontend: Optional[str] = None   # None | "vision" | "audio"
     num_prefix_embeds: int = 0
     sliding_window: Optional[int] = None
@@ -82,9 +103,9 @@ class ModelConfig:
                     if getattr(self, k) != default}
         if unported:
             raise NotImplementedError(
-                f"{self.name}: {unported} needs the other architectures' "
-                "blocks, which the port has not taken over yet (ROADMAP "
-                "Queue 1, item 11)")
+                f"{self.name}: {unported} needs zamba2's Mamba2 and shared "
+                "attention blocks, which the port has not taken over yet "
+                "(ROADMAP Queue 1, item 11)")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -107,8 +128,10 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_counts(self) -> Dict[str, float]:
-        """Approximate parameter counts, total and active per token (the
-        reference's, for the block kinds this config can describe)."""
+        """Approximate parameter counts, total and active per token: the
+        reference's, line for line, faults included (ROADMAP Queue 3,
+        fault 5: grok-1-314b's non-gated ``gelu`` experts count two
+        matrices each, so its total comes out at 213 B, not 314 B)."""
         d, f = self.d_model, self.d_ff
         hd = self.resolved_head_dim if self.num_heads > 0 else 0
         nq, nkv = self.num_heads, self.num_kv_heads
@@ -119,19 +142,47 @@ class ModelConfig:
         total = active = 0.0
         for kind in self.blocks():
             if kind in (BLOCK_ATTN, BLOCK_SHARED_ATTN):
-                blk = d * hd * (nq + 2 * nkv) + nq * hd * d + per_mlp
+                attn = d * hd * (nq + 2 * nkv) + nq * hd * d
+                blk = attn + per_mlp
+                total += blk
+                active += blk
+            elif kind == BLOCK_MLA:
+                m = self.mla
+                attn = (d * m.kv_lora_rank                       # kv down
+                        + m.kv_lora_rank * nq * (m.qk_nope_head_dim
+                                                 + m.v_head_dim)
+                        + d * m.qk_rope_head_dim                  # rope k
+                        + d * nq * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                        + nq * m.v_head_dim * d)
+                if self.moe is not None:
+                    ef = self.moe.expert_d_ff or f
+                    e_p = d * ef * (3 if glu else 2)
+                    routed = self.moe.num_experts * e_p
+                    shared = self.moe.num_shared_experts * e_p
+                    router = d * self.moe.num_experts
+                    total += attn + routed + shared + router
+                    active += attn + shared + router + self.moe.top_k * e_p
+                else:
+                    total += attn + per_mlp
+                    active += attn + per_mlp
             elif kind == BLOCK_RWKV6:
                 r = self.rwkv
                 tm = d * d * 4 + d * r.gate_lora * 2 + d * r.decay_lora * 2
                 cm = d * int(3.5 * d) * 2 if f == 0 else d * f * 2
-                blk = tm + cm
+                total += tm + cm
+                active += tm + cm
             else:
                 raise NotImplementedError(
-                    f"{self.name}: the port counts the params of 'attn' and "
-                    f"'rwkv6' blocks only, not {kind!r} (ROADMAP Queue 1, "
-                    "item 11)")
-            total += blk
-            active += blk
+                    f"{self.name}: the port does not count the params of "
+                    f"{kind!r} blocks (ROADMAP Queue 1, item 11)")
+            if kind == BLOCK_ATTN and self.moe is not None:
+                # MoE replaces the dense MLP (grok-style): undo + add experts
+                total -= per_mlp
+                active -= per_mlp
+                ef = self.moe.expert_d_ff or f
+                e_p = d * ef * (3 if glu else 2)
+                total += self.moe.num_experts * e_p + d * self.moe.num_experts
+                active += self.moe.top_k * e_p + d * self.moe.num_experts
         counts["blocks_total"] = total
         counts["blocks_active"] = active
         counts["total"] = total + counts["embed"]

@@ -25,8 +25,9 @@ tenant's positions; its stale K/V values are unreachable behind the
 mask, and masked slots contribute exact zeros through the softmax, so
 paged decode gives the dense engine's bits.
 
-Only ring-buffer caches page. Recurrent state (rwkv6) is O(1) per lane
-and stays a dense per-lane carry.
+Only ring-buffer caches page: attention's k/v/pos and MLA's latent
+c_kv/k_rope/pos. Recurrent state (rwkv6) is O(1) per lane and stays a
+dense per-lane carry.
 
 Pools, tables and lane caches are torch tensors updated IN PLACE
 (:func:`scatter_written`, :func:`release_blocks`), so the serve engine's
@@ -39,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import BLOCK_ATTN, ModelConfig
+from repro_torch.config import BLOCK_ATTN, BLOCK_MLA, ModelConfig
 
 # physical block 0: permanently empty, the target of unallocated table
 # entries — gathers stay in bounds, the pos == -1 mask does the rest
@@ -186,11 +187,12 @@ Slot = Tuple
 
 def paged_slots(cfg: ModelConfig) -> List[Slot]:
     """Tree addresses of the ring-buffer (position-indexed) caches in
-    ``transformer.init_caches(cfg, ...)`` order: the attention segments.
-    Recurrent-state segments carry no ``pos`` ring and stay dense."""
+    ``transformer.init_caches(cfg, ...)`` order: the attention and MLA
+    segments. Recurrent-state segments carry no ``pos`` ring and stay
+    dense."""
     from repro_torch.models.transformer import segments_of
     return [("segments", i) for i, (kind, _) in enumerate(segments_of(cfg))
-            if kind == BLOCK_ATTN]
+            if kind in (BLOCK_ATTN, BLOCK_MLA)]
 
 
 def get_slot(caches: Dict, slot: Slot):

@@ -76,6 +76,7 @@ Queue 1, item 12).
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -827,13 +828,24 @@ class FusedRoundEngine:
     def _capture(self) -> None:
         """Capture both segments into graphs that share one memory pool.
         A capture records and runs nothing; a failed one raises, and
-        nothing falls back to eager."""
-        g1 = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g1):
-            mid = self._main()
-        g2 = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g2, pool=g1.pool()):
-            self._tail(mid)
+        nothing falls back to eager. Python's cycle collector runs first
+        and is held off until both captures end: a finished simulator and
+        its engine hold each other, so a collection could fall inside a
+        capture and destroy that engine's graphs there, which invalidates
+        the capture (``torch.cuda.graph`` no longer collects on entry)."""
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            g1 = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g1):
+                mid = self._main()
+            g2 = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g2, pool=g1.pool()):
+                self._tail(mid)
+        finally:
+            if collecting:
+                gc.enable()
         self._graph_mid = mid
         self._graphs = (g1, g2)
         self.captures += 1

@@ -49,6 +49,16 @@
 // 0.12 GFLOP (0.1 us at 989 TFLOP/s); launch and the latency of the first
 // loads dominate.
 //
+// Head dim 256 (gemma-7b's and paligemma-3b's) runs on both. In
+// fa_mma_kernel a thread's O accumulator is then acc[32][4], 128 f32
+// registers, beside s[8][4]; Q's A fragments would take 64 more (qf[16][4])
+// and push a 128-thread block past the 255 registers a thread may hold, so
+// at D 256 they are not kept resident: each k-step of Q·Kᵀ reloads its
+// fragment from the Q rows, which stay in shared memory for the block's
+// life (one ldmatrix.x4 per k-step and kv tile). Its shared memory at 4
+// tiles is (64 + 4·64) rows x 264 x 2 B = 168,960 B, one block per SM,
+// inside the 227 KB opt-in; fa_kernel's is 102,528 B.
+//
 // Head dim 16 (the reduced ViT's) runs on both: in fa_mma_kernel Q·Kᵀ
 // is one m16n8k16 k-step and P·V two n8 tiles (one ldmatrix.x4.trans),
 // with 32-byte rows padded to 48 bytes, whose 8-row ldmatrix phases
@@ -211,7 +221,11 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int w_last = min(qw0 + 16, Sq) - 1 + off;   // < qw0 + off: no rows
   const bool w_rows = qw0 < Sq;
 
-  uint32_t qf[KSTEPS][4];
+  // Q's A fragments: resident in registers up to D 128, re-read from
+  // shared memory at each k-step at D 256 (see the header)
+  constexpr bool Q_RESIDENT = D <= 128;
+  const bf16* qbase = qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + 8 * (lane / 16);
+  uint32_t qf[Q_RESIDENT ? KSTEPS : 1][4];
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float acc[NO][4];
@@ -224,10 +238,11 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     cp_async_commit();
     cp_async_wait<1>();   // Q and tile t have landed
     __syncthreads();
-    if (t == t_lo) {
-      const bf16* base = qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + 8 * (lane / 16);
+    if constexpr (Q_RESIDENT) {
+      if (t == t_lo) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], base + kk * 16);
+        for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], qbase + kk * 16);
+      }
     }
     const int k0 = t * MMA_BK;
     const bool skip = !w_rows || (causal && k0 > w_last) ||
@@ -239,15 +254,24 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       float s[NS][4];
 #pragma unroll
       for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
+      auto qk_step = [&](const uint32_t(&qa)[4], int kk) {
 #pragma unroll
         for (int n = 0; n < NS; n += 2) {
           uint32_t b[4];
           ldmatrix_x4(b, kt + (n * 8 + (lane % 8) + 8 * (lane / 16)) * LD + kk * 16 +
                              8 * ((lane / 8) % 2));
-          mma_bf16(s[n], qf[kk], b[0], b[1]);
-          mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
+          mma_bf16(s[n], qa, b[0], b[1]);
+          mma_bf16(s[n + 1], qa, b[2], b[3]);
+        }
+      };
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        if constexpr (Q_RESIDENT) {
+          qk_step(qf[kk], kk);
+        } else {
+          uint32_t qr[4];
+          ldmatrix_x4(qr, qbase + kk * 16);
+          qk_step(qr, kk);
         }
       }
       // scale into log2 units; mask only tiles that straddle an edge
@@ -507,6 +531,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+    case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -519,6 +544,7 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v, void* o,
     case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
+    case 256: return launch_mma<256>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -554,6 +580,7 @@ extern "C" int flash_attention_smem_bytes(int variant, int D, int tiles) {
     case 32: return (int)(variant ? mma_smem_bytes<32>(tiles) : smem_bytes<32>());
     case 64: return (int)(variant ? mma_smem_bytes<64>(tiles) : smem_bytes<64>());
     case 128: return (int)(variant ? mma_smem_bytes<128>(tiles) : smem_bytes<128>());
+    case 256: return (int)(variant ? mma_smem_bytes<256>(tiles) : smem_bytes<256>());
     default: return 0;
   }
 }

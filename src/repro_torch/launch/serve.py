@@ -50,14 +50,18 @@ from repro_torch.models.runmode import resolve_device
 
 def make_prefill_step(cfg: ModelConfig, lora: LoRAConfig, *,
                       device="cuda", sliding_window=None):
-    """prefill(params, adapters, batch) -> logits (B, S, V)."""
+    """prefill(params, adapters, batch) -> logits (B, P + S, V); batch:
+    tokens (B, S) [, prefix_embeds (B, P, d), a VLM's stubbed frontend]."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill(params, adapters, batch):
-        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        logits, _ = T.forward(params, adapters, cfg, lora,
-                              {"tokens": tokens},
+        inputs = {"tokens": torch.as_tensor(batch["tokens"],
+                                            device=dev).long()}
+        if batch.get("prefix_embeds") is not None:
+            inputs["prefix_embeds"] = torch.as_tensor(
+                batch["prefix_embeds"], device=dev)
+        logits, _ = T.forward(params, adapters, cfg, lora, inputs,
                               sliding_window=sliding_window)
         return logits
 

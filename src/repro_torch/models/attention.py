@@ -1,7 +1,7 @@
-"""GQA attention with LoRA hooks and a ring-buffer KV cache.
+"""Attention with LoRA hooks and a ring-buffer KV cache: GQA/MQA and
+DeepSeek-V2's multi-head latent attention (MLA).
 
-Port of the GQA half of ``repro/models/attention.py`` (MLA is not ported).
-Routes (:func:`attention_path`), in precedence order:
+Port of ``repro/models/attention.py``. Routes (:func:`attention_path`), in precedence order:
 
   'decode' — one query token against the cache: one grouped product, no
              GQA head repeat (plain tensor code, as in the reference)
@@ -18,6 +18,12 @@ Routes (:func:`attention_path`), in precedence order:
 Decode lanes carry their own positions: q_positions is (B, Sq), and each
 lane writes its new keys at its own ring slot ``position % Sc`` and
 rotates them by its own angle. The cache is updated in place.
+
+MLA's q/k head dim (nope + rope, 192 at full width) differs from its v
+head dim (128), so it never takes the flash route: a prefill goes
+``direct`` or ``blocked`` and decode goes ``decode``, as in the reference.
+It caches the latent ``(c_kv, k_rope, pos)`` and up-projects the whole
+cache to per-head keys and values at every step, as the reference does.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.core.lora import apply_lora_linear
 from repro_torch.models import runmode
 from repro_torch.models.common import apply_rope, fan_in_init
@@ -235,6 +241,107 @@ def init_cache(cfg: ModelConfig, batch: int, length: int,
                          device=device),
         "v": torch.zeros((batch, length, cfg.num_kv_heads, hd), dtype=dtype,
                          device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             layers: Optional[int] = None) -> Dict:
+    m: MLAConfig = cfg.mla
+    d, nq = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    L = () if layers is None else (layers,)
+
+    def lin(di, do):
+        return {"w": fan_in_init(gen, L + (di, do), dtype)}
+
+    p = {
+        "kv_down": lin(d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_up": lin(m.kv_lora_rank,
+                     nq * (m.qk_nope_head_dim + m.v_head_dim)),
+        "o": lin(nq * m.v_head_dim, d),
+    }
+    if m.q_lora_rank:
+        p["q_down"] = lin(d, m.q_lora_rank)
+        p["q_up"] = lin(m.q_lora_rank, nq * qk_dim)
+    else:
+        p["q"] = lin(d, nq * qk_dim)
+    return p
+
+
+def apply_mla(p, adapters, x, cfg: ModelConfig, lora_scale, positions,
+              cache=None, cache_index=None, sliding_window=None):
+    """MLA forward. The latent KV (c_kv, k_rope) is what gets cached —
+    rank-compressed (kv_lora_rank), the low-rank structure the paper's
+    method exploits. cache: dict(c_kv=(B, Sc, kv_lora_rank),
+    k_rope=(B, Sc, rope), pos=(B, Sc)), written IN PLACE at slots
+    ``(cache_index[b] + s) % Sc``. Returns (out, cache_or_None)."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    nq = cfg.num_heads
+    ad = adapters or {}
+
+    if "q" in p:
+        q = apply_lora_linear(p["q"], ad.get("q"), x, lora_scale)
+    else:
+        qd = apply_lora_linear(p["q_down"], ad.get("q_down"), x, lora_scale)
+        q = apply_lora_linear(p["q_up"], ad.get("q_up"), qd, lora_scale)
+    q = q.reshape(B, S, nq, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kvd = apply_lora_linear(p["kv_down"], ad.get("kv_down"), x, lora_scale)
+    c_kv, k_rope = torch.split(
+        kvd, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]              # (B, S, rope)
+
+    if cache is not None:
+        Sc = cache["c_kv"].shape[1]
+        idx = (cache_index[:, None]
+               + torch.arange(S, device=x.device)[None]) % Sc      # (B, S)
+        lanes = torch.arange(B, device=x.device)[:, None]
+        cache["c_kv"][lanes, idx] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][lanes, idx] = k_rope.to(cache["k_rope"].dtype)
+        cache["pos"][lanes, idx] = positions.to(cache["pos"].dtype)
+        c_kv_all, k_rope_all, kv_pos = (cache["c_kv"], cache["k_rope"],
+                                        cache["pos"])
+    else:
+        c_kv_all, k_rope_all, kv_pos = c_kv, k_rope, None
+
+    # up-project the latent to per-head K (nope) and V
+    kv = apply_lora_linear(p["kv_up"], ad.get("kv_up"),
+                           c_kv_all.to(x.dtype), lora_scale)
+    kv = kv.reshape(B, -1, nq, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_b = k_rope_all[:, :, None, :].to(x.dtype).expand(
+        B, k_nope.shape[1], nq, m.qk_rope_head_dim)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+
+    sm_scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    out = attend(qq, k, v, causal=True, q_positions=positions,
+                 kv_positions=kv_pos, sliding_window=sliding_window,
+                 sm_scale=sm_scale)
+    out = out.reshape(B, S, nq * m.v_head_dim)
+    out = apply_lora_linear(p["o"], ad.get("o"), out, lora_scale)
+    return out, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   dtype=torch.bfloat16, device="cpu"):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, length, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, length, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
         "pos": torch.full((batch, length), -1, dtype=torch.int32,
                           device=device),
     }

@@ -1,7 +1,12 @@
-"""Decoder model of the port: ``attn`` and ``rwkv6`` segments.
+"""Decoder model of the port: ``attn``, ``mla`` and ``rwkv6`` segments,
+with a dense MLP or a mixture of experts.
 
-Port of ``repro/models/transformer.py`` for dense GQA decoders and RWKV6
-stacks. The tree layout is the reference's: consecutive blocks of one
+Port of ``repro/models/transformer.py`` for GQA/MQA decoders (dense or
+MoE, grok-style), DeepSeek-V2's MLA + MoE blocks and RWKV6 stacks. A VLM's
+or an audio model's frontend is a stub, as in the reference: the caller
+hands ``prefix_embeds`` (B, P, d) to :func:`forward` / :func:`loss_fn`,
+and they are prepended to the token embeddings. The tree layout is the
+reference's: consecutive blocks of one
 kind form a segment whose parameters are stacked on a leading layer axis,
 under the same key names, so weights carry across one to one
 (:mod:`repro_torch.interop`). The reference's ``lax.scan`` over layers is
@@ -17,8 +22,8 @@ Public API:
     init_caches(cfg, batch, cache_len, dtype, device)
     loss_fn(params, adapters, cfg, lora, batch)       -> (loss, metrics)
 
-Block kinds other than ``attn`` and ``rwkv6`` (MLA, MoE, Mamba2, zamba2's
-shared attention) raise ``NotImplementedError``.
+zamba2's block kinds (``mamba2`` and its shared attention) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,11 +32,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import (BLOCK_ATTN, BLOCK_RWKV6, LoRAConfig,
-                                ModelConfig)
+from repro_torch.config import (BLOCK_ATTN, BLOCK_MLA, BLOCK_RWKV6,
+                                LoRAConfig, ModelConfig)
 from repro_torch.core import lora as lora_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import (apply_norm, dtype_of, init_norm,
                                        is_glu, normal_init, softcap)
@@ -54,10 +60,10 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN, BLOCK_RWKV6})
+    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN, BLOCK_MLA, BLOCK_RWKV6})
     if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs 'attn' and 'rwkv6' blocks only, "
+            f"{cfg.name}: the port runs 'attn', 'mla' and 'rwkv6' blocks, "
             f"not {kinds} (ROADMAP Queue 1, item 11)")
 
 
@@ -87,13 +93,19 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, layers: int
                                  gen.device),
             "rwkv": rwkv_lib.init_rwkv6(gen, cfg, dtype, layers=layers),
         }
-    return {
-        "norm1": _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device),
-        "attn": attn_lib.init_attention(gen, cfg, dtype, layers=layers),
-        "norm2": _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device),
-        "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                                dtype, layers=layers),
-    }
+    p = {"norm1": _stack_norm(cfg.norm, cfg.d_model, dtype, layers,
+                              gen.device)}
+    if kind == BLOCK_MLA:
+        p["mla"] = attn_lib.init_mla(gen, cfg, dtype, layers=layers)
+    else:
+        p["attn"] = attn_lib.init_attention(gen, cfg, dtype, layers=layers)
+    p["norm2"] = _stack_norm(cfg.norm, cfg.d_model, dtype, layers, gen.device)
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype, layers=layers)
+    else:
+        p["mlp"] = mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.activation, dtype, layers=layers)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
@@ -120,24 +132,57 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
 # ---------------------------------------------------------------------------
 
 def _lora_targets(kind: str, cfg: ModelConfig, lora: LoRAConfig):
-    """(path, d_in, d_out) of the LoRA-targeted linears of a block."""
+    """(path, d_in, d_out) of the LoRA-targeted linears of a block; a
+    routed expert's d_in / d_out are (E, d) pairs (per-expert adapters)."""
     d = cfg.d_model
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
     t = []
     if kind == BLOCK_RWKV6:
         t += [(("rwkv", "w_r"), d, d), (("rwkv", "w_k"), d, d),
               (("rwkv", "w_v"), d, d), (("rwkv", "w_o"), d, d)]
         if lora.target_mlp:
             t += [(("rwkv", "ck"), d, cfg.d_ff), (("rwkv", "cv"), cfg.d_ff, d)]
-        return t
-    hd = cfg.resolved_head_dim
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    if lora.target_attn:
-        t += [(("attn", "q"), d, nq * hd), (("attn", "k"), d, nkv * hd),
-              (("attn", "v"), d, nkv * hd), (("attn", "o"), nq * hd, d)]
-    if lora.target_mlp:
-        t += [(("mlp", "up"), d, cfg.d_ff), (("mlp", "down"), cfg.d_ff, d)]
-        if is_glu(cfg.activation):
-            t.append((("mlp", "gate"), d, cfg.d_ff))
+    elif kind == BLOCK_ATTN:
+        hd = cfg.resolved_head_dim
+        if lora.target_attn:
+            t += [(("attn", "q"), d, nq * hd), (("attn", "k"), d, nkv * hd),
+                  (("attn", "v"), d, nkv * hd), (("attn", "o"), nq * hd, d)]
+        if lora.target_mlp and cfg.moe is None:
+            t += _mlp_targets(("mlp",), cfg)
+        elif lora.target_mlp and cfg.moe.num_shared_experts:
+            t += _mlp_targets(("moe", "shared"), cfg, shared_moe=True)
+        elif lora.target_mlp:
+            # routed experts: per-expert adapters (E, d, r), grok's path
+            f = cfg.moe.expert_d_ff or cfg.d_ff
+            E = cfg.moe.num_experts
+            t += [(("moe", "w_up"), (E, d), (E, f)),
+                  (("moe", "w_down"), (E, f), (E, d))]
+    elif kind == BLOCK_MLA:
+        m = cfg.mla
+        if lora.target_attn:
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            if m.q_lora_rank:
+                t += [(("mla", "q_down"), d, m.q_lora_rank),
+                      (("mla", "q_up"), m.q_lora_rank, nq * qk)]
+            else:
+                t += [(("mla", "q"), d, nq * qk)]
+            t += [(("mla", "kv_down"), d,
+                   m.kv_lora_rank + m.qk_rope_head_dim),
+                  (("mla", "o"), nq * m.v_head_dim, d)]
+        if (lora.target_mlp and cfg.moe is not None
+                and cfg.moe.num_shared_experts):
+            t += _mlp_targets(("moe", "shared"), cfg, shared_moe=True)
+    return t
+
+
+def _mlp_targets(prefix, cfg: ModelConfig, shared_moe=False):
+    d = cfg.d_model
+    f = cfg.d_ff
+    if shared_moe:
+        f = (cfg.moe.expert_d_ff or cfg.d_ff) * cfg.moe.num_shared_experts
+    t = [(prefix + ("up",), d, f), (prefix + ("down",), f, d)]
+    if is_glu(cfg.activation):
+        t.append((prefix + ("gate",), d, f))
     return t
 
 
@@ -157,9 +202,20 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
     for kind, n in segments_of(cfg):
         seg_ad: Dict[str, Any] = {}
         for path, din, dout in _lora_targets(kind, cfg, lora):
-            node = seg_ad.setdefault(path[0], {})
-            node[path[1]] = lora_lib.init_adapter(gen, din, dout, rank,
-                                                  dtype, layers=n)
+            node = seg_ad
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            if isinstance(din, tuple):      # per-expert adapters (E, ·, r)
+                (E, di), (_, do) = din, dout
+                a = torch.randn((n, E, di, rank), generator=gen,
+                                device=gen.device) / di ** 0.5
+                node[path[-1]] = {
+                    "a": a.to(dtype),
+                    "b": torch.zeros((n, E, rank, do), dtype=dtype,
+                                     device=gen.device)}
+            else:
+                node[path[-1]] = lora_lib.init_adapter(gen, din, dout, rank,
+                                                       dtype, layers=n)
         out["segments"].append(seg_ad)
     return out
 
@@ -170,8 +226,11 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
 
 def _block_apply(kind, p, ad, x, cfg: ModelConfig, scale, positions,
                  cache=None, cache_index=None, sliding_window=None):
-    """One block. Returns (x, cache); a cache is updated in place."""
+    """One block. Returns (x, cache, aux); a cache is updated in place;
+    aux is the MoE's load-balance loss (0 without one; per lane with
+    lane-batched adapters, see ``models/moe.py``)."""
     ad = ad or {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == BLOCK_RWKV6:
         h = apply_norm(p["norm1"], x, "layernorm")
         o, ns = rwkv_lib.apply_rwkv6_timemix(p["rwkv"], ad.get("rwkv"), h,
@@ -184,27 +243,39 @@ def _block_apply(kind, p, ad, x, cfg: ModelConfig, scale, positions,
             cache["wkv"].copy_(ns["wkv"])
             cache["last"].copy_(ns["last"])
             cache["last_cm"].copy_(new_last)
-        return x + o, cache
+        return x + o, cache, aux
     h = apply_norm(p["norm1"], x, cfg.norm)
-    o, nc = attn_lib.apply_attention(p["attn"], ad.get("attn"), h, cfg, scale,
-                                     positions, cache=cache,
-                                     cache_index=cache_index,
-                                     sliding_window=sliding_window)
+    if kind == BLOCK_MLA:
+        name, attention = "mla", attn_lib.apply_mla
+    else:
+        name, attention = "attn", attn_lib.apply_attention
+    o, nc = attention(p[name], ad.get(name), h, cfg, scale, positions,
+                      cache=cache, cache_index=cache_index,
+                      sliding_window=sliding_window)
     x = x + o
     h = apply_norm(p["norm2"], x, cfg.norm)
-    o = mlp_lib.apply_mlp(p["mlp"], ad.get("mlp"), h, cfg.activation, scale)
-    return x + o, nc
+    if "moe" in p:
+        o, aux = moe_lib.apply_moe(p["moe"], ad.get("moe"), h, cfg, scale)
+    else:
+        o = mlp_lib.apply_mlp(p["mlp"], ad.get("mlp"), h, cfg.activation,
+                              scale)
+    return x + o, nc, aux
 
 
 def _cache_len(kind, seg_cache) -> int:
     if kind == BLOCK_ATTN:
         return seg_cache["k"].shape[2]       # (L, B, Sc, ...)
+    if kind == BLOCK_MLA:
+        return seg_cache["c_kv"].shape[2]
     return 1  # recurrent state has no positional ring buffer
 
 
 def _run_layers(params, adapters, x, cfg, scale, positions, window,
                 caches=None):
+    """Every segment's layers, then the final norm. Returns (x, aux
+    summed over the layers)."""
     _check_ported(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     seg_ads = (adapters or {}).get("segments",
                                    [None] * len(params["segments"]))
     for s, (kind, n) in enumerate(segments_of(cfg)):
@@ -213,30 +284,36 @@ def _run_layers(params, adapters, x, cfg, scale, positions, window,
         cache_index = (None if seg_c is None
                        else positions[:, 0] % _cache_len(kind, seg_c))
         for i in range(n):
-            x, _ = _block_apply(
+            x, _, aux = _block_apply(
                 kind, _layer(seg_p, i),
                 None if seg_ad is None else _layer(seg_ad, i),
                 x, cfg, scale, positions,
                 cache=None if seg_c is None else _layer(seg_c, i),
                 cache_index=cache_index, sliding_window=window)
-    return apply_norm(params["final_norm"], x, cfg.norm)
+            aux_total = aux_total + aux
+    return apply_norm(params["final_norm"], x, cfg.norm), aux_total
 
 
 def forward_hidden(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
                    batch: Dict, *, sliding_window=None, scale=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward: final-norm hidden states (B, S, d) and aux (0).
+    """Backbone forward: final-norm hidden states (B, P + S, d) and the
+    MoE aux loss summed over layers (0 without MoE).
 
+    batch: tokens (B, S) [, prefix_embeds (B, P, d)]: the prefix (a VLM's
+    patch embeddings, stubbed as in the reference) is prepended to the
+    token embeddings, and positions run over P + S.
     scale: optional override of lora.scale — a scalar, or a
     ``(scale, rank_mask)`` pair (see :func:`core.lora.split_scale`)."""
     scale = lora.scale if scale is None else scale
-    tokens = batch["tokens"]
-    x = F.embedding(tokens, params["embed"])
-    B, S = tokens.shape
+    x = F.embedding(batch["tokens"], params["embed"])
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     window = sliding_window or cfg.sliding_window
-    x = _run_layers(params, adapters, x, cfg, scale, positions, window)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _run_layers(params, adapters, x, cfg, scale, positions, window)
 
 
 def forward(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
@@ -244,8 +321,8 @@ def forward(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward (prefill).
 
-    batch: {"tokens": (B, S) int64 on the params' device}.
-    Returns (logits (B, S, V), aux_loss)."""
+    batch: {"tokens": (B, S) int64 [, "prefix_embeds": (B, P, d)]} on
+    the params' device. Returns (logits (B, P + S, V), aux_loss)."""
     x, aux = forward_hidden(params, adapters, cfg, lora, batch,
                             sliding_window=sliding_window, scale=scale)
     return _lm_head(params, cfg, x), aux
@@ -266,7 +343,8 @@ def _lm_head(params, cfg, x):
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.bfloat16, device="cuda") -> Dict:
     """Per-segment cache stacks with a leading layer axis: attn k/v
-    (L, B, Sc, Hkv, hd) and pos (L, B, Sc) int32 (-1 = empty); rwkv6
+    (L, B, Sc, Hkv, hd) and pos (L, B, Sc) int32 (-1 = empty); mla c_kv
+    (L, B, Sc, kv_lora_rank), k_rope (L, B, Sc, rope) and pos; rwkv6
     wkv (L, B, H, K, K) f32 and last/last_cm (L, B, d)."""
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -274,6 +352,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     for kind, n in segments_of(cfg):
         if kind == BLOCK_RWKV6:
             c = rwkv_lib.init_rwkv6_state(cfg, batch, dtype, dev)
+        elif kind == BLOCK_MLA:
+            c = attn_lib.init_mla_cache(cfg, batch, cache_len, dtype, dev)
         else:
             c = attn_lib.init_cache(cfg, batch, cache_len, dtype, dev)
         caches["segments"].append(
@@ -286,7 +366,7 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
                 sliding_window=None, scale=None
                 ) -> Tuple[torch.Tensor, Any]:
     """One-token decode. token: (B, 1); position: int or (B,) — the
-    absolute position of each lane's new token. On attn segments each
+    absolute position of each lane's new token. On attn and mla segments each
     lane writes its ring slot ``position[b] % cache_len`` and attends
     with its own position, so lanes at different points of their streams
     share one step; rwkv6 segments step each lane's recurrent state.
@@ -302,8 +382,8 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     pos = torch.as_tensor(position, device=x.device).reshape(-1)
     positions = pos.expand(B).reshape(B, 1).long()
     window = sliding_window or cfg.sliding_window
-    x = _run_layers(params, adapters, x, cfg, scale, positions, window,
-                    caches=caches)
+    x, _ = _run_layers(params, adapters, x, cfg, scale, positions, window,
+                       caches=caches)
     return _lm_head(params, cfg, x), caches
 
 
@@ -364,9 +444,10 @@ def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE, or classification CE when ``labels`` has rank 1.
 
-    batch: tokens (B, S) int64; labels (B, S) shifted targets with -100 =
-    masked, or (B,) class labels (ViT-style classification on the last
-    position, the paper's tasks). ce_chunk > 0: the lm head and CE run
+    batch: tokens (B, S) int64 [, prefix_embeds (B, P, d), whose P hidden
+    rows are dropped before the CE]; labels (B, S) shifted targets with
+    -100 = masked, or (B,) class labels (ViT-style classification on the
+    last position, the paper's tasks). ce_chunk > 0: the lm head and CE run
     over sequence chunks of that size, each recomputed in the backward
     pass (torch.utils.checkpoint), so at most B x chunk x V logits live at
     once. Returns (loss + aux, {"loss", "aux", "accuracy"}).

@@ -245,6 +245,29 @@ def test_flash_mma_other_head_dims_and_windows(cuda_device, S, D, window):
     assert float((got.float() - want.float()).abs().max()) < 2e-2
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,window", [
+    (4, 128, 16, 16, None),     # gemma-7b's prefill
+    (4, 384, 8, 1, None),       # paligemma-3b's: 256 prefix + 128 tokens
+    (2, 100, 8, 1, 32),         # ragged, MQA, a window
+    (1, 40, 4, 2, None)],       # a part tile, 3 q tiles
+    ids=["gemma", "paligemma", "ragged-window", "short"])
+def test_flash_head_dim_256_matches_plain(cuda_device, B, S, H, Hkv, window,
+                                          dtype, tol):
+    """Head dim 256 on the dtype's kernel (mma re-reads Q's fragments
+    from shared memory at each k-step), against the plain version."""
+    q, k, v = _fa_operands(S + H + 256, B, S, H, Hkv, 256, dtype,
+                           cuda_device)
+    kind = fa_ops.variant(dtype, 256)
+    got = _count_flash(kind, lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
+    want = fa_ops._plain(q, k, v, True, window, 256 ** -0.5)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (14, 2)],
                          ids=["group1", "group2", "group7"])
 @pytest.mark.parametrize("B,S", [(2, 100), (4, 128), (1, 2048)])

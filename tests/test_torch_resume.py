@@ -154,8 +154,8 @@ def test_fingerprint_equals_the_reference(arch):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("moe", "experts"), ("shared_attn_every", 2), ("frontend", "vision"),
-    ("num_prefix_embeds", 256)])
+    ("ssm", "ssd"), ("shared_attn_every", 2), ("ssm", {"state_dim": 64}),
+    ("shared_attn_every", 6)])
 def test_unported_model_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="item 11"):
         vit_base_paper.vit_base_paper().with_overrides(**{field: value})

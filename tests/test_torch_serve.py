@@ -106,8 +106,10 @@ def test_lora_and_serve_spec_copies_match_reference():
     with pytest.raises(ValueError):
         ServeSpec(admission="lifo")
     assert get_arch("qwen2-0.5b") == qwen2_0_5b.qwen2_0_5b()
-    assert list_archs() == ["qwen2-0.5b", "rwkv6-7b", "smollm-135m",
-                            "starcoder2-15b", "vit-base-paper"]
+    assert list_archs() == ["deepseek-v2-236b", "gemma-7b", "grok-1-314b",
+                            "musicgen-medium", "paligemma-3b", "qwen2-0.5b",
+                            "rwkv6-7b", "smollm-135m", "starcoder2-15b",
+                            "vit-base-paper"]
 
 
 def test_interop_round_trip_is_exact(weights):
@@ -472,7 +474,7 @@ def test_assign_checks_slot_width_and_admission(weights):
 # Boundaries of the slice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["mamba2", "mla"])
+@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
 def test_transformer_refuses_unported_block_kinds(kind):
     cfg = CFG.with_overrides(block_pattern=(kind, "attn"))
     with pytest.raises(NotImplementedError):
