@@ -112,7 +112,7 @@ Phases (any failure raises; nothing is caught):
    ``fused_check`` round per ablation on the card: ``engine_check_dev``
    recorded, each lane's update spread against the serial replay held
    within 2x the serial trainer's card-vs-CPU spread (a replay one step
-   short must fail). At full width (3 of vit-base-paper's 12 layers,
+   short must fail). At full width (2 of vit-base-paper's 12 layers,
    to keep the run inside its time limit), each
    method's batched rounds (the first profiled, but for HetLoRA and
    the three that train ours' groups, whose one round
@@ -121,7 +121,7 @@ Phases (any failure raises; nothing is caught):
    energy and accuracy finite); FedRA's left-out layers bit-identical
    after local training, which a planted fault (the mask applied after
    the optimizer step) must break; and each ablation's fused rounds (a
-   capture, then a replayed round with 540 / 90 kernel records) held
+   capture, then a replayed round with 360 / 60 kernel records) held
    to its batched rounds (ranks and active sets exactly, energy and
    latency within 1e-5). Then phase 2's rows at HetLoRA's largest lane
    group per rank.
@@ -143,7 +143,7 @@ Phases (any failure raises; nothing is caught):
    upload and release one. Three planted faults on the card's side must
    break these gates: staleness discounts one round too old, a
    release landing at the RSU its vehicle trained under, a sync gate
-   frozen at capture. At full width (3 of vit-base-paper's 12 layers,
+   frozen at capture. At full width (2 of vit-base-paper's 12 layers,
    ``DEPTH_5E``, to keep the script inside its time limit), four rounds
    of each configuration
    under batched (HetLoRA's tier too, unprofiled: a window over its 15
@@ -178,14 +178,15 @@ Phases (any failure raises; nothing is caught):
    restored into a fresh simulator and finished: histories and final
    checkpoints equal to the bit; each save's and the restore's ms,
    bytes, host and device peaks; the profiler's records of the first
-   replay after the restore (288 / 48: 6 of the 12 layers, ``DEPTH_5F``).
+   replay after the restore (144 / 24: 3 of the 12 layers, ``DEPTH_5F``).
    Then each of the seven presets
    at full width, batched, until a round trains, on one set of base
    weights: launches equal to the groups' prediction, energy, latency
    and accuracy finite, absent vehicles (rush-hour, sparse-rural)
    training no lane. The checkpoints go to a temporary directory in the
    checkout, removed at the end.
-6. Serving, the rest. (a) qwen2-0.5b at full depth and width in bf16,
+6. Serving, the rest. (a) qwen2-0.5b at full width in bf16 (12 of its
+   24 layers since PR 23, ``DEPTH_6A``),
    4 lanes at ranks 8/16/32/64 in the 64 slot: a block-paged engine
    (blocks of 16, a 128-slot ring) and a dense one driven in lockstep
    through admit, retire, re-admit into a recycled lane, evict_oldest
@@ -196,7 +197,8 @@ Phases (any failure raises; nothing is caught):
    step in both; decode ms/step and lane-tok/s paged against dense, in
    turns; a pool one block short must raise BlockPoolExhausted at the
    step its last lane outgrows it. (b) Train -> checkpoint -> serve at
-   the full width of vit-base-paper: the dense-rsu preset, batched,
+   the full width of vit-base-paper (6 of its 12 layers since PR 23,
+   ``DEPTH_6B``): the dense-rsu preset, batched,
    three rounds (merged deltas and live partials), checkpointed;
    ``AdapterStore.from_checkpoint`` against ``from_sim`` of the live
    simulator, bit-equal for every task, RSU and rank, one SVD (cache
@@ -270,7 +272,8 @@ from repro_torch.config import BLOCK_ATTN  # noqa: E402
 from repro_torch.configs import (deepseek_v2_236b, gemma_7b,  # noqa: E402
                                  grok1_314b, musicgen_medium, paligemma_3b,
                                  qwen2_0_5b, rwkv6_7b, smollm_135m,
-                                 starcoder2_15b, vit_base_paper)
+                                 starcoder2_15b, vit_base_paper,
+                                 zamba2_2_7b)
 from repro_torch.core import aggregation as agg  # noqa: E402
 from repro_torch.core import energy_alloc, ucb_dual  # noqa: E402
 from repro_torch.core import kv_blocks as kvb  # noqa: E402
@@ -454,7 +457,10 @@ def nontrivial(ads, seed):
             b = 0.02 * torch.randn(node["b"].shape, generator=g)
             return {"a": node["a"], "b": b.to(node["b"].device)}
         return {k: fix(v) for k, v in node.items()}
-    return {"segments": [fix(s) for s in ads["segments"]]}
+    out = {"segments": [fix(s) for s in ads["segments"]]}
+    if "shared_attn" in ads:      # zamba2's shared block
+        out["shared_attn"] = fix(ads["shared_attn"])
+    return out
 
 
 KERNELS = {"lora_matmul": lm_ops, "flash_attention": fa_ops,
@@ -532,6 +538,31 @@ def per_layer(cfg):
             {"lora_matmul": n, "flash_attention": 0, "wkv6": 0})
 
 
+def shared_linears(cfg):
+    """(path, K, N) of zamba2's shared block's linears (q/k/v unbiased:
+    all seven on the kernel); none without a shared block."""
+    if not cfg.shared_attn_every:
+        return []
+    return [(("shared_attn",) + path, din, dout)
+            for path, din, dout in T._shared_targets(cfg)]
+
+
+def per_model(cfg):
+    """Kernel launches of one prefill and of one decode step of the whole
+    model: per layer times the layers, and for zamba2 the shared block's
+    linears and flash (prefill) at each of its applications."""
+    in_prefill, in_step = per_layer(cfg)
+    apps = (cfg.num_layers // cfg.shared_attn_every
+            if cfg.shared_attn_every else 0)
+    shared = len(shared_linears(cfg))
+    prefill = {k: n * cfg.num_layers for k, n in in_prefill.items()}
+    step = {k: n * cfg.num_layers for k, n in in_step.items()}
+    prefill["lora_matmul"] += shared * apps
+    prefill["flash_attention"] += apps
+    step["lora_matmul"] += shared * apps
+    return prefill, step
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -557,7 +588,7 @@ def arch_lora_cases(cfg, prefill_rows=512):
     4 x (256 + 128) with paligemma-3b's prefix) and in decode (4 lanes x
     1 row)."""
     seen = {}
-    for path, K, N in kernel_linears(cfg):
+    for path, K, N in kernel_linears(cfg) + shared_linears(cfg):
         seen.setdefault((K, N), []).append("/".join(path[1:]))
     for (K, N), names in seen.items():
         for mode, L, M in (("prefill", 1, prefill_rows),
@@ -882,7 +913,8 @@ def check_lora_train():
     return rows
 
 
-def lora_train_row(mode, M, linear, K, N, r, L=1, lane_ranks=None):
+def lora_train_row(mode, M, linear, K, N, r, L=1, lane_ranks=None,
+                   model="vit-base-paper"):
     """One f32 lora_matmul row: L lanes of M rows against one W; with
     ``lane_ranks`` the lanes are rank-padded to r, each masked at its own
     rank with scale 16 / rank (the fused engine's fleet)."""
@@ -914,7 +946,7 @@ def lora_train_row(mode, M, linear, K, N, r, L=1, lane_ranks=None):
         return x @ w + scale[:, None, None] * (
             ((x @ a) * mask[:, None, :]) @ b)
     kernel_ms = timed_ms(lambda: lm_ops._launch(x, w, t_, b, scale, mask))
-    row = {"name": "lora_matmul", "model": "vit-base-paper",
+    row = {"name": "lora_matmul", "model": model,
            "linear": linear, "mode": mode, "variant": kind,
            "dtype": "float32", "rank": r,
            "shape": f"L={L} M={M} K={K} N={N} r={r}" + (
@@ -1123,7 +1155,8 @@ def parity(cfg_full, lora, seq, layers=2, steps=8):
         if not err <= E2E_TOL:
             fail(f"{cfg.name} decode step {step} card vs CPU: max abs {err}")
         toks = want.argmax(-1).numpy()
-        if step == 3 and cfg.rwkv is not None:   # a fresh recurrent state
+        if step == 3 and (cfg.rwkv is not None or cfg.ssm is not None):
+            # a fresh recurrent state
             for eng, dev in ((eng_cpu, "cpu"), (eng_gpu, "cuda")):
                 eng.retire(3)
                 eng.admit(paged(cfg, lora, 32, 40, dev), lane=3)
@@ -1167,8 +1200,8 @@ def served(cfg, lora):
     prefill_flash = flash_variant_counts()
     if not torch.isfinite(logits).all():
         fail(f"{cfg.name} prefill logits not finite")
-    in_prefill, in_step = per_layer(cfg)
-    want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
+    in_prefill, in_step = per_model(cfg)
+    want = dict(in_prefill)
     if prefill_counts != want:
         fail(f"{cfg.name} prefill launches {prefill_counts}, want {want}")
     # every bf16 lora_matmul and flash launch of the served prefill on
@@ -1205,7 +1238,7 @@ def served(cfg, lora):
     decode_flash = flash_variant_counts()
     if not torch.isfinite(last).all():
         fail(f"{cfg.name} decode logits not finite")
-    want = {k: n * cfg.num_layers * steps for k, n in in_step.items()}
+    want = {k: n * steps for k, n in in_step.items()}
     if decode_counts != want:
         fail(f"{cfg.name} decode launches {decode_counts}, want {want}")
     # and every one of the served decode on the weight-streaming kernel
@@ -1446,12 +1479,34 @@ def merged_rel_err(want_servers, got_merged, by_leaf=None):
     return worst
 
 
-def round_parity(engine):
-    """Phase 5a: the reduced ViT (head dim 16) with the default SimConfig
+def heads_of(cfg):
+    """A config's heads, for its printed line."""
+    if cfg.rwkv is not None:
+        return (f"{cfg.d_model // cfg.rwkv.head_dim} wkv heads of "
+                f"{cfg.rwkv.head_dim}")
+    return f"{cfg.num_heads} heads of {cfg.resolved_head_dim}"
+
+
+def round_per_fwd(cfg, lora):
+    """Launches of each kernel per forward of the round's model: one
+    lora_matmul per LoRA linear, one flash per attention layer, one wkv6
+    per rwkv6 layer."""
+    rwkv = cfg.rwkv is not None
+    return {"lora_matmul": cfg.num_layers * len(tree_paths(
+        T.init_adapters(cfg, lora, rank=2, device="cpu"))),
+        "flash_attention": 0 if rwkv else cfg.num_layers,
+        "wkv6": cfg.num_layers if rwkv else 0}
+
+
+def round_parity(engine, arch=None, **kw):
+    """Phase 5a (and 7b with ``arch``): the reduced ViT (head dim 16) with
+    the default SimConfig (or ``arch`` with ``kw``'s SimConfig fields)
     under ``engine``, one seed, on the card and on the CPU."""
     sims, plans, recs = {}, {}, {}
+    if arch is not None:
+        kw["train_arch"] = arch
     for dev in ("cuda", "cpu"):
-        sims[dev] = IoVSimulator(SimConfig(engine=engine), device=dev)
+        sims[dev] = IoVSimulator(SimConfig(engine=engine, **kw), device=dev)
         plans[dev] = []
         recording(sims[dev], plans[dev])
     cfg, lora = sims["cpu"].model_cfg, sims["cpu"].cfg.lora
@@ -1485,8 +1540,10 @@ def round_parity(engine):
     t0 = time.perf_counter()
     recs["cpu"] = sims["cpu"].run_round()
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    if launched["lora_matmul"] == 0 or launched["flash_attention"] == 0:
-        fail(f"reduced {engine} round launched {launched}")
+    per_fwd = round_per_fwd(cfg, lora)
+    if any(launched[k] == 0 for k, n in per_fwd.items() if n) or any(
+            launched[k] for k, n in per_fwd.items() if not n):
+        fail(f"reduced {cfg.name} {engine} round launched {launched}")
     if plans["cuda"] != plans["cpu"]:
         fail(f"{engine} round card vs CPU: active sets, ranks or "
              f"departures differ")
@@ -1510,9 +1567,12 @@ def round_parity(engine):
     if not (delta < ROUND_TOL and max(rel.values()) < ROUND_TOL):
         fail(f"{engine} round card vs CPU: merged deltas {delta}, {rel}")
     out.update({
-        "config": f"SimConfig(engine={engine!r}) defaults, train arch "
-        f"{cfg.name} ({cfg.num_layers} layers, d {cfg.d_model}, head dim "
-        f"{cfg.resolved_head_dim}), f32", "tol": ROUND_TOL,
+        "config": f"SimConfig(engine={engine!r}"
+        + "".join(f", {k}={v}" for k, v in kw.items() if k != "train_arch")
+        + f") otherwise default, train arch {cfg.name} ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, head dim "
+        f"{(cfg.rwkv.head_dim if cfg.rwkv else cfg.resolved_head_dim)}), "
+        "f32", "tol": ROUND_TOL,
         "merged_delta_rel_err": delta,
         "merged_delta_rel_err_by_leaf": by_leaf,
         "energy_rel_err": rel["energy"], "latency_rel_err": rel["latency"],
@@ -1561,7 +1621,7 @@ def round_groups(sim, round_plans):
 
 
 def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
-                plain=1, arch=None):
+                plain=1, arch=None, params=None):
     """Phases 5b, 5d and 5e: rounds of ``method`` at the full width of
     vit-base-paper on the card under ``engine`` (with ``modes``, a tier
     or semi_sync's SimConfig fields), ``n_profiled`` each under a
@@ -1575,16 +1635,12 @@ def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
     sim = IoVSimulator(SimConfig(
         method=method, engine=engine,
         train_arch=arch or vit_base_paper.vit_base_paper(), **(modes or {})),
-        device="cuda")
+        device="cuda", params=params)
     if hook is not None:
         hook(sim)
     cfg = sim.model_cfg
     nt = sim.cfg.num_tasks
-    # launches of each kernel per forward: one per LoRA linear, one flash
-    # per attention layer
-    per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
-        T.init_adapters(cfg, sim.cfg.lora, rank=2, device="cpu"))),
-        "flash_attention": cfg.num_layers}
+    per_fwd = round_per_fwd(cfg, sim.cfg.lora)
     plans = []
     recording(sim, plans)
     split = split_counts(sim)
@@ -1672,18 +1728,18 @@ def full_rounds(engine, n_profiled, method="ours", hook=None, modes=None,
     if not n_profiled:   # the run's launches are its unprofiled rounds'
         launched = total
         lora_v, flash_v = variant_counts(), flash_variant_counts()
-    for name in ("lora_matmul", "flash_attention"):
-        if total[name] == 0:
-            fail(f"full-width {method} {engine} rounds launched no {name}")
+    for name, n in per_fwd.items():
+        if (total[name] == 0) != (n == 0):
+            fail(f"full-width {cfg.name} {method} {engine} rounds launched "
+                 f"{total[name]} {name}, {n} per forward")
     if variant_counts()["simt"] != total["lora_matmul"] or \
             flash_variant_counts()["simt"] != total["flash_attention"]:
         fail(f"full-width {method} {engine} rounds: f32 launches off the "
              f"simt kernels {variant_counts()} {flash_variant_counts()}")
     return {"engine": engine, "method": method,
             "config": f"{cfg.name}, {cfg.num_layers} layers, d "
-            f"{cfg.d_model}, {cfg.num_heads} heads of "
-            f"{cfg.resolved_head_dim}, f32; SimConfig(method={method!r}, "
-            f"engine={engine!r}"
+            f"{cfg.d_model}, {heads_of(cfg)}, f32; SimConfig(method="
+            f"{method!r}, engine={engine!r}"
             + "".join(f", {k}={v}" for k, v in (modes or {}).items())
             + ") otherwise default",
             "rounds": out, "launches": launched,
@@ -1978,9 +2034,8 @@ def fused_rounds(n_profiled, method="ours", plain=1, modes=None, arch=None):
         train_arch=arch or vit_base_paper.vit_base_paper(), **(modes or {})),
         device="cuda")
     eng, cfg, nt = sim.fused, sim.model_cfg, sim.cfg.num_tasks
-    per_fwd = {"lora_matmul": cfg.num_layers * len(tree_paths(
-        T.init_adapters(cfg, sim.cfg.lora, rank=2, device="cpu"))),
-        "flash_attention": cfg.num_layers}
+    per_fwd = {k: n for k, n in round_per_fwd(cfg, sim.cfg.lora).items()
+               if k != "wkv6"}
     forwards = nt * (sim.cfg.local_steps + 2)
     want = {k: n * forwards for k, n in per_fwd.items()}
     plans = []
@@ -2141,7 +2196,8 @@ def fused_state_diff(got, want, rounds):
     return worst
 
 
-def fused_run(arch, rounds, capture=True, fault=False, modes=None):
+def fused_run(arch, rounds, capture=True, fault=False, modes=None,
+              params=None):
     """``rounds`` fused rounds from one seed on the card (with ``modes``,
     a tier or semi_sync's SimConfig fields): captured and replayed, or
     (``capture=False``) the same functions run eagerly. ``fault`` plants
@@ -2152,7 +2208,7 @@ def fused_run(arch, rounds, capture=True, fault=False, modes=None):
     kw = {} if arch is None else {"train_arch": arch}
     sim = IoVSimulator(SimConfig(method="ours", engine="fused", **kw,
                                  **(modes or {})),
-                       device="cuda")
+                       device="cuda", params=params)
     if not capture:
         sim.fused = FusedRoundEngine(sim, capture=False)
     if fault:
@@ -2239,13 +2295,13 @@ ABLATIONS = ("ours_no_energy", "ours_no_mobility")
 # methods whose full-width batched round runs once, unprofiled, launches
 # held to its groups: the ours family trains ours' groups (5b profiles
 # those), HetLoRA its capability groups (5e profiles them under a tier)
-# 5d's and 5e's full-width rounds run at a quarter of vit-base-paper's
-# depth (full width, 3 of its 12 layers) and 5f's full-width resume at
-# half (DEPTH_5F), to keep the script inside its time limit on a slow
-# host; 5b and 5c run all 12 (5e (a), the reduced ViT card against the
-# CPU, is unchanged)
-DEPTH_5D = 3
-DEPTH_5E = 3
+# 5d's and 5e's full-width rounds run at a sixth of vit-base-paper's
+# depth (full width, 2 of its 12 layers) and 5f's full-width resume at a
+# quarter (DEPTH_5F), to keep the script within 900 s of its 1,200 s
+# limit on a slow host; 5b and 5c run all 12 (5e (a), the reduced ViT
+# card against the CPU, is unchanged)
+DEPTH_5D = 2
+DEPTH_5E = 2
 UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
                  "ours_residual")
 PARITY_ROUNDS = 2
@@ -3656,7 +3712,7 @@ def timed_saves(log):
     return real
 
 
-DEPTH_5F = 6
+DEPTH_5F = 3
 
 
 def full_width_resume(root):
@@ -3950,7 +4006,8 @@ def tenant(cfg, lora, rank, seed, device="cuda", task=0, slot=SLOT):
             return {"a": node["a"], "b": 0.02 * torch.randn(
                 node["b"].shape, generator=g, device=device)}
         return {k: fix(v) for k, v in node.items()}
-    ads = {"segments": [fix(sg) for sg in ads["segments"]]}
+    ads = {k: ([fix(sg) for sg in v] if k == "segments" else fix(v))
+           for k, v in ads.items()}
     return PagedAdapter(task=task, rsu=-1, version=0, rank=rank,
                         slot_rank=slot, scale=lora.alpha / rank,
                         adapters=pad_adapter_tree(ads, slot))
@@ -4073,14 +4130,21 @@ def exhaustion_planted(params, cfg, lora, dtype):
             "message": raised[1][:80]}
 
 
+# 6a and 6b run qwen2-0.5b and vit-base-paper at half depth (full
+# width) since PR 23, to keep the script within 900 s on a slow host
+DEPTH_6A = 12
+DEPTH_6B = 6
+
+
 def phase_6a():
-    """Paged vs dense at qwen2-0.5b's full depth and width in bf16: a
+    """Paged vs dense at qwen2-0.5b's full width (DEPTH_6A of its 24
+    layers) in bf16: a
     churn schedule (admit, retire, re-admit into a recycled lane,
     evict_oldest, a ring wrap) in lockstep, bit-equal; live cache slots
     equal; launches per step; decode time paged against dense; a planted
     exhausted pool."""
     t0 = time.perf_counter()
-    cfg = qwen2_0_5b.qwen2_0_5b()
+    cfg = qwen2_0_5b.qwen2_0_5b().with_overrides(num_layers=DEPTH_6A)
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
     params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     tenants = [tenant(cfg, lora, r, 60 + i) for i, r in
@@ -4096,7 +4160,7 @@ def phase_6a():
                 40: [("retire", 1)],
                 60: [("admit", tenants[4])],     # lane 1: recycled blocks
                 80: [("admit", tenants[5])]}     # full: evicts lane 0
-    per_step = per_layer(cfg)[1]["lora_matmul"] * cfg.num_layers
+    per_step = per_model(cfg)[1]["lora_matmul"]
     reset_counts()
     lanes = lockstep(paged, dense, schedule, STEPS_6A)
     launched, variants = counts(), variant_counts()
@@ -4139,7 +4203,8 @@ def phase_6b(root):
     retire, re-admit and evict_oldest, bit-equal; a foreign config
     refused; the time of the store's one SVD and of a get that hits."""
     t0 = time.perf_counter()
-    arch = vit_base_paper.vit_base_paper()
+    arch = vit_base_paper.vit_base_paper().with_overrides(
+        num_layers=DEPTH_6B)
     sim = preset_sim("dense-rsu", "sync", "batched", 3, arch=arch)
     drive(sim, 3)
     train_s = time.perf_counter() - t0
@@ -4224,7 +4289,7 @@ def phase_6b(root):
                 20: [("retire", 2)],
                 30: [("admit", tenants[4])],
                 40: [("admit", tenants[5])]}
-    per_step = per_layer(arch)[1]["lora_matmul"] * arch.num_layers
+    per_step = per_model(arch)[1]["lora_matmul"]
     reset_counts()
     steps = 80                                   # the 64-slot ring wraps
     lanes = lockstep(paged, dense, schedule, steps)
@@ -4274,7 +4339,8 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens, label="6c"):
             "weights_bytes": sum(x.numel() * x.element_size()
                                  for x in leaves(params)),
             "peak_bytes": torch.cuda.max_memory_allocated() - base}
-    in_prefill, in_step = per_layer(cfg)
+    init["params"] = sum(x.numel() for x in leaves(params))
+    in_prefill, in_step = per_model(cfg)
     prefill = make_prefill_step(cfg, lora, device="cuda")
     ads = tenant(cfg, lora, SLOT, 5).adapters
     g = torch.Generator().manual_seed(6)
@@ -4292,7 +4358,7 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens, label="6c"):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t1) * 1e3
     p_counts, p_var, p_fa = counts(), variant_counts(), flash_variant_counts()
-    want = {k: n * cfg.num_layers for k, n in in_prefill.items()}
+    want = dict(in_prefill)
     if p_counts != want or p_var != {"wgmma": want["lora_matmul"],
                                      "splitk": 0, "simt": 0} \
             or p_fa != {"mma": want["flash_attention"], "simt": 0}:
@@ -4315,7 +4381,7 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens, label="6c"):
     for eng in (paged, dense):
         for lane, x in enumerate(tenants[:4]):
             eng.assign(lane, x)
-    per_step = in_step["lora_matmul"] * cfg.num_layers
+    per_step = in_step["lora_matmul"]
     reset_counts()
     lanes = lockstep(paged, dense, {lock_steps // 2: [
         ("retire", 3), ("admit", tenants[4])]}, lock_steps)
@@ -4372,8 +4438,15 @@ def served_paged(cfg, lock_steps, prompt_len, gen_tokens, label="6c"):
 
 
 def shape_note(cfg):
-    """The MoE / MLA widths of a config, for its printed line."""
+    """The MoE / MLA / SSM widths of a config, for its printed line."""
     note = ""
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        note += (f", Mamba2 SSD {s.expand * cfg.d_model // s.head_dim} "
+                 f"heads of {s.head_dim}, state {s.state_dim}, conv "
+                 f"{s.conv_width}, chunk {s.chunk}; the shared block after "
+                 f"every {cfg.shared_attn_every} layers "
+                 f"({cfg.num_layers // cfg.shared_attn_every} applications)")
     if cfg.mla is not None:
         note += (f", MLA latent {cfg.mla.kv_lora_rank} + rope "
                  f"{cfg.mla.qk_rope_head_dim}, q rank {cfg.mla.q_lora_rank}")
@@ -4494,6 +4567,205 @@ def print_6d(p6d):
     print(f"[6d] phase 6d took {p6d['seconds']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: zamba2-2.7b served, rwkv6 in the round
+# ---------------------------------------------------------------------------
+
+ZAMBA2_PARAMS = 2_422_393_760     # the tree init_params builds at full size
+# phase 3: one shared application (after layer 6) and one remainder layer
+DEPTH_3_ZAMBA2 = 7
+# 7b: the reduced rwkv6 round card vs CPU (seed 1 at 8 vehicles trains
+# two rank groups by its second round), and rwkv6-7b's width at 2 of its
+# 32 layers in the default SimConfig
+RWKV_ROUND_KW = dict(num_vehicles=8, num_tasks=2, local_steps=2, seed=1)
+DEPTH_7B = 2
+# the round's rwkv6 linears at d 4096: the time-mix's four, the
+# channel-mix's up (ck) and down (cv)
+RWKV_LINEARS = (("w_r/w_k/w_v/w_o", 4096, 4096), ("ck", 4096, 14336),
+                ("cv", 14336, 4096))
+
+
+def check_lora_rwkv_round():
+    """f32 lora_matmul at the rwkv6 round's shapes at rwkv6-7b's width: a
+    train step's 240 rows (rank 2, UCB-DUAL's first arm, with the
+    closed-form backward) and a local eval's 768."""
+    rows = []
+    for mode, M, r in (("train", TRAIN_B * TRAIN_S, 2),
+                       ("local eval", 32 * TRAIN_S, 2)):
+        for linear, K, N in RWKV_LINEARS:
+            rows.append(lora_train_row(mode, M, linear, K, N, r,
+                                       model="rwkv6-7b"))
+    return rows
+
+
+def check_wkv_train(cfg):
+    """wkv6 at the round's train step at rwkv6-7b's width (B 10, S 24,
+    64 heads of 64, f32): the kernel's forward against the plain version
+    (y and state relative 1e-5), and one training call, the forward and
+    the backward (autograd of the plain version, as ``_WKV6.backward``
+    runs it), timed beside the plain version's."""
+    f32 = torch.float32
+    B, S = TRAIN_B, TRAIN_S
+    H, K = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+    args = wkv_operands(B, S, H, K, f32, f32, None, 77)
+    y, st = wkv_ops.wkv6(*args)
+    yp, sp = wkv_ops._plain(*args, wkv_ops.CHUNK)
+    rel, s_rel = rel_err(y, yp), rel_err(st, sp)
+    tol = TOL[("wkv6", f32)]
+    if not (rel < tol and s_rel < tol and torch.isfinite(y).all()):
+        fail(f"wkv6 round train: y rel {rel}, state rel {s_rel}")
+    g = torch.Generator(device="cuda").manual_seed(78)
+    gy = torch.randn(y.shape, generator=g, device="cuda")
+    gs = torch.randn(st.shape, generator=g, device="cuda")
+
+    def train(fn):
+        ins = [t.detach().requires_grad_() for t in args]
+        out = fn(*ins)
+        return torch.autograd.grad(out, ins, (gy, gs))
+    got = train(wkv_ops.wkv6)
+    want = train(lambda *a: wkv_ops._plain(*a, wkv_ops.CHUNK))
+    bwd = max(rel_err(a, b) for a, b in zip(got, want))
+    if not bwd < tol:
+        fail(f"wkv6 round train: backward rel {bwd} >= {tol}")
+    n = B * S * H * K
+    b_ms, b_by = wkv_bound(B, S, H, K, 4, 4)
+    # the backward's own work: twice the forward's flops; gy and the
+    # state's gradient read, r, k, v, logw, u read again and their
+    # gradients written
+    bwd_bound = bound(4 * (n + B * H * K * K + 2 * (4 * n + H * K)),
+                      {f32: 10.0 * B * H * S * K * K})[0]
+    vs, vt, grid = wkv_ops.plan(B, H, K, sms())
+    return [{"name": "wkv6", "model": cfg.name, "case": "round train",
+             "mode": "train", "dtype": "float32", "logw_dtype": "float32",
+             "shape": f"B={B} S={S} H={H} K={K}", "yardstick": "wkv6_chunked",
+             "plan": f"VS={vs} VT={vt} grid {grid}",
+             "max_abs_err": maxabs(y, yp), "rel_err": rel,
+             "state_rel_err": s_rel, "bwd_rel_err": bwd, "tol": tol,
+             "ms": timed_ms(lambda: wkv_ops.wkv6(*args)),
+             "plain_ms": timed_ms(
+                 lambda: wkv_ops._plain(*args, wkv_ops.CHUNK)),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "train_ms": timed_ms(lambda: train(wkv_ops.wkv6)),
+             "plain_train_ms": timed_ms(lambda: train(
+                 lambda *a: wkv_ops._plain(*a, wkv_ops.CHUNK))),
+             "bwd_bound_ms": bwd_bound}]
+
+
+def phase_7a():
+    """zamba2-2.7b served at full depth and width in bf16
+    (``served_paged``): 54 Mamba2 layers and 9 applications of the shared
+    block, weights 2,422,393,760 parameters; a 4 x 128 prefill (171
+    lora_matmul launches, all wgmma; 9 flash, all mma, head dim 80);
+    paged == dense through a retire/admit; decode ms/step (171 split-K
+    launches a step)."""
+    run = served_paged(zamba2_2_7b.zamba2_2_7b(), 6, 4, 8, label="7a")
+    if run["init"]["params"] != ZAMBA2_PARAMS:
+        fail(f"7a zamba2-2.7b holds {run['init']['params']} parameters, "
+             f"want {ZAMBA2_PARAMS}")
+    return run
+
+
+def phase_7b():
+    """rwkv6 as the round's train_arch. (1) The reduced rwkv6 round card
+    against CPU under serial, batched and fused (5a's gates: plans and
+    counts exact; energy, latency and merged deltas within 1e-4; wkv6
+    launched, flash not). (2) rwkv6-7b's width at 2 of its 32 layers in
+    the default SimConfig: one batched round (launches equal to its
+    groups' prediction, wkv6 once per layer and forward) and two fused
+    rounds (the first run eagerly and captured, the second a replay;
+    launches at the eager run and the capture as predicted), equal to
+    the same two rounds run eagerly within 1e-6."""
+    t0 = time.perf_counter()
+    par = {e: round_parity(e, rwkv6_7b.reduced(), **RWKV_ROUND_KW)
+           for e in ("serial", "batched", "fused")}
+    full = rwkv6_7b.rwkv6_7b()
+    arch = full.with_overrides(num_layers=DEPTH_7B,
+                               block_pattern=full.blocks()[:DEPTH_7B])
+    params = T.init_params(arch, seed=0, dtype=torch.float32, device="cuda")
+    batched = full_rounds("batched", 0, plain=1, arch=arch, params=params)
+    batched.pop("_state")
+    release()
+    per_fwd = round_per_fwd(arch, SimConfig().lora)
+    forwards = SimConfig().num_tasks * (SimConfig().local_steps + 2)
+    want = {k: 2 * n * forwards for k, n in per_fwd.items()}
+    runs, launched = {}, {}
+    for name, capture in (("captured", True), ("eager", False)):
+        release()
+        reset_counts()
+        t1 = time.perf_counter()
+        runs[name] = fused_run(arch, 2, capture=capture, params=params)
+        torch.cuda.synchronize()
+        launched[name] = dict(counts(), seconds=time.perf_counter() - t1,
+                              lora_matmul_variants=variant_counts(),
+                              flash_attention_variants=flash_variant_counts())
+        if {k: launched[name][k] for k in want} != want:
+            fail(f"7b {arch.name} fused {name}: launches {launched[name]}, "
+                 f"{want} predicted (two runs of {forwards} forwards)")
+        for rec in runs[name]["recs"]:
+            if not (np.isfinite(rec["energy"])
+                    and np.isfinite(rec["accuracy"])):
+                fail(f"7b {arch.name} fused {name}: not finite")
+    diff = fused_state_diff(runs["captured"], runs["eager"], 2)
+    if not diff <= REPLAY_TOL:
+        fail(f"7b {arch.name} fused replay vs eager: {diff} > {REPLAY_TOL}")
+    del runs, params
+    release()
+    return {"parity": par, "batched": batched, "fused_launches": launched,
+            "fused_predicted": want, "replay_vs_eager": diff,
+            "config": f"{arch.name}, {DEPTH_7B} of {full.num_layers} layers,"
+            f" d {arch.d_model}, {arch.d_model // arch.rwkv.head_dim} wkv "
+            f"heads of {arch.rwkv.head_dim}, f32; SimConfig() otherwise "
+            "default", "seconds": time.perf_counter() - t0}
+
+
+def print_7(p7a, p7b):
+    c = p7a
+    p, d = c["prefill"], c["decode"]
+    print(f"[7a] {c['config']}: {c['init']['params']:,} parameters, init "
+          f"{c['init']['s']:.1f} s, weights "
+          f"{c['init']['weights_bytes'] / 2**30:.2f} GiB, init peak "
+          f"{c['init']['peak_bytes'] / 2**30:.2f} GiB, run peak "
+          f"{c['peak_bytes'] / 2**30:.2f} GiB; prefill 4x{p['seq']} "
+          f"{p['ms']:.2f} ms, launches {p['launches']} (lora_matmul "
+          f"{p['lora_matmul_variants']}, flash "
+          f"{p['flash_attention_variants']}); paged == dense over "
+          f"{c['lockstep_steps']} steps with a retire/admit; paged decode "
+          f"{d['steps']} steps x 4 lanes {d['ms_per_step']:.2f} ms/step, "
+          f"{d['lane_tokens_per_s']:.1f} lane-tok/s, launches per step "
+          f"{d['launches_per_step']} (split-K); allocator "
+          f"{c['allocator']}; {c['seconds']:.1f} s", flush=True)
+    for engine, p5 in p7b["parity"].items():
+        print(f"[7b] {p5['config']}, card vs CPU: one round: ranks "
+              f"{p5['ranks']}, active {p5['active']} equal, merged deltas "
+              f"rel {p5['merged_delta_rel_err']:.3g}, energy rel "
+              f"{p5['energy_rel_err']:.3g}, latency rel "
+              f"{p5['latency_rel_err']:.3g} (tol {ROUND_TOL}); round "
+              f"{p5['card_round_ms']:.0f} ms on the card, "
+              f"{p5['cpu_round_ms']:.0f} ms on the CPU; launches "
+              f"{p5['launches']}"
+              + (f"; captures {p5['captures']}" if p5["captures"] else ""),
+              flush=True)
+    b = p7b["batched"]
+    up = b["unprofiled_round"]
+    print(f"[7b] {b['config']}: one batched round (unprofiled) wall "
+          f"{up['wall_ms']:.1f} ms, peak memory "
+          f"{up['peak_memory_bytes'] / 2**30:.2f} GiB, groups (task, rank, "
+          f"lanes, steps) {up['groups_each'][0]}, launches "
+          f"{b['launches']} = the groups' prediction; energy "
+          f"{up['energy']:.2f} J, accuracy {up['accuracy']:.4f}",
+          flush=True)
+    for name, n in p7b["fused_launches"].items():
+        print(f"[7b] {p7b['config']}: fused, two rounds {name} in "
+              f"{n['seconds']:.1f} s, launches "
+              f"{ {k: n[k] for k in p7b['fused_predicted']} } (predicted "
+              f"{p7b['fused_predicted']}: the first round's eager run and "
+              f"{'the capture' if name == 'captured' else 'the second'})",
+              flush=True)
+    print(f"[7b] fused replay vs eager over 2 rounds: "
+          f"{p7b['replay_vs_eager']:.3g} (tol {REPLAY_TOL}); phase 7b took "
+          f"{p7b['seconds']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -4504,6 +4776,15 @@ def main() -> int:
     card = smi()
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    seconds = {}
+    lap = [time.perf_counter()]
+
+    def took(phase):
+        """Print and keep the seconds since the last phase ended."""
+        now = time.perf_counter()
+        seconds[phase] = now - lap[0]
+        lap[0] = now
+        print(f"[t] phase {phase} took {seconds[phase]:.1f} s", flush=True)
     t0 = time.perf_counter()
     secs = _build.build()
     print(f"[1] built {sorted(secs)} in {time.perf_counter() - t0:.2f}s "
@@ -4519,6 +4800,7 @@ def main() -> int:
     print("[1] dynamic shared memory per block: " + "; ".join(
         f"{k} {v} B" for k, v in smem.items()), flush=True)
     lora = LoRAConfig(rank=SLOT, max_rank=SLOT)
+    took("1")
     rows = []
     for cfg in (qwen, rwkv):
         for dtype in (torch.bfloat16, torch.float32):
@@ -4547,7 +4829,17 @@ def main() -> int:
     for cfg in (gemma, pali, musicgen, grok, deepseek):
         rows += check_lora(cfg, torch.bfloat16, list(arch_lora_cases(
             cfg, 4 * (cfg.num_prefix_embeds + 128))))
+    # phase 7a's zamba2-2.7b: flash at head dim 80 in both dtypes at its
+    # prefill (32 heads on 32), and every distinct lora_matmul shape of
+    # its prefill and decode (mamba in_proj 2560 -> 10448 and out_proj;
+    # the shared block's q/k/v/o, up/gate and down)
+    zamba = zamba2_2_7b.zamba2_2_7b()
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += check_flash(zamba, dtype, (128,))
+    rows += check_lora(zamba, torch.bfloat16, list(arch_lora_cases(zamba)))
     rows += check_wkv(rwkv)
+    # phase 7b's rwkv6 round: wkv6 forward and backward at a train step
+    rows += check_wkv_train(rwkv)
     steps = wkv_chunk_steps(rwkv)
     for r in rows:
         lib = ("none" if r["library_ms"] is None
@@ -4561,6 +4853,12 @@ def main() -> int:
                     f"{r['tflops']:.1f} TFLOP/s, {r['vs_library']:.2f}x SDPA")
         if r["name"] == "wkv6":
             rel += f", logw {r['logw_dtype']}, {r['plan']}"
+        if "train_ms" in r:
+            rel += (f"; forward + backward (autograd of the plain version) "
+                    f"{r['train_ms']:.4f} ms, all plain "
+                    f"{r['plain_train_ms']:.4f} ms, backward bound "
+                    f"{r['bwd_bound_ms']:.4f} ms, backward rel "
+                    f"{r['bwd_rel_err']:.3g}")
         if r["name"] == "lora_matmul":
             rel += (f", {r['variant']}: kernel alone {r['kernel_ms']:.4f} ms"
                     f" ({r['kernel_tflops']:.1f} TFLOP/s, "
@@ -4580,7 +4878,9 @@ def main() -> int:
               f"{st['us_per_chunk_step']:.3f} us (S 64 {st['ms_S64']:.4f} "
               f"ms, S 1024 {st['ms_S1024']:.4f} ms)", flush=True)
 
-    train_rows = check_lora_train() + check_flash_train()
+    # the rwkv6 round's f32 lora_matmul shapes at rwkv6-7b's width (7b)
+    train_rows = (check_lora_train() + check_flash_train()
+                  + check_lora_rwkv_round())
     for r in train_rows:
         extra = (f", kernel alone {r['kernel_ms']:.4f} ms"
                  if r["name"] == "lora_matmul" else f", {r['block']}")
@@ -4596,6 +4896,7 @@ def main() -> int:
               f"ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"({r['bound_by']}){extra}", flush=True)
+    took("2")
 
     pars = [parity(qwen, lora, 64), parity(rwkv, lora, 100),
             parity(smollm, lora, 64), parity(starcoder, lora, 32)]
@@ -4607,11 +4908,15 @@ def main() -> int:
              parity(musicgen, lora, 64),
              parity(grok, lora, 16, layers=1, steps=1),
              parity(deepseek, lora, 16, layers=1, steps=1)]
+    # zamba2-2.7b at 7 layers: one shared application and one remainder
+    # layer; a retire/admit after step 3 (a fresh SSM and conv state)
+    pars.append(parity(zamba, lora, 64, layers=DEPTH_3_ZAMBA2, steps=6))
     for par in pars:
         print(f"[3] {par['config']}: prefill max abs "
               f"{par['prefill_max_abs_err']:.3g}, decode max abs "
               f"{par['decode_max_abs_err']:.3g} over {par['decode_steps']} "
               f"steps (tol {E2E_TOL})", flush=True)
+    took("3")
 
     # each path is driven with the counts set to 0 just before it and
     # read just after (inside served)
@@ -4636,6 +4941,7 @@ def main() -> int:
                   + "; ".join(f"{t['kernel'][:40]} {t['ms']:.3f} ms "
                               f"x{t['count']}" for t in tr["top"][:4]),
                   flush=True)
+    took("4")
 
     # the round: each path driven with the counts set to 0 just before
     # it and read just after (inside round_parity and full_rounds)
@@ -4776,12 +5082,16 @@ def main() -> int:
           f"{replay['planted_unrefreshed_input']:.3g}, fails the gate",
           flush=True)
 
+    took("5a-5c")
     p5d = phase_5d()
     print_5d(p5d)
+    took("5d")
     p5e = phase_5e(limit)
     print_5e(p5e)
+    took("5e")
     p5f = phase_5f()
     print_5f(p5f)
+    took("5f")
     # serving, the rest: each path driven with the counts set to 0 just
     # before it and read just after (lockstep, timed_generate,
     # served_paged)
@@ -4789,6 +5099,14 @@ def main() -> int:
     print_6(p6)
     p6d = phase_6d()
     print_6d(p6d)
+    took("6")
+    # zamba2-2.7b served and rwkv6 in the round: each path driven with
+    # the counts set to 0 just before it and read just after (inside
+    # served_paged, round_parity, full_rounds and phase_7b)
+    p7a = phase_7a()
+    p7b = phase_7b()
+    print_7(p7a, p7b)
+    took("7")
     serve6 = [("qwen2-0.5b paged and dense engines in lockstep, churn "
                "(6a)", {"launches": p6["a"]["lockstep_launches"],
                         "lora_matmul_variants":
@@ -4800,7 +5118,7 @@ def main() -> int:
     serve6.append(("vit-base-paper store-served paged and dense engines "
                    "in lockstep (6b)", p6["b"]))
     for c, label in ([(c, "6c") for c in p6["c"]]
-                     + [(c, "6d") for c in p6d["runs"]]):
+                     + [(c, "6d") for c in p6d["runs"]] + [(p7a, "7a")]):
         serve6.append((f"{c['model']} prefill and paged generate ({label})",
                        c))
         serve6.append((f"{c['model']} paged and dense engines in lockstep "
@@ -4921,7 +5239,17 @@ def main() -> int:
                   + list(p5d["batched"].values())
                   + list(p5d["fused"].values())
                   + list(p5e["batched"].values())
-                  + list(p5e["fused"].values()))
+                  + list(p5e["fused"].values())
+                  + list(p7b["parity"].values()) + [p7b["batched"]]
+                  + list(p7b["fused_launches"].values()))
+    # phase 7b's round paths, the only ones with wkv6 in them
+    rwkv_paths = {f"rwkv6-7b-reduced {e} round (7b)": p["launches"]
+                  for e, p in p7b["parity"].items()}
+    rwkv_paths[f"rwkv6-7b ({DEPTH_7B} layers) batched round (7b)"] = \
+        p7b["batched"]["launches"]
+    for name, n in p7b["fused_launches"].items():
+        rwkv_paths[f"rwkv6-7b ({DEPTH_7B} layers) 2 fused rounds, {name} "
+                   f"(7b)"] = n
 
     # the kernels line: one entry per kernel at a main-path shape
     # (lora_matmul: qwen2-0.5b's up/gate prefill in bf16; flash: S = 128
@@ -4940,6 +5268,7 @@ def main() -> int:
         if name != "wkv6":
             by_path.update({p: c[name] for p, c in round_paths.items()})
             by_path.update({p: r["launches"][name] for p, r in serve6})
+        by_path.update({p: c[name] for p, c in rwkv_paths.items()})
         extra = {}
         if name == "lora_matmul":
             extra["launches_by_variant"] = {
@@ -4985,7 +5314,9 @@ def main() -> int:
                    "full_batched_vs_serial": agree,
                    "full_group_budgets": g, "methods": p5d,
                    "modes": p5e, "resume_and_presets": p5f,
-                   "serving_rest": p6, "serving_archs": p6d}, fh, indent=1)
+                   "serving_rest": p6, "serving_archs": p6d,
+                   "zamba2_served": p7a, "rwkv6_round": p7b,
+                   "phase_seconds": seconds}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -2,8 +2,8 @@
 
 The port imports nothing from ``repro``, so it keeps its own copies of
 the pieces of ``repro/config.py`` the ported slices read: the block-kind
-constants, :class:`MoEConfig`, :class:`MLAConfig`, :class:`RWKVConfig`,
-:class:`ModelConfig`, :class:`LoRAConfig`,
+constants, :class:`MoEConfig`, :class:`MLAConfig`, :class:`SSMConfig`,
+:class:`RWKVConfig`, :class:`ModelConfig`, :class:`LoRAConfig`,
 :class:`ServeSpec`, the federated round's configs (:class:`UCBDualConfig`,
 :class:`EnergyAllocConfig`, :class:`MobilityConfig`) and scenario specs
 (:class:`TraceSpec`, :class:`OutageSpec`, :class:`RSUTierSpec`,
@@ -11,8 +11,7 @@ constants, :class:`MoEConfig`, :class:`MLAConfig`, :class:`RWKVConfig`,
 and the ``--arch`` registry. Each keeps the reference's names, defaults
 and validation for the fields it has. :class:`ModelConfig` has all of the
 reference's fields, so that a config's checkpoint fingerprint is the
-reference's; the SSM sub-config and shared attention (zamba2) stay at
-their defaults (another value raises until item 11).
+reference's.
 :class:`ServeSpec` leaves out the reference's ``donate`` (JAX buffer
 donation), which has no torch counterpart. The simulator refuses the
 shardings it does not run yet.
@@ -21,20 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
-# Block kinds understood by models/transformer.py (all but BLOCK_MAMBA2
-# and BLOCK_SHARED_ATTN are ported)
+# Block kinds understood by models/transformer.py
 BLOCK_ATTN = "attn"          # full (GQA/MQA) attention + MLP
 BLOCK_MLA = "mla"            # DeepSeek-style multi-head latent attention + MLP/MoE
 BLOCK_MAMBA2 = "mamba2"      # Mamba2 (SSD) block
 BLOCK_RWKV6 = "rwkv6"        # RWKV6 time-mix + channel-mix
 BLOCK_SHARED_ATTN = "shared_attn"  # Zamba2 shared transformer block
-
-
-# ModelConfig's fields that only the unported architecture (zamba2) sets,
-# with the reference's defaults
-_UNPORTED_FIELDS = (("shared_attn_every", 0), ("ssm", None))
 
 
 @dataclass(frozen=True)
@@ -55,6 +48,16 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) configuration."""
+    state_dim: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128
 
 
 @dataclass(frozen=True)
@@ -82,13 +85,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     logits_softcap: float = 0.0
     block_pattern: Optional[Tuple[str, ...]] = None   # None -> all BLOCK_ATTN
-    shared_attn_every: int = 0       # zamba2's shared attention (item 11)
+    shared_attn_every: int = 0       # zamba2: shared attn every k mamba blocks
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    # the reference's SSM sub-config: kept at its default so that
-    # dataclasses.asdict, and with it a SimConfig's checkpoint
-    # fingerprint, equals the reference's
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # modality frontends are stubs, as in the reference: the caller
     # hands num_prefix_embeds embeddings of width d_model to forward
@@ -97,15 +97,6 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     source: str = ""
     dtype: str = "bfloat16"
-
-    def __post_init__(self):
-        unported = {k: getattr(self, k) for k, default in _UNPORTED_FIELDS
-                    if getattr(self, k) != default}
-        if unported:
-            raise NotImplementedError(
-                f"{self.name}: {unported} needs zamba2's Mamba2 and shared "
-                "attention blocks, which the port has not taken over yet "
-                "(ROADMAP Queue 1, item 11)")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -131,7 +122,10 @@ class ModelConfig:
         """Approximate parameter counts, total and active per token: the
         reference's, line for line, faults included (ROADMAP Queue 3,
         fault 5: grok-1-314b's non-gated ``gelu`` experts count two
-        matrices each, so its total comes out at 213 B, not 314 B)."""
+        matrices each, so its total comes out at 213 B, not 314 B;
+        fault 7: zamba2's shared attention block is not counted, so
+        zamba2-2.7b's total comes out at 2,315,960,320 where its tree
+        holds 2,422,393,760)."""
         d, f = self.d_model, self.d_ff
         hd = self.resolved_head_dim if self.num_heads > 0 else 0
         nq, nkv = self.num_heads, self.num_kv_heads
@@ -165,6 +159,14 @@ class ModelConfig:
                 else:
                     total += attn + per_mlp
                     active += attn + per_mlp
+            elif kind == BLOCK_MAMBA2:
+                s = self.ssm
+                d_in = s.expand * d
+                # in_proj: d -> 2*d_in + 2*state + heads ; out_proj: d_in -> d
+                nheads = d_in // s.head_dim
+                blk = d * (2 * d_in + 2 * s.state_dim + nheads) + d_in * d
+                total += blk
+                active += blk
             elif kind == BLOCK_RWKV6:
                 r = self.rwkv
                 tm = d * d * 4 + d * r.gate_lora * 2 + d * r.decay_lora * 2
@@ -172,9 +174,7 @@ class ModelConfig:
                 total += tm + cm
                 active += tm + cm
             else:
-                raise NotImplementedError(
-                    f"{self.name}: the port does not count the params of "
-                    f"{kind!r} blocks (ROADMAP Queue 1, item 11)")
+                raise ValueError(kind)
             if kind == BLOCK_ATTN and self.moe is not None:
                 # MoE replaces the dense MLP (grok-style): undo + add experts
                 total -= per_mlp

@@ -1,6 +1,5 @@
 """Architecture registry of the port: importing this package populates
-repro_torch.config._REGISTRY. Only the archs whose block kinds the port
-runs are here (zamba2-2.7b is not, ROADMAP Queue 1, item 11)."""
+repro_torch.config._REGISTRY with every arch the reference defines."""
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     gemma_7b,
@@ -12,4 +11,5 @@ from repro_torch.configs import (  # noqa: F401
     smollm_135m,
     starcoder2_15b,
     vit_base_paper,
+    zamba2_2_7b,
 )

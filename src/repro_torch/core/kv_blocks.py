@@ -25,9 +25,9 @@ tenant's positions; its stale K/V values are unreachable behind the
 mask, and masked slots contribute exact zeros through the softmax, so
 paged decode gives the dense engine's bits.
 
-Only ring-buffer caches page: attention's k/v/pos and MLA's latent
-c_kv/k_rope/pos. Recurrent state (rwkv6) is O(1) per lane and stays a
-dense per-lane carry.
+Only ring-buffer caches page: attention's k/v/pos, MLA's latent
+c_kv/k_rope/pos and zamba2's shared-attention rings. Recurrent state
+(rwkv6, mamba2) is O(1) per lane and stays a dense per-lane carry.
 
 Pools, tables and lane caches are torch tensors updated IN PLACE
 (:func:`scatter_written`, :func:`release_blocks`), so the serve engine's
@@ -188,22 +188,31 @@ Slot = Tuple
 def paged_slots(cfg: ModelConfig) -> List[Slot]:
     """Tree addresses of the ring-buffer (position-indexed) caches in
     ``transformer.init_caches(cfg, ...)`` order: the attention and MLA
-    segments. Recurrent-state segments carry no ``pos`` ring and stay
-    dense."""
+    segments, plus zamba2's shared block (``("shared_attn",)``, its
+    rings stacked over the applications as a layer axis). Recurrent-state
+    segments carry no ``pos`` ring and stay dense."""
     from repro_torch.models.transformer import segments_of
-    return [("segments", i) for i, (kind, _) in enumerate(segments_of(cfg))
-            if kind in (BLOCK_ATTN, BLOCK_MLA)]
+    slots: List[Slot] = [("segments", i)
+                         for i, (kind, _) in enumerate(segments_of(cfg))
+                         if kind in (BLOCK_ATTN, BLOCK_MLA)]
+    if cfg.shared_attn_every:
+        slots.append(("shared_attn",))
+    return slots
 
 
 def get_slot(caches: Dict, slot: Slot):
-    return caches["segments"][slot[1]]
+    return (caches["segments"][slot[1]] if slot[0] == "segments"
+            else caches["shared_attn"])
 
 
 def _set_slot(caches: Dict, slot: Slot, value) -> Dict:
     out = dict(caches)
-    segs = list(out["segments"])
-    segs[slot[1]] = value
-    out["segments"] = segs
+    if slot[0] == "segments":
+        segs = list(out["segments"])
+        segs[slot[1]] = value
+        out["segments"] = segs
+    else:
+        out["shared_attn"] = value
     return out
 
 

@@ -58,6 +58,7 @@ from repro_torch.config import LoRAConfig, ModelConfig
 from repro_torch.core.cache import IdentityLRU
 from repro_torch.core.lora import tree_rank
 from repro_torch.data.pipeline import ClientDataset
+from repro_torch.federated.client import refuse_unstacked_adapters
 from repro_torch.interop import tree_map
 from repro_torch.models import transformer as T
 from repro_torch.models.runmode import resolve_device
@@ -166,6 +167,7 @@ class BatchedLocalTrainer:
         for rank-padded lanes at their own ranks. Returns (adapters,
         opt_state, metrics) with (V,) metrics, all detached; the caller
         freezes lanes past their budget."""
+        refuse_unstacked_adapters(self.cfg)
         lora_r = self._lora_at(tree_rank(adapters))
         ad = tree_map(lambda t: t.detach().requires_grad_(True), adapters)
         loss, metrics = T.loss_fn(params, ad, self.cfg, lora_r, batch,

@@ -27,6 +27,21 @@ from repro_torch.optim import adam, apply_updates
 from repro_torch.optim.adam import leaves, unflatten
 
 
+def refuse_unstacked_adapters(cfg: ModelConfig) -> None:
+    """The serial and batched trainers multiply the FedRA layer mask,
+    reshaped (L, 1, ...), into every adapter gradient. zamba2's shared
+    block's adapters have no layer axis, and the reference's trainers
+    fail on them (ROADMAP Queue 3, fault 8); the port refuses before a
+    broadcast can go wrong, or silently right where L equals a width."""
+    if cfg.shared_attn_every:
+        raise ValueError(
+            f"{cfg.name}: the serial and batched trainers multiply the "
+            "FedRA layer mask into every adapter gradient, and zamba2's "
+            "shared attention adapters have no layer axis; the reference "
+            "fails there too (repro/federated/client.py:44-46, "
+            "batched_client.py:185; ROADMAP Queue 3, fault 8)")
+
+
 class LocalTrainer:
     def __init__(self, cfg: ModelConfig, lora: LoRAConfig, lr: float = 1e-3,
                  device="cuda"):
@@ -50,6 +65,7 @@ class LocalTrainer:
         """One local update. batch: tensors from :meth:`_batch`;
         layer_mask: (L,) multipliers of each leaf's leading layer axis.
         Returns (adapters, opt_state, metrics) with detached tensors."""
+        refuse_unstacked_adapters(self.cfg)
         lora_r = self._lora_at(tree_rank(adapters))
         ad = tree_map(lambda t: t.detach().requires_grad_(True), adapters)
         loss, metrics = T.loss_fn(params, ad, self.cfg, lora_r, batch)

@@ -71,7 +71,8 @@ eagerly and the capture follows it: the buffer is too large to
 snapshot for a warm-up that is put back.
 
 Not ported (raises ``NotImplementedError``): the sharded fleet (ROADMAP
-Queue 1, item 12).
+Queue 1, item 12) and zamba2 as ``train_arch`` (item 11, "zamba2 in the
+fused round").
 """
 from __future__ import annotations
 
@@ -160,6 +161,10 @@ class FusedRoundEngine:
         if not cfg.shard.trivial:
             raise NotImplementedError(
                 f"the sharded fleet is not ported yet ({SHARD_ITEM})")
+        if sim.model_cfg.shared_attn_every:
+            raise NotImplementedError(
+                f"{sim.model_cfg.name} in the fused round is not ported yet "
+                "(ROADMAP Queue 1, item 11: zamba2 in the fused round)")
         self.sim = sim
         self.cfg = cfg
         self.spec = METHODS[cfg.method]

@@ -59,6 +59,15 @@
 // tiles is (64 + 4·64) rows x 264 x 2 B = 168,960 B, one block per SM,
 // inside the 227 KB opt-in; fa_kernel's is 102,528 B.
 //
+// Head dim 80 (zamba2-2.7b's shared block) runs on both. In
+// fa_mma_kernel a row is 10 16-byte chunks (CH 10), Q·Kᵀ takes 5 k-steps
+// and P·V 10 n8 tiles (five ldmatrix.x4.trans); none of these loops needs
+// a power of two. Its rows are padded to 88 elements, a 176-byte stride
+// (44 words): the 8 rows of an ldmatrix phase start at banks 0, 12, 24,
+// 4, 16, 28, 8, 20, so their 16-byte reads stay free of conflicts. In
+// fa_kernel a lane holds columns lane, lane + 32 and lane + 64; the
+// last group is half used (lanes 16 .. 31 hold no column there).
+//
 // Head dim 16 (the reduced ViT's) runs on both: in fa_mma_kernel Q·Kᵀ
 // is one m16n8k16 k-step and P·V two n8 tiles (one ldmatrix.x4.trans),
 // with 32-byte rows padded to 48 bytes, whose 8-row ldmatrix phases
@@ -530,6 +539,7 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
+    case 80: return launch<80>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -543,6 +553,7 @@ int dispatch_mma(int D, const void* q, const void* k, const void* v, void* o,
     case 16: return launch_mma<16>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 32: return launch_mma<32>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 64: return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
+    case 80: return launch_mma<80>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 128: return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     case 256: return launch_mma<256>(q, k, v, o, B, Sq, Sk, H, Hkv, sm_scale, causal, window, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -579,6 +590,7 @@ extern "C" int flash_attention_smem_bytes(int variant, int D, int tiles) {
     case 16: return (int)(variant ? mma_smem_bytes<16>(tiles) : smem_bytes<16>());
     case 32: return (int)(variant ? mma_smem_bytes<32>(tiles) : smem_bytes<32>());
     case 64: return (int)(variant ? mma_smem_bytes<64>(tiles) : smem_bytes<64>());
+    case 80: return (int)(variant ? mma_smem_bytes<80>(tiles) : smem_bytes<80>());
     case 128: return (int)(variant ? mma_smem_bytes<128>(tiles) : smem_bytes<128>());
     case 256: return (int)(variant ? mma_smem_bytes<256>(tiles) : smem_bytes<256>());
     default: return 0;

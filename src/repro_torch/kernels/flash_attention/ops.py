@@ -34,7 +34,7 @@ launches_by_variant = {"mma": 0, "simt": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _VARIANTS = {"simt": 0, "mma": 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _lib = None
 
 

@@ -23,14 +23,17 @@ attention caches live in shared pools behind a
 block as their streams lengthen, and ``retire``/``reset_lane`` return
 blocks to the free list for the next admission. Pools and the device
 copy of the block tables have fixed shapes and are updated in place, so
-churn never reallocates them. Recurrent state (rwkv6) stays a per-lane
-dense carry, so a paged rwkv6 engine has no pools and decodes as the
-dense one does.
+churn never reallocates them. Recurrent state (rwkv6, mamba2) stays a
+per-lane dense carry, so a paged rwkv6 engine has no pools and decodes
+as the dense one does; a paged zamba2 engine pages only its shared
+block's rings. Prefill fills no recurrent state (neither does the
+reference's), which is why the engine teacher-forces prompts.
 
 CLI (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --block-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu --block-size 16
 """
 from __future__ import annotations
 
@@ -110,7 +113,9 @@ class ServeEngine:
     zero scale — exact base-model decode.
 
     Adapter leaves are stored (n_layers, max_batch, ...), so each layer's
-    lane batch is one contiguous operand of the ``lora_matmul`` kernel.
+    lane batch is one contiguous operand of the ``lora_matmul`` kernel;
+    zamba2's shared block's (unstacked) leaves are stored (max_batch,
+    ...).
     Decode sends the per-lane scales and an all-ones rank mask as kernel
     operands (the slots' zero tails already make padding exact).
 
@@ -136,9 +141,13 @@ class ServeEngine:
         zero = tree_map(torch.zeros_like, T.init_adapters(
             cfg, self._slot_lora, device=self.device))
         self._zero_adapter = zero
-        self._adapters = tree_map(lambda x: torch.zeros(
+        self._adapters = {"segments": tree_map(lambda x: torch.zeros(
             x.shape[:1] + (B,) + x.shape[1:], dtype=x.dtype,
-            device=x.device), zero)
+            device=x.device), zero["segments"])}
+        if "shared_attn" in zero:
+            self._adapters["shared_attn"] = tree_map(lambda x: torch.zeros(
+                (B,) + x.shape, dtype=x.dtype, device=x.device),
+                zero["shared_attn"])
         self._scales = torch.zeros(B, dtype=torch.float32, device=self.device)
         self._mask = torch.ones((B, self.slot_rank), dtype=torch.float32,
                                 device=self.device)
@@ -178,7 +187,10 @@ class ServeEngine:
     def _write_lane(self, lane: int, tree) -> None:
         def put(full, one):
             full[:, lane].copy_(one)
-        _zip_apply(self._adapters, tree, put)
+        _zip_apply(self._adapters["segments"], tree["segments"], put)
+        if "shared_attn" in self._adapters:
+            _zip_apply(self._adapters["shared_attn"], tree["shared_attn"],
+                       lambda full, one: full[lane].copy_(one))
 
     def assign(self, lane: int, paged: PagedAdapter, *,
                reset: bool = True) -> None:

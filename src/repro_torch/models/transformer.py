@@ -1,8 +1,12 @@
-"""Decoder model of the port: ``attn``, ``mla`` and ``rwkv6`` segments,
-with a dense MLP or a mixture of experts.
+"""Decoder model of the port: ``attn``, ``mla``, ``mamba2`` and ``rwkv6``
+segments, with a dense MLP or a mixture of experts, and zamba2's shared
+attention block.
 
 Port of ``repro/models/transformer.py`` for GQA/MQA decoders (dense or
-MoE, grok-style), DeepSeek-V2's MLA + MoE blocks and RWKV6 stacks. A VLM's
+MoE, grok-style), DeepSeek-V2's MLA + MoE blocks, RWKV6 stacks and
+zamba2's Mamba2 stack, whose one shared transformer block (unstacked
+params and adapters, ``params["shared_attn"]``) runs after every
+``shared_attn_every`` mamba layers and not after the remainder. A VLM's
 or an audio model's frontend is a stub, as in the reference: the caller
 hands ``prefix_embeds`` (B, P, d) to :func:`forward` / :func:`loss_fn`,
 and they are prepended to the token embeddings. The tree layout is the
@@ -21,9 +25,6 @@ Public API:
                       pools, tables, position)
     init_caches(cfg, batch, cache_len, dtype, device)
     loss_fn(params, adapters, cfg, lora, batch)       -> (loss, metrics)
-
-zamba2's block kinds (``mamba2`` and its shared attention) raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,10 +33,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import (BLOCK_ATTN, BLOCK_MLA, BLOCK_RWKV6,
-                                LoRAConfig, ModelConfig)
+from repro_torch.config import (BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLA,
+                                BLOCK_RWKV6, LoRAConfig, ModelConfig)
 from repro_torch.core import lora as lora_lib
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
@@ -57,14 +59,6 @@ def segments_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
         else:
             segs.append((kind, 1))
     return segs
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    kinds = sorted(set(cfg.blocks()) - {BLOCK_ATTN, BLOCK_MLA, BLOCK_RWKV6})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs 'attn', 'mla' and 'rwkv6' blocks, "
-            f"not {kinds} (ROADMAP Queue 1, item 11)")
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -93,6 +87,14 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, layers: int
                                  gen.device),
             "rwkv": rwkv_lib.init_rwkv6(gen, cfg, dtype, layers=layers),
         }
+    if kind == BLOCK_MAMBA2:
+        return {
+            "norm": _stack_norm(cfg.norm, cfg.d_model, dtype, layers,
+                                gen.device),
+            "mamba": mamba_lib.init_mamba2(gen, cfg, dtype, layers=layers),
+        }
+    if kind not in (BLOCK_ATTN, BLOCK_MLA):
+        raise ValueError(kind)
     p = {"norm1": _stack_norm(cfg.norm, cfg.d_model, dtype, layers,
                               gen.device)}
     if kind == BLOCK_MLA:
@@ -111,7 +113,6 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, layers: int
 def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
                 device="cuda") -> Dict:
     """Seeded random weights in the reference's tree layout."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -121,6 +122,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, dtype=None,
         "segments": [_init_block(gen, kind, cfg, dtype, n)
                      for kind, n in segments_of(cfg)],
     }
+    if cfg.shared_attn_every:
+        # zamba2: one shared transformer block (unstacked), reused
+        params["shared_attn"] = {
+            "norm1": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+            "attn": attn_lib.init_attention(gen, cfg, dtype),
+            "norm2": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+            "mlp": mlp_lib.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                    cfg.activation, dtype),
+        }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal_init(
             gen, (cfg.d_model, cfg.vocab_size), dtype=dtype)}
@@ -172,7 +182,25 @@ def _lora_targets(kind: str, cfg: ModelConfig, lora: LoRAConfig):
         if (lora.target_mlp and cfg.moe is not None
                 and cfg.moe.num_shared_experts):
             t += _mlp_targets(("moe", "shared"), cfg, shared_moe=True)
+    elif kind == BLOCK_MAMBA2:
+        s = cfg.ssm
+        d_in = s.expand * d
+        proj_out = 2 * d_in + 2 * s.state_dim + d_in // s.head_dim
+        t += [(("mamba", "in_proj"), d, proj_out),
+              (("mamba", "out_proj"), d_in, d)]
     return t
+
+
+def _shared_targets(cfg: ModelConfig):
+    """(path, d_in, d_out) of zamba2's shared block's adapters, whatever
+    the LoRAConfig's targets, as in the reference (a gate adapter even
+    without a gated MLP)."""
+    d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    return [(("attn", "q"), d, nq * hd), (("attn", "k"), d, nkv * hd),
+            (("attn", "v"), d, nkv * hd), (("attn", "o"), nq * hd, d),
+            (("mlp", "up"), d, f), (("mlp", "gate"), d, f),
+            (("mlp", "down"), f, d)]
 
 
 def _mlp_targets(prefix, cfg: ModelConfig, shared_moe=False):
@@ -192,8 +220,8 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
                   generator: Optional[torch.Generator] = None) -> Dict:
     """Adapter tree mirroring the (stacked) param structure, drawn from
     ``generator`` (which then fixes the device) or from a fresh one
-    seeded with ``seed`` on ``device``."""
-    _check_ported(cfg)
+    seeded with ``seed`` on ``device``. zamba2's shared block gets one
+    unstacked adapter per linear under ``"shared_attn"``."""
     rank = rank or lora.rank
     gen = generator
     if gen is None:
@@ -217,6 +245,12 @@ def init_adapters(cfg: ModelConfig, lora: LoRAConfig, *, seed: int = 0,
                 node[path[-1]] = lora_lib.init_adapter(gen, din, dout, rank,
                                                        dtype, layers=n)
         out["segments"].append(seg_ad)
+    if cfg.shared_attn_every:
+        sa: Dict[str, Any] = {"attn": {}, "mlp": {}}
+        for (group, name), din, dout in _shared_targets(cfg):
+            sa[group][name] = lora_lib.init_adapter(gen, din, dout, rank,
+                                                    dtype)
+        out["shared_attn"] = sa
     return out
 
 
@@ -244,6 +278,14 @@ def _block_apply(kind, p, ad, x, cfg: ModelConfig, scale, positions,
             cache["last"].copy_(ns["last"])
             cache["last_cm"].copy_(new_last)
         return x + o, cache, aux
+    if kind == BLOCK_MAMBA2:
+        h = apply_norm(p["norm"], x, cfg.norm)
+        o, ns = mamba_lib.apply_mamba2(p["mamba"], ad.get("mamba"), h, cfg,
+                                       scale, state=cache)
+        if cache is not None:
+            cache["ssm"].copy_(ns["ssm"])
+            cache["conv"].copy_(ns["conv"])
+        return x + o, cache, aux
     h = apply_norm(p["norm1"], x, cfg.norm)
     if kind == BLOCK_MLA:
         name, attention = "mla", attn_lib.apply_mla
@@ -262,6 +304,22 @@ def _block_apply(kind, p, ad, x, cfg: ModelConfig, scale, positions,
     return x + o, nc, aux
 
 
+def _shared_attn_apply(p, ad, x, cfg: ModelConfig, scale, positions,
+                       cache=None, cache_index=None, sliding_window=None):
+    """zamba2's shared transformer block: attention and MLP with one set
+    of (unstacked) params and adapters at every application."""
+    ad = ad or {}
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    o, _ = attn_lib.apply_attention(p["attn"], ad.get("attn"), h, cfg, scale,
+                                    positions, cache=cache,
+                                    cache_index=cache_index,
+                                    sliding_window=sliding_window)
+    x = x + o
+    h = apply_norm(p["norm2"], x, cfg.norm)
+    return x + mlp_lib.apply_mlp(p["mlp"], ad.get("mlp"), h, cfg.activation,
+                                 scale)
+
+
 def _cache_len(kind, seg_cache) -> int:
     if kind == BLOCK_ATTN:
         return seg_cache["k"].shape[2]       # (L, B, Sc, ...)
@@ -273,16 +331,23 @@ def _cache_len(kind, seg_cache) -> int:
 def _run_layers(params, adapters, x, cfg, scale, positions, window,
                 caches=None):
     """Every segment's layers, then the final norm. Returns (x, aux
-    summed over the layers)."""
-    _check_ported(cfg)
+    summed over the layers).
+
+    zamba2: in a mamba2 segment the shared block runs after each group
+    of ``shared_attn_every`` layers, and not after the remainder layers
+    (reference ``_scan_mamba_with_shared``); application j reads and
+    writes shared cache j."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    seg_ads = (adapters or {}).get("segments",
-                                   [None] * len(params["segments"]))
+    adapters = adapters or {}
+    seg_ads = adapters.get("segments", [None] * len(params["segments"]))
+    shared_c = None if caches is None else caches.get("shared_attn")
+    applied = 0
     for s, (kind, n) in enumerate(segments_of(cfg)):
         seg_p, seg_ad = params["segments"][s], seg_ads[s]
         seg_c = None if caches is None else caches["segments"][s]
         cache_index = (None if seg_c is None
                        else positions[:, 0] % _cache_len(kind, seg_c))
+        every = cfg.shared_attn_every if kind == BLOCK_MAMBA2 else 0
         for i in range(n):
             x, _, aux = _block_apply(
                 kind, _layer(seg_p, i),
@@ -291,6 +356,15 @@ def _run_layers(params, adapters, x, cfg, scale, positions, window,
                 cache=None if seg_c is None else _layer(seg_c, i),
                 cache_index=cache_index, sliding_window=window)
             aux_total = aux_total + aux
+            if every and (i + 1) % every == 0:
+                sc = None if shared_c is None else _layer(shared_c, applied)
+                x = _shared_attn_apply(
+                    params["shared_attn"], adapters.get("shared_attn"), x,
+                    cfg, scale, positions, cache=sc,
+                    cache_index=(None if sc is None else
+                                 positions[:, 0] % sc["k"].shape[1]),
+                    sliding_window=window)
+                applied += 1
     return apply_norm(params["final_norm"], x, cfg.norm), aux_total
 
 
@@ -345,19 +419,32 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     """Per-segment cache stacks with a leading layer axis: attn k/v
     (L, B, Sc, Hkv, hd) and pos (L, B, Sc) int32 (-1 = empty); mla c_kv
     (L, B, Sc, kv_lora_rank), k_rope (L, B, Sc, rope) and pos; rwkv6
-    wkv (L, B, H, K, K) f32 and last/last_cm (L, B, d)."""
-    _check_ported(cfg)
+    wkv (L, B, H, K, K) f32 and last/last_cm (L, B, d); mamba2 ssm
+    (L, B, H, P, N) f32 and conv (L, B, W-1, conv_channels). zamba2 adds
+    ``"shared_attn"``: one attention ring per application of the shared
+    block, ``num_layers // shared_attn_every`` of them, stacked."""
     dev = resolve_device(device)
     caches: Dict[str, Any] = {"segments": []}
+
+    def stacked(c, n):
+        return {k: v.expand((n,) + v.shape).clone() for k, v in c.items()}
+
     for kind, n in segments_of(cfg):
         if kind == BLOCK_RWKV6:
             c = rwkv_lib.init_rwkv6_state(cfg, batch, dtype, dev)
+        elif kind == BLOCK_MAMBA2:
+            c = mamba_lib.init_mamba2_state(cfg, batch, dtype, dev)
         elif kind == BLOCK_MLA:
             c = attn_lib.init_mla_cache(cfg, batch, cache_len, dtype, dev)
-        else:
+        elif kind == BLOCK_ATTN:
             c = attn_lib.init_cache(cfg, batch, cache_len, dtype, dev)
-        caches["segments"].append(
-            {k: v.expand((n,) + v.shape).clone() for k, v in c.items()})
+        else:
+            raise ValueError(kind)
+        caches["segments"].append(stacked(c, n))
+    if cfg.shared_attn_every:
+        caches["shared_attn"] = stacked(
+            attn_lib.init_cache(cfg, batch, cache_len, dtype, dev),
+            cfg.num_layers // cfg.shared_attn_every)
     return caches
 
 
@@ -369,7 +456,8 @@ def decode_step(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     absolute position of each lane's new token. On attn and mla segments each
     lane writes its ring slot ``position[b] % cache_len`` and attends
     with its own position, so lanes at different points of their streams
-    share one step; rwkv6 segments step each lane's recurrent state.
+    share one step (zamba2's shared block too); rwkv6 and mamba2
+    segments step each lane's recurrent state.
 
     ``scale`` (scalar, (B,) per-lane tensor, or ``(scale, rank_mask)``)
     overrides ``lora.scale``; with lane-batched adapters (leaves

@@ -91,6 +91,14 @@ LM_VARIANT_CASES = [
     ("wgmma", 1, 512, 896, 4864, torch.bfloat16),
     ("wgmma", 1, 512, 4864, 896, torch.bfloat16),
     ("wgmma", 2, 100, 896, 4864, torch.bfloat16),
+    # zamba2-2.7b's in_proj, N 10448: 81 tiles of 128 and one of 80
+    # columns (512 rows), or 163 of 64 and one of 16 (100 rows); its
+    # out_proj 5120 -> 2560
+    ("wgmma", 1, 512, 2560, 10448, torch.bfloat16),
+    ("wgmma", 1, 100, 2560, 10448, torch.bfloat16),
+    ("wgmma", 1, 512, 5120, 2560, torch.bfloat16),
+    ("splitk", 4, 1, 2560, 10448, torch.bfloat16),
+    ("splitk", 1, 1, 2560, 10448, torch.bfloat16),
     ("splitk", 1, 1, 14336, 4096, torch.bfloat16),
     ("splitk", 4, 1, 14336, 4096, torch.bfloat16),
     ("splitk", 1, 16, 14336, 896, torch.bfloat16),
@@ -751,3 +759,139 @@ def test_fused_run_scanned_on_card_equals_run_round(cuda_device):
     b = IoVSimulator(SimConfig(**FUSED_KW), device="cuda")
     assert a.run(2) == b.run_scanned(2)
     assert b.fused.captures == 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,Hkv,window", [
+    (4, 128, 32, 32, None),     # zamba2-2.7b's shared block at prefill
+    (2, 100, 8, 2, None),       # ragged, GQA
+    (1, 37, 4, 1, 8),           # ragged, MQA, a window
+    (3, 16, 6, 3, None)],       # one q tile
+    ids=["zamba2", "ragged-gqa", "ragged-window", "short"])
+def test_flash_head_dim_80_matches_plain(cuda_device, B, S, H, Hkv, window,
+                                         dtype, tol):
+    """Head dim 80 on the dtype's kernel (mma: 10 row chunks, 5 k-steps,
+    a 176-byte row stride; simt: a half-used last column group)."""
+    q, k, v = _fa_operands(S + H + 80, B, S, H, Hkv, 80, dtype, cuda_device)
+    kind = fa_ops.variant(dtype, 80)
+    got = _count_flash(kind, lambda: fa_ops.flash_attention(
+        q, k, v, sliding_window=window))
+    want = fa_ops._plain(q, k, v, True, window, 80 ** -0.5)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("B,S,H,K", [(10, 24, 4, 32), (10, 24, 64, 64)],
+                         ids=["reduced-round", "rwkv6-7b-width"])
+def test_wkv6_forward_and_backward_in_a_cuda_graph(cuda_device, B, S, H, K):
+    """wkv6 on a training path as the fused round runs it: the forward
+    (the kernel) and the backward (autograd of the plain version)
+    captured in a CUDA graph on the current stream, replayed on new
+    inputs, equal to the same calls run eagerly; and the kernel's
+    forward within the f32 tolerance of the plain version's."""
+    static = [t.requires_grad_() for t in _wkv_operands(
+        7, B, S, H, K, torch.float32, cuda_device)]
+    gy = torch.randn((B, S, H, K), generator=torch.Generator().manual_seed(
+        8)).to(cuda_device)
+
+    def step(ins):
+        y, st = wkv_ops.wkv6(*ins)
+        loss = (y * gy).sum() + st.square().sum()
+        return (y, st) + torch.autograd.grad(loss, ins)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(static)                       # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = wkv_ops.launches
+    with torch.cuda.graph(graph):
+        out = step(static)
+    assert wkv_ops.launches == n0 + 1      # one kernel launch, captured
+    fresh = _wkv_operands(9, B, S, H, K, torch.float32, cuda_device)
+    with torch.no_grad():
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = step([t.detach().clone().requires_grad_() for t in fresh])
+    for got, want in zip(out, eager):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-6 * max(
+            1.0, float(want.abs().max()))
+    yp, sp = wkv_ops._plain(*[t.detach() for t in fresh], wkv_ops.CHUNK)
+    assert _rel(out[0], yp) < 1e-5 and _rel(out[1], sp) < 1e-5
+
+
+def test_rwkv6_round_engines_on_card_match_cpu(cuda_device):
+    """rwkv6 as train_arch: one round under serial, batched and fused on
+    the card against the CPU (counts exactly, energy and latency 1e-4);
+    wkv6 launches once per forward, inside the fused capture too."""
+    from repro_torch.configs import rwkv6_7b as r6
+    kw = dict(method="ours", num_vehicles=6, num_tasks=2, local_steps=1,
+              train_arch=r6.reduced())
+    for engine in ("serial", "batched", "fused"):
+        recs, launched = {}, {}
+        for dev in ("cpu", "cuda"):
+            n0 = wkv_ops.launches
+            recs[dev] = IoVSimulator(SimConfig(engine=engine, **kw),
+                                     device=dev).run(2)
+            launched[dev] = wkv_ops.launches - n0
+        assert launched["cpu"] == 0 and launched["cuda"] > 0, engine
+        for rc, rg in zip(recs["cpu"], recs["cuda"]):
+            for tc, tg in zip(rc["tasks"], rg["tasks"]):
+                for key in ("active", "departing", "fallbacks",
+                            "comm_params", "mean_rank"):
+                    assert tg[key] == tc[key], (engine, key)
+                for key in ("energy", "latency"):
+                    assert abs(tg[key] - tc[key]) <= 1e-4 * max(
+                        1.0, abs(tc[key])), (engine, key)
+
+
+def test_zamba2_serving_on_card_matches_cpu(cuda_device):
+    """The reduced zamba2 in f32: prefill logits and 6 decode steps of a
+    two-lane engine (paged, blocks of 4) on the card == on the CPU
+    (1e-4), and paged == dense on the card bit for bit."""
+    from repro_torch.configs import zamba2_2_7b as z2
+    cfg = z2.reduced()
+    lora = LoRAConfig(rank=4, max_rank=8)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    ads = pad_adapter_tree(_nontrivial_tree(T.init_adapters(
+        cfg, lora, seed=1, device="cpu"), 2), 8)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, a = _to(params, dev), _to(ads, dev)
+        pre = make_prefill_step(cfg, lora, device=dev)(p, a,
+                                                       {"tokens": toks})
+        steps = {}
+        for bs in (0, 4):
+            eng = ServeEngine(p, cfg, lora, ServeSpec(
+                max_batch=2, cache_len=8, block_size=bs), device=dev)
+            for lane in range(2):
+                eng.assign(lane, PagedAdapter(
+                    task=0, rsu=-1, version=lane, rank=8, slot_rank=8,
+                    scale=lora.scale, adapters=a))
+            steps[bs] = torch.stack([eng.step(toks[:, t]).cpu()
+                                     for t in range(6)])
+        out[dev] = (pre.cpu(), steps)
+    assert torch.equal(out["cuda"][1][0], out["cuda"][1][4])
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) < 1e-4
+    assert float((out["cuda"][1][4] - out["cpu"][1][4]).abs().max()) < 1e-4
+
+
+def _nontrivial_tree(ads, seed):
+    """Every b leaf drawn (b is zero-init), segments and shared block."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fill(node):
+        if isinstance(node, dict) and "a" in node and "b" in node:
+            return {"a": node["a"],
+                    "b": 0.02 * torch.randn(node["b"].shape, generator=g)}
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        return [fill(v) for v in node]
+    return fill(ads)

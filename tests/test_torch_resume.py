@@ -20,6 +20,7 @@ reference's round 2 at the one-round tolerances: ranks, active sets,
 fallbacks and comm_params exact; energy and latency within 1e-5
 relative; merged deltas within 1e-4 of each leaf's largest entry.
 """
+import dataclasses
 import json
 import os
 
@@ -153,12 +154,21 @@ def test_fingerprint_equals_the_reference(arch):
         assert config_fingerprint(SimConfig()).startswith("9668dce1fbb9")
 
 
-@pytest.mark.parametrize("field, value", [
-    ("ssm", "ssd"), ("shared_attn_every", 2), ("ssm", {"state_dim": 64}),
-    ("shared_attn_every", 6)])
-def test_unported_model_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vit_base_paper.vit_base_paper().with_overrides(**{field: value})
+@pytest.mark.parametrize("field, kw", [
+    ("ssm", {}), ("shared_attn_every", 2),
+    ("ssm", {"state_dim": 16, "head_dim": 32}), ("shared_attn_every", 6)])
+def test_zamba2_fields_give_the_reference_config(field, kw):
+    """zamba2's ``ssm`` and ``shared_attn_every`` build configs equal to
+    the reference's, with equal checkpoint fingerprints."""
+    from repro.config import SSMConfig as JSSMConfig
+    from repro_torch.config import SSMConfig
+    port, ref = ((SSMConfig(**kw), JSSMConfig(**kw)) if field == "ssm"
+                 else (kw, kw))
+    pc = vit_base_paper.vit_base_paper().with_overrides(**{field: port})
+    jc = jvit.vit_base_paper().with_overrides(**{field: ref})
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+    assert config_fingerprint(SimConfig(train_arch=pc)) == \
+        jfingerprint(JSimConfig(train_arch=jc))
 
 
 # ---------------------------------------------------------------------------

@@ -106,10 +106,11 @@ def test_lora_and_serve_spec_copies_match_reference():
     with pytest.raises(ValueError):
         ServeSpec(admission="lifo")
     assert get_arch("qwen2-0.5b") == qwen2_0_5b.qwen2_0_5b()
-    assert list_archs() == ["deepseek-v2-236b", "gemma-7b", "grok-1-314b",
-                            "musicgen-medium", "paligemma-3b", "qwen2-0.5b",
-                            "rwkv6-7b", "smollm-135m", "starcoder2-15b",
-                            "vit-base-paper"]
+    from repro.config import list_archs as j_list_archs
+    assert list_archs() == j_list_archs() == [
+        "deepseek-v2-236b", "gemma-7b", "grok-1-314b", "musicgen-medium",
+        "paligemma-3b", "qwen2-0.5b", "rwkv6-7b", "smollm-135m",
+        "starcoder2-15b", "vit-base-paper", "zamba2-2.7b"]
 
 
 def test_interop_round_trip_is_exact(weights):
@@ -474,11 +475,49 @@ def test_assign_checks_slot_width_and_admission(weights):
 # Boundaries of the slice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
-def test_transformer_refuses_unported_block_kinds(kind):
+@pytest.mark.parametrize("kind", ["shared_attn", "conv"])
+def test_transformer_refuses_unknown_block_kinds(kind):
+    """A block kind the model has no block for is refused, as the
+    reference refuses it (zamba2's shared block is no segment kind:
+    it comes from ``shared_attn_every``)."""
     cfg = CFG.with_overrides(block_pattern=(kind, "attn"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=kind):
         T.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match=kind):
+        JT.init_params(jax.random.PRNGKey(0), cfg_to_reference(cfg))
+
+
+def cfg_to_reference(cfg):
+    from repro.config import ModelConfig as JModelConfig
+    return JModelConfig(**dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("pattern", [("mamba2", "attn"), ("attn", "mamba2")],
+                         ids=["mamba2-attn", "attn-mamba2"])
+def test_transformer_runs_mamba2_segments_beside_attn(pattern):
+    """mamba2 blocks (with an SSM config) form their own segment beside
+    attn ones, in the reference's layout, and decode reproduces the
+    forward."""
+    from repro.config import SSMConfig as JSSMConfig
+    from repro_torch.config import SSMConfig
+    kw = dict(state_dim=8, head_dim=16)
+    cfg = CFG.with_overrides(block_pattern=pattern, ssm=SSMConfig(**kw))
+    jcfg = cfg_to_reference(cfg.with_overrides(ssm=None)).with_overrides(
+        ssm=JSSMConfig(**kw))
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    jshapes = jax.eval_shape(lambda k: JT.init_params(k, jcfg, jnp.float32),
+                             jax.random.PRNGKey(0))
+    assert interop.tree_map(lambda x: tuple(x.shape), params) == \
+        jax.tree_util.tree_map(lambda x: tuple(x.shape), jshapes)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 6)))
+    full, _ = T.forward(params, None, cfg, LORA, {"tokens": toks})
+    caches = T.init_caches(cfg, 2, 6, dtype=torch.float32, device="cpu")
+    for t in range(6):
+        got, caches = T.decode_step(params, None, cfg, LORA,
+                                    toks[:, t:t + 1], caches, t)
+        assert float((torch.softmax(got[:, 0], -1)
+                      - torch.softmax(full[:, t], -1)).abs().max()) < 2e-3
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_adapters",
