@@ -180,13 +180,13 @@ Phases (any failure raises; nothing is caught):
    bytes, host and device peaks; the profiler's records of the first
    replay after the restore (144 / 24: 3 of the 12 layers, ``DEPTH_5F``).
    Then each of the seven presets
-   at full width, batched, until a round trains, on one set of base
+   at full width (``DEPTH_5F`` layers since PR 24), batched, until a round trains, on one set of base
    weights: launches equal to the groups' prediction, energy, latency
    and accuracy finite, absent vehicles (rush-hour, sparse-rural)
    training no lane. The checkpoints go to a temporary directory in the
    checkout, removed at the end.
-6. Serving, the rest. (a) qwen2-0.5b at full width in bf16 (12 of its
-   24 layers since PR 23, ``DEPTH_6A``),
+6. Serving, the rest. (a) qwen2-0.5b at full width in bf16 (6 of its
+   24 layers since PR 24, 12 in PR 23, ``DEPTH_6A``),
    4 lanes at ranks 8/16/32/64 in the 64 slot: a block-paged engine
    (blocks of 16, a 128-slot ring) and a dense one driven in lockstep
    through admit, retire, re-admit into a recycled lane, evict_oldest
@@ -229,7 +229,36 @@ Phases (any failure raises; nothing is caught):
    the card: 2 layers of the dense three (paligemma-3b with a prefix),
    one of grok-1 and deepseek-v2 (1 decode step: the CPU runs every
    expert over its capacity).
-7. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+7. zamba2-2.7b served at full depth (7a) and rwkv6 trained in the round
+   (7b).
+8. The training entry point (``launch/train.py``). (a) The CLI as a user
+   runs it, ``python -m repro_torch.launch.train --arch smollm-135m
+   --full`` (f32: ``lora_matmul`` and flash on ``simt``, batch 8 x seq
+   64), in subprocesses: 20 uninterrupted steps with a checkpoint every
+   10, and 10 steps resumed to 20 with ``--resume`` in this process (its
+   launches counted): every leaf of both checkpoints (adapters, mu, nu,
+   step, meta with the RNG state) bit-equal to the uninterrupted run's,
+   the printed losses equal, the last below the first; a resume with the
+   RNG state not restored must differ, and one under another ``--lr``
+   must be refused. (b) The README's two ``--simulate`` lines with their
+   horizons cut (rsu-outage semi-sync fused, 4 rounds; sparse-rural
+   sync, 2), in subprocesses: each printed round line equal to
+   ``scenarios.build_sim`` run here with the same arguments. (c)
+   ``make_train_step`` at qwen2-0.5b's full width in bf16 at train_4k's
+   sequence length 4096 (global batch 4 for its 256), remat, ce_chunk
+   512, two microbatches, rank 8, through ``placed_step`` on a
+   one-device mesh, 6 steps (the last profiled): per step 384
+   ``lora_matmul`` launches, all ``wgmma``, and 96 flash, all ``mma``
+   (remat's recompute doubles both); ms/step, tokens/s, losses, peak
+   memory. (d) The same step card vs CPU in f32 at 2 of the 24 layers,
+   seq 256: the loss to 1e-4 and the first step's mu to 1e-3 of each
+   leaf's largest entry. (e) ``lora_matmul`` bf16 at 8192 rows (896 ->
+   896 / 4864, 4864 -> 896, rank 8) and flash bf16 at B 2, S 4096, 14
+   heads on 2, held to their plain versions and timed against the
+   library call and the bound. Every bf16 flash row, here and in phase
+   2, is also held per query row against the plain version in f32
+   (FLASH_ROW_TOL), and must catch a planted lost tile of 64 keys.
+9. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
 ``lora_matmul`` (simt) for 768->768, 768->3072 and 3072->768 at a train
@@ -243,8 +272,10 @@ attention at S 24 in f32 and bf16 at a train step's B 10 with head dim
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 Details go to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -264,11 +295,11 @@ import torch  # noqa: E402
 import repro_torch.checkpoint.carry as carry_mod  # noqa: E402
 from repro_torch.checkpoint import (latest_checkpoint,  # noqa: E402
                                     load_pytree, restore_checkpoint,
-                                    save_checkpoint)
+                                    save_checkpoint, save_pytree)
 from repro_torch.config import (CheckpointSpec, LoRAConfig,  # noqa: E402
                                 OutageSpec, ParticipationSpec, RSUTierSpec,
                                 ServeSpec)
-from repro_torch.config import BLOCK_ATTN  # noqa: E402
+from repro_torch.config import BLOCK_ATTN, get_input_shape  # noqa: E402
 from repro_torch.configs import (deepseek_v2_236b, gemma_7b,  # noqa: E402
                                  grok1_314b, musicgen_medium, paligemma_3b,
                                  qwen2_0_5b, rwkv6_7b, smollm_135m,
@@ -290,6 +321,8 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.launch.adapter_cache import (  # noqa: E402
     GLOBAL_RSU, AdapterStore, PagedAdapter)
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.serve import (ServeEngine, make_prefill_step,  # noqa: E402
                                       make_decode_step)
 from repro_torch.models import transformer as T  # noqa: E402
@@ -297,7 +330,7 @@ from repro_torch.models.common import is_glu  # noqa: E402
 from repro_torch.interop import tree_map  # noqa: E402
 from repro_torch.federated.fused_engine import (  # noqa: E402
     FusedRoundEngine, _copy_tree)
-from repro_torch.optim.adam import leaves  # noqa: E402
+from repro_torch.optim.adam import adam, leaves  # noqa: E402
 from repro_torch.sim import scenarios  # noqa: E402
 from repro_torch.sim.mobility_model import MobilitySimConfig  # noqa: E402
 from repro_torch.sim.simulator import IoVSimulator, SimConfig  # noqa: E402
@@ -316,6 +349,15 @@ TOL = {("lora_matmul", torch.bfloat16): 1e-1,   # one vs two bf16 roundings
        # kernel's 16-row chunks against the plain version's 128
        ("wkv6", torch.bfloat16): 1e-2,   # one bf16 rounding of y
        ("wkv6", torch.float32): 1e-5}
+# flash bf16 against the plain version in f32, per query row: the row's
+# largest |error| over its D outputs / its largest |output|. At long S a
+# row's output is a mean over thousands of keys (|o| ~ 0.03 at S 4096),
+# where TOL's absolute 2e-2 would pass a lost key tile; one bf16 rounding
+# of o and of the probabilities is ~2^-8 of the row
+FLASH_ROW_TOL = 1e-2
+# the planted fault each bf16 row must catch: the values of one late
+# 64-key tile lost (zeroed), from this fraction of S on
+PLANT_AT = 0.75
 # full width, 2 layers, f32, card vs CPU: summation order through the
 # stack and the 151936-wide tied head, with TF32 off
 E2E_TOL = 1e-3
@@ -438,6 +480,14 @@ def bound(nbytes: float, ops_by_dtype: dict):
 
 def maxabs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def row_rel(got, want) -> float:
+    """Over the query rows of (..., D) outputs: the largest of each
+    row's max |got - want| / max |want|."""
+    w = want.float()
+    return float(((got.float() - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
 def to(tree, dev):
@@ -633,21 +683,23 @@ def rank_pin(x, w, scale, dtype):
     return kind
 
 
-def check_lora(cfg, dtype, cases=None):
+def check_lora(cfg, dtype, cases=None, slot=SLOT):
+    """Each case's kernel against its plain version and timed; adapters
+    ``slot`` wide (a lane's rank mask below it in decode cases)."""
     rows = []
     for linear, mode, L, M, K, N in (cases or lora_cases(cfg)):
         g = torch.Generator(device="cuda").manual_seed(K * 7 + N + L)
         x = torch.randn((L, M, K), generator=g, device="cuda").to(dtype)
         w = (torch.randn((K, N), generator=g, device="cuda")
              / K ** 0.5).to(dtype)
-        a = torch.randn((L, K, SLOT), generator=g, device="cuda") / K ** 0.5
-        b = 0.1 * torch.randn((L, SLOT, N), generator=g, device="cuda")
+        a = torch.randn((L, K, slot), generator=g, device="cuda") / K ** 0.5
+        b = 0.1 * torch.randn((L, slot, N), generator=g, device="cuda")
         if L > 1:      # one tenant per lane, mixed ranks
             ranks = torch.tensor(RANKS[:L], device="cuda")
         else:
-            ranks = torch.tensor([SLOT], device="cuda")
+            ranks = torch.tensor([slot], device="cuda")
         scale = (16.0 / ranks).float()
-        mask = rank_arange_mask(ranks, SLOT)
+        mask = rank_arange_mask(ranks, slot)
         args = (x, w, a, b, scale, mask)
         got, kind = launched_variant(lambda: lm_ops.lora_matmul(*args))
         want = lora_matmul_ref(*args)
@@ -665,9 +717,9 @@ def check_lora(cfg, dtype, cases=None):
                   if dtype == torch.bfloat16 and K == N else None)
         es = x.element_size()
         nbytes = (es * (L * M * K + K * N + L * M * N)
-                  + 4 * (L * K * SLOT + L * SLOT * N + L + L * SLOT))
+                  + 4 * (L * K * slot + L * slot * N + L + L * slot))
         # x·W in the model dtype; t = x·A and (t⊙m)·B in f32
-        ops = {torch.float32: 2.0 * L * M * SLOT * (K + N)}
+        ops = {torch.float32: 2.0 * L * M * slot * (K + N)}
         ops[dtype] = ops.get(dtype, 0.0) + 2.0 * L * M * K * N
         b_ms, b_by = bound(nbytes, ops)
         t = x.float() @ a      # the kernel alone, on the wrapper's t
@@ -680,7 +732,7 @@ def check_lora(cfg, dtype, cases=None):
             "name": "lora_matmul", "model": cfg.name, "linear": linear,
             "mode": mode, "variant": kind,
             "dtype": str(dtype).replace("torch.", ""),
-            "shape": f"L={L} M={M} K={K} N={N} r={SLOT}",
+            "shape": f"L={L} M={M} K={K} N={N} r={slot}",
             "max_abs_err": err, "tol": tol,
             "deterministic": True if mode == "decode" else None,
             "rank_pin": pinned,
@@ -688,7 +740,7 @@ def check_lora(cfg, dtype, cases=None):
             "kernel_ms": kernel_ms,
             # the kernel's x·W rate and its bytes' rate (W, x, y, t, B)
             "kernel_tflops": 2.0 * L * M * K * N / kernel_ms / 1e9,
-            "kernel_gbs": (nbytes - 4 * L * K * SLOT + 4 * L * M * SLOT)
+            "kernel_gbs": (nbytes - 4 * L * K * slot + 4 * L * M * slot)
             / kernel_ms / 1e6,
             "plain_ms": timed_ms(lambda: lora_matmul_ref(*args)),
             "library_ms": timed_ms(library),
@@ -696,10 +748,9 @@ def check_lora(cfg, dtype, cases=None):
     return rows
 
 
-def check_flash(cfg, dtype, lengths=None):
+def check_flash(cfg, dtype, lengths=None, B=4):
     rows = []
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    B = 4
     kind = fa_ops.variant(dtype, D)
     # the served prefill (S 128), a ragged one, and a long qwen2 prompt
     if lengths is None:
@@ -722,6 +773,25 @@ def check_flash(cfg, dtype, lengths=None):
         tol = TOL[("flash_attention", dtype)]
         if not (err < tol and torch.isfinite(got).all()):
             fail(f"flash_attention S={S}/{dtype}: max abs {err} >= {tol}")
+        rel = {}
+        if dtype == torch.bfloat16:
+            qf, kf, vf = q.float(), k.float(), v.float()
+            want32 = fa_ops._plain(qf, kf, vf, True, None, D ** -0.5)
+            j = int(S * PLANT_AT) // 64 * 64
+            vf[:, j:j + 64] = 0
+            lost = fa_ops._plain(qf, kf, vf, True, None, D ** -0.5)
+            rel = {"row_rel_err": row_rel(got, want32),
+                   "row_tol": FLASH_ROW_TOL,
+                   "planted_row_rel_err": row_rel(lost, want32),
+                   "planted_abs_err": maxabs(lost, want32),
+                   "planted_keys": [j, min(j + 64, S)]}
+            del qf, kf, vf, want32, lost
+            if not (rel["row_rel_err"] < FLASH_ROW_TOL
+                    < rel["planted_row_rel_err"]):
+                fail(f"flash_attention S={S}/{dtype} per row vs f32: "
+                     f"{rel['row_rel_err']} (tol {FLASH_ROW_TOL}); keys "
+                     f"{rel['planted_keys']} lost: "
+                     f"{rel['planted_row_rel_err']} must exceed it")
         es = q.element_size()
         nbytes = es * (2 * B * S * H * D + 2 * B * S * Hkv * D)
         pairs = S * (S + 1) / 2                  # causal: visible (q, k)
@@ -741,7 +811,7 @@ def check_flash(cfg, dtype, lengths=None):
             "block": f"{16 * fa_ops.plan(S)} rows" if kind == "mma"
             else "32 rows",
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D}",
-            "max_abs_err": err, "tol": tol, "ms": ms,
+            "max_abs_err": err, "tol": tol, **rel, "ms": ms,
             "tflops": flops / ms / 1e9, "vs_library": ms / lib_ms,
             "plain_ms": timed_ms(
                 lambda: fa_ops._plain(q, k, v, True, None, D ** -0.5)),
@@ -2298,8 +2368,12 @@ ABLATIONS = ("ours_no_energy", "ours_no_mobility")
 # 5d's and 5e's full-width rounds run at a sixth of vit-base-paper's
 # depth (full width, 2 of its 12 layers) and 5f's full-width resume at a
 # quarter (DEPTH_5F), to keep the script within 900 s of its 1,200 s
-# limit on a slow host; 5b and 5c run all 12 (5e (a), the reduced ViT
-# card against the CPU, is unchanged)
+# limit on a slow host, and since PR 24 5f's presets at that quarter
+# too (the script took 1,068 s on a slow host with them at 12); 5b and
+# 5c run all 12 (at 6, 5b's merged-delta spread limit, twice the
+# serial trainer's own card-vs-CPU spread, came out below the spread it
+# holds, 0.0014 > 0.0009); 5e (a), the reduced ViT card against the
+# CPU, is unchanged
 DEPTH_5D = 2
 DEPTH_5E = 2
 UNPROFILED_5D = ("hetlora", "ours_no_energy", "ours_no_mobility",
@@ -3821,15 +3895,16 @@ def full_width_resume(root):
 
 
 def every_preset():
-    """Phase 5f (d): each preset at the full width of vit-base-paper under
-    the batched engine, every simulator on one set of base weights, round
+    """Phase 5f (d): each preset at the full width of vit-base-paper
+    (DEPTH_5F of its 12 layers) under the batched engine, every simulator on one set of base weights, round
     by round until a round trains (sparse-rural's first two have no
     vehicle in coverage): launches equal to the groups' prediction,
     energy, latency and accuracy finite, no absent vehicle training a
     lane (rush-hour's and sparse-rural's rounds must have absent
     vehicles); the wall time of each round, unprofiled."""
     release()
-    arch = vit_base_paper.vit_base_paper()
+    arch = vit_base_paper.vit_base_paper().with_overrides(
+        num_layers=DEPTH_5F)
     params = tree_map(lambda t: t.cuda(), T.init_params(
         arch, seed=0, dtype=torch.float32, device="cpu"))
     per_fwd = {"lora_matmul": arch.num_layers * len(tree_paths(
@@ -4130,9 +4205,10 @@ def exhaustion_planted(params, cfg, lora, dtype):
             "message": raised[1][:80]}
 
 
-# 6a and 6b run qwen2-0.5b and vit-base-paper at half depth (full
-# width) since PR 23, to keep the script within 900 s on a slow host
-DEPTH_6A = 12
+# 6a and 6b run qwen2-0.5b and vit-base-paper at full width: 6b at half
+# depth since PR 23, 6a at a quarter since PR 24 (half in PR 23), to
+# keep the script within 1,000 s on a slow host
+DEPTH_6A = 6
 DEPTH_6B = 6
 
 
@@ -4766,6 +4842,489 @@ def print_7(p7a, p7b):
           f"{p7b['seconds']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the training entry point
+# ---------------------------------------------------------------------------
+
+# (a) the CLI at smollm-135m's full width in f32, as it builds it
+CLI_8A = ["--arch", "smollm-135m", "--full"]
+STEPS_8A = 20
+EVERY_8A = 10
+# (b) the README's two --simulate lines, their horizons cut to 4 and 2
+SIM_8B = ({"simulate": "rsu-outage", "participation": "semi-sync",
+           "engine": "fused", "rounds": 4},
+          {"simulate": "sparse-rural", "participation": "sync",
+           "rounds": 2})
+# (c) qwen2-0.5b at full width in bf16 at train_4k's sequence length;
+# global batch 4 for train_4k's 256
+SHAPE_8C = "train_4k"
+BATCH_8C = 4
+STEPS_8C = 6
+RANK_8C = 8
+LR_8C = 1e-3
+STEP_KW_8C = dict(remat=True, ce_chunk=512, microbatch=2)
+# (d) the same step card vs CPU in f32 at 2 of the 24 layers
+DEPTH_8D = 2
+SEQ_8D = 256
+STEP_KW_8D = dict(remat=True, ce_chunk=128, microbatch=2)
+LOSS_TOL_8D = 1e-4
+MU_TOL_8D = 1e-3        # of each leaf's largest entry
+
+
+def sim_args(run):
+    out = []
+    for k, v in run.items():
+        out += [f"--{k}", str(v)]
+    return out
+
+
+def start_cli(args, device="cuda"):
+    """The training CLI in a subprocess, started as a user starts it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+            device] + list(args)
+    return subprocess.Popen(argv, cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_cli(proc, what, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"8 {what}: exit {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def cli_in_process(args, device="cuda"):
+    """The CLI's ``main`` in this process (its launches are counted
+    here); its stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(["--device", device] + list(args))
+    return out.getvalue()
+
+
+def loss_lines(text):
+    return [(int(i), float(x)) for i, x in
+            re.findall(r"step\s+(\d+) loss=([0-9.]+)", text)]
+
+
+def round_lines(text):
+    return [line for line in text.splitlines() if line.startswith("round ")]
+
+
+def sim_in_process(run, device="cuda"):
+    """``scenarios.build_sim`` with the CLI's arguments, run as the CLI
+    runs it; its round lines and launches."""
+    kw = {"participation": run["participation"]}
+    if run.get("engine"):
+        kw["engine"] = run["engine"]
+    reset_counts()
+    sim = scenarios.build_sim(run["simulate"], rounds=run["rounds"], seed=0,
+                              device=device, **kw)
+    hist = (sim.run_scanned(run["rounds"]) if sim.fused is not None
+            else sim.run())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launched = {"launches": counts(),
+                "lora_matmul_variants": variant_counts(),
+                "flash_attention_variants": flash_variant_counts()}
+    lines = [f"round {rec['round']:3d} acc={rec['accuracy']:.4f} "
+             f"energy={rec['energy']:.1f} reward={rec['reward']:.3f}"
+             for rec in hist]
+    del sim
+    release()
+    return lines, launched
+
+
+def planted_rng_resume(src, dst, args, device="cuda"):
+    """Planted fault: a resume whose RNG state is not restored, i.e.
+    the checkpoint's data cursor put back at the stream's start. Returns
+    the directory its run wrote."""
+    os.makedirs(dst)
+    name = os.path.basename(src)
+    state = load_pytree(src, numpy=True)
+    meta = json.loads(bytes(state["meta"]).decode())
+    meta["rng"] = np.random.default_rng(0).bit_generator.state
+    state["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
+    save_pytree(os.path.join(dst, name), state)
+    cli_in_process(args + ["--resume", "--checkpoint-dir", dst], device)
+    return dst
+
+
+def phase_8a(root, device="cuda", args=CLI_8A, sims=SIM_8B):
+    """(a) and (b): the CLI in subprocesses, each started as a user
+    starts it. 20 uninterrupted steps with a checkpoint every 10, and 10
+    steps whose run ends there, resumed in this process to 20 (its
+    launches counted): every leaf of the last checkpoints (adapters, mu,
+    nu, step, meta with the RNG state) bit-equal, the first ones too;
+    two planted faults (a resume with the RNG state not restored, a
+    resume under another --lr) must fail. Meanwhile the two --simulate
+    runs, whose round lines must equal ``scenarios.build_sim``'s run in
+    this process."""
+    whole, cut = os.path.join(root, "whole"), os.path.join(root, "cut")
+    every = ["--checkpoint-every", str(EVERY_8A)]
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        procs["whole"] = start_cli(args + every + [
+            "--steps", str(STEPS_8A), "--checkpoint-dir", whole], device)
+        procs["cut"] = start_cli(args + every + [
+            "--steps", str(EVERY_8A), "--checkpoint-dir", cut], device)
+        for i, run in enumerate(sims):
+            procs[f"sim{i}"] = start_cli(sim_args(run), device)
+        # the --simulate runs again, here, while the subprocesses run
+        local = [sim_in_process(run, device) for run in sims]
+        cut_out = finish_cli(procs["cut"], "the 10-step CLI run")
+        reset_counts()
+        t1 = time.perf_counter()
+        resumed = cli_in_process(args + every + [
+            "--steps", str(STEPS_8A), "--resume", "--checkpoint-dir", cut],
+            device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t1
+        resume_launch = {"launches": counts(),
+                         "lora_matmul_variants": variant_counts(),
+                         "flash_attention_variants": flash_variant_counts()}
+        whole_out = finish_cli(procs["whole"], "the uninterrupted CLI run")
+        sim_out = [finish_cli(procs[f"sim{i}"], f"--simulate {run}")
+                   for i, run in enumerate(sims)]
+        subprocess_s = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if f"resumed from step {EVERY_8A}" not in resumed:
+        fail(f"8a the resumed run did not resume: {resumed[-500:]}")
+    last = f"round_{STEPS_8A:06d}.npz"
+    first = f"round_{EVERY_8A:06d}.npz"
+    diff = (checkpoint_diff(os.path.join(whole, last), os.path.join(cut, last))
+            + checkpoint_diff(os.path.join(whole, first),
+                              os.path.join(cut, first)))
+    if diff:
+        fail(f"8a resumed checkpoints differ from the uninterrupted run's: "
+             f"{diff[:8]}")
+    ckpt = load_pytree(os.path.join(cut, last), numpy=True)
+    leaves_n = len(np.load(os.path.join(cut, last)).files) - 1
+    meta = json.loads(bytes(ckpt["meta"]).decode())
+    losses = loss_lines(whole_out)
+    if not (losses and losses[-1][1] < losses[0][1]):
+        fail(f"8a the last printed loss is not below the first: {losses}")
+    # the printed losses of the cut and resumed runs at the steps the
+    # uninterrupted run printed (every 10th and the last)
+    want, seen = dict(losses), set()
+    for i, x in loss_lines(cut_out + resumed):
+        if i in want:
+            seen.add(i)
+            if x != want[i]:
+                fail(f"8a step {i}: the cut or resumed run printed loss {x}"
+                     f", the uninterrupted run {want[i]}")
+    if seen != set(want):
+        fail(f"8a the cut and resumed runs printed steps {sorted(seen)}, "
+             f"want {sorted(want)}")
+    # planted faults
+    fault_dir = planted_rng_resume(os.path.join(cut, first),
+                                   os.path.join(root, "fault"), args + every
+                                   + ["--steps", str(STEPS_8A)], device)
+    rng_diff = checkpoint_diff(os.path.join(whole, last),
+                               os.path.join(fault_dir, last))
+    if not any(k.startswith("adapters") for k in rng_diff):
+        fail("8a planted fault (resume without the RNG state) was not "
+             "caught")
+    try:
+        cli_in_process(args + every + ["--steps", str(STEPS_8A), "--resume",
+                                       "--lr", "2e-3", "--checkpoint-dir",
+                                       cut], device)
+        refused = None
+    except SystemExit as e:
+        refused = str(e)
+    if not refused or "different run config" not in refused:
+        fail(f"8a a resume under another --lr was not refused ({refused})")
+    # (b) the --simulate lines against the in-process runs
+    sims_out = []
+    for run, text, (lines, launched) in zip(sims, sim_out, local):
+        got = round_lines(text)
+        if got != lines or len(got) != run["rounds"]:
+            fail(f"8b --simulate {run}: the CLI printed {got}, build_sim "
+                 f"gives {lines}")
+        sims_out.append({"run": run, "lines": got, "launched": launched,
+                         "done": text.strip().splitlines()[-1]})
+    return {"cli": " ".join(args), "steps": STEPS_8A, "every": EVERY_8A,
+            "losses": losses, "leaves_compared": leaves_n,
+            "meta_step": meta["step"], "fingerprint": meta["fingerprint"],
+            "resume_s": resume_s, "subprocess_wall_s": subprocess_s,
+            "resume_launch": resume_launch,
+            "planted_rng_leaves_differing": len(rng_diff),
+            "planted_lr_refused": refused, "sims": sims_out}
+
+
+def synthetic_batch(rng, V, B, S, device):
+    """The CLI's synthetic task: tok_{t+1} = (7·tok_t + 1) mod V."""
+    seq = [rng.integers(0, V, size=(B, 1))]
+    for _ in range(S):
+        seq.append((seq[-1] * 7 + 1) % V)
+    toks = np.concatenate(seq, 1)
+    return {"tokens": torch.as_tensor(toks[:, :-1], device=device),
+            "labels": torch.as_tensor(toks[:, 1:], device=device)}
+
+
+def step_prediction(cfg, microbatch, remat):
+    """Launches of one train step: per forward, one lora_matmul per
+    kernel linear of each layer and one flash per attention layer;
+    ``microbatch`` forwards, each run twice under remat (the backward's
+    recompute). The backward passes are plain PyTorch."""
+    per_fwd, _ = per_model(cfg)
+    n = microbatch * (2 if remat else 1)
+    return {"lora_matmul": per_fwd["lora_matmul"] * n,
+            "flash_attention": per_fwd["flash_attention"] * n,
+            "wkv6": per_fwd["wkv6"] * n}
+
+
+def phase_8c(cfg=None, device="cuda", batch=BATCH_8C, steps=STEPS_8C):
+    """(c) ``make_train_step`` at qwen2-0.5b's full width in bf16 at
+    train_4k's sequence length, through ``placed_step`` on a one-device
+    mesh: remat, ce_chunk 512, two microbatches, rank 8. Every step's
+    launches must equal the prediction, every lora_matmul on wgmma and
+    every flash on mma; ms/step, tokens/s, the losses and the peak of
+    ``max_memory_allocated``."""
+    cfg = cfg or qwen2_0_5b.qwen2_0_5b()
+    S = get_input_shape(SHAPE_8C).seq_len if device == "cuda" else 64
+    lora = LoRAConfig(rank=RANK_8C)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device=device)
+    adapters = to(nontrivial(T.init_adapters(cfg, lora, seed=1, rank=RANK_8C,
+                                             device="cpu"), 8), device)
+    opt_state = adam(LR_8C).init(adapters)
+    mesh = make_mesh((1, 1), ("data", "model"), device)
+    _, placed = train_mod.make_train_step(cfg, lora, mesh, lr=LR_8C,
+                                          **STEP_KW_8C)
+    init_s = time.perf_counter() - t0
+    want = step_prediction(cfg, STEP_KW_8C["microbatch"],
+                           STEP_KW_8C["remat"])
+    rng = np.random.default_rng(0)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, total = [], [], {k: 0 for k in want}
+    lm_var = {k: 0 for k in lm_ops.launches_by_variant}
+    fa_var = {k: 0 for k in fa_ops.launches_by_variant}
+    # the last step on the card runs under the profiler (below)
+    for i in range(steps - 1 if device == "cuda" else steps):
+        b = synthetic_batch(rng, cfg.vocab_size, batch, S, device)
+        reset_counts()
+        t1 = time.perf_counter()
+        adapters, opt_state, m = placed(params, adapters, opt_state, b)
+        loss = float(m["loss"])          # waits for the step
+        ms.append((time.perf_counter() - t1) * 1e3)
+        got, lv, fv = counts(), variant_counts(), flash_variant_counts()
+        if got != want or lv["wgmma"] != want["lora_matmul"] or \
+                fv["mma"] != want["flash_attention"]:
+            fail(f"8c step {i}: launches {got} ({lv}, {fv}), want {want} "
+                 f"(all wgmma / mma)")
+        if not np.isfinite(loss):
+            fail(f"8c step {i}: loss {loss}")
+        losses.append(loss)
+        for k in total:
+            total[k] += got[k]
+        for k in lm_var:
+            lm_var[k] += lv[k]
+        for k in fa_var:
+            fa_var[k] += fv[k]
+    step_ms = statistics.median(ms[1:])
+    peak = (torch.cuda.max_memory_allocated() if device == "cuda" else 0)
+    # the last step under the profiler: where a step's device time goes
+    prof = None
+    if device == "cuda":
+        b = synthetic_batch(rng, cfg.vocab_size, batch, S, device)
+        box = {}
+
+        def one():
+            box["out"] = placed(params, adapters, opt_state, b)
+        reset_counts()
+        prof = device_profile(one, top=8)
+        if counts() != want:
+            fail(f"8c profiled step: launches {counts()}, want {want}")
+        adapters, opt_state, _ = box["out"]
+        for k in total:
+            total[k] += want[k]
+        lm_var["wgmma"] += want["lora_matmul"]
+        fa_var["mma"] += want["flash_attention"]
+    out = {"config": f"{cfg.name}, {cfg.num_layers} layers, d "
+           f"{cfg.d_model}, bf16, global batch {batch} x seq {S} "
+           f"({SHAPE_8C}'s seq; its batch {get_input_shape(SHAPE_8C).global_batch} "
+           f"cut to {batch}), rank {RANK_8C}, {STEP_KW_8C}",
+           "init_s": init_s, "ms_per_step": ms, "median_ms": step_ms,
+           "tokens_per_s": batch * S / step_ms * 1e3, "losses": losses,
+           "peak_memory_bytes": peak, "predicted_per_step": want,
+           "profile": prof,
+           "launches": total, "lora_matmul_variants": lm_var,
+           "flash_attention_variants": fa_var}
+    del params, adapters, opt_state
+    release()
+    return out
+
+
+def phase_8d(cfg_full=None, seq=SEQ_8D, device="cuda"):
+    """(d) the same step card vs CPU in f32 at full width with 2 of the
+    24 layers: the loss to 1e-4 and Adam's mu after one step (the first
+    step's adapter gradients, times 1 - b1) to 1e-3 of each leaf's
+    largest entry. Weights drawn on the card and copied to the host."""
+    cfg_full = cfg_full or qwen2_0_5b.qwen2_0_5b()
+    cfg = cfg_full.with_overrides(num_layers=DEPTH_8D)
+    lora = LoRAConfig(rank=RANK_8C)
+    params = {device: T.init_params(cfg, seed=1, dtype=torch.float32,
+                                    device=device)}
+    params["cpu"] = to(params[device], "cpu")
+    ads = nontrivial(T.init_adapters(cfg, lora, seed=2, rank=RANK_8C,
+                                     device="cpu"), 2)
+    batch = synthetic_batch(np.random.default_rng(1), cfg.vocab_size, 2,
+                            seq, "cpu")
+    got = {}
+    for dev in ("cpu", device):
+        step, _ = train_mod.make_train_step(cfg, lora, lr=LR_8C,
+                                            **STEP_KW_8D)
+        a = to(ads, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, opt, m = step(params[dev], a, adam(LR_8C).init(a),
+                         to(batch, dev))
+        loss = float(m["loss"])
+        got[dev] = {"loss": loss, "mu": to(opt.mu, "cpu"),
+                    "s": time.perf_counter() - t0,
+                    "launches": counts(),
+                    "lora_matmul_variants": variant_counts(),
+                    "flash_attention_variants": flash_variant_counts()}
+    loss_err = abs(got[device]["loss"] - got["cpu"]["loss"])
+    mu_err = max(maxabs(x, y) / max(float(y.abs().max()), 1e-30)
+                 for x, y in zip(leaves(got[device]["mu"]),
+                                 leaves(got["cpu"]["mu"])))
+    if not (loss_err < LOSS_TOL_8D and mu_err < MU_TOL_8D):
+        fail(f"8d card vs CPU: loss {loss_err} (tol {LOSS_TOL_8D}), mu "
+             f"{mu_err} of the largest entry (tol {MU_TOL_8D})")
+    want = step_prediction(cfg, STEP_KW_8D["microbatch"],
+                           STEP_KW_8D["remat"])
+    if device == "cuda" and got[device]["launches"] != want:
+        fail(f"8d launches {got[device]['launches']}, want {want}")
+    out = {"config": f"{cfg.name}, {DEPTH_8D} of {cfg_full.num_layers} "
+           f"layers, full width, f32, batch 2 x seq {seq}, {STEP_KW_8D}",
+           "loss_card": got[device]["loss"], "loss_cpu": got["cpu"]["loss"],
+           "loss_err": loss_err, "mu_rel_err": mu_err,
+           "card_s": got[device]["s"], "cpu_s": got["cpu"]["s"],
+           **{k: got[device][k] for k in ("launches", "lora_matmul_variants",
+                                          "flash_attention_variants")}}
+    del params, got
+    release()
+    return out
+
+
+def check_train_4k(cfg):
+    """(e) the step's new kernel shapes: lora_matmul bf16 at 2 x 4096
+    rows (one microbatch) for o (896 -> 896), up/gate (896 -> 4864) and
+    down (4864 -> 896) at rank 8; flash bf16 at B 2, S 4096, 14 heads on
+    2, head dim 64, causal."""
+    rows_ = 2 * get_input_shape(SHAPE_8C).seq_len
+    d, f = cfg.d_model, cfg.d_ff
+    cases = [("o", "train_4k", 1, rows_, d, d),
+             ("up/gate", "train_4k", 1, rows_, d, f),
+             ("down", "train_4k", 1, rows_, f, d)]
+    out = check_lora(cfg, torch.bfloat16, cases, slot=RANK_8C)
+    out += check_flash(cfg, torch.bfloat16, (get_input_shape(
+        SHAPE_8C).seq_len,), B=2)
+    for r in out:
+        r["mode"] = "train_4k"
+    return out
+
+
+def phase_8(device="cuda"):
+    """Phase 8: (a)+(b) the CLI, (c) the train_4k step, (d) card vs CPU,
+    (e) the new kernel shapes; each path driven with the counts set to
+    0 just before it and read just after. Checkpoints go to a temporary
+    directory in the checkout, removed at the end."""
+    root = tempfile.mkdtemp(prefix=".chip_ckpt_8_", dir=HERE)
+    try:
+        a = phase_8a(root, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c = phase_8c(device=device)
+    d = phase_8d(device=device)
+    e = check_train_4k(qwen2_0_5b.qwen2_0_5b())
+    paths = {f"smollm-135m train CLI --full, steps {EVERY_8A}-"
+             f"{STEPS_8A - 1} resumed in-process (8a)": a["resume_launch"]}
+    for s in a["sims"]:
+        r = s["run"]
+        paths[f"--simulate {r['simulate']} {r['participation']} "
+              f"{r.get('engine', 'batched')} {r['rounds']} rounds, "
+              f"build_sim in-process (8b)"] = s["launched"]
+    paths[f"qwen2-0.5b train_4k step x {STEPS_8C}, the last profiled "
+          f"(8c)"] = c
+    paths[f"qwen2-0.5b {DEPTH_8D} layers f32 card step (8d)"] = d
+    return {"a": a, "c": c, "d": d, "rows": e,
+            "paths": {p: r["launches"] for p, r in paths.items()},
+            "runs": list(paths.values())}
+
+
+def print_8(p8):
+    a, c, d = p8["a"], p8["c"], p8["d"]
+    print(f"[8a] {a['cli']}: {a['steps']} steps, a checkpoint every "
+          f"{a['every']}: loss {a['losses'][0][1]:.4f} -> "
+          f"{a['losses'][-1][1]:.4f} (printed at steps "
+          f"{[i for i, _ in a['losses']]}); 10 steps in a subprocess, then "
+          f"--resume in this process ({a['resume_s']:.1f} s, launches "
+          f"{a['resume_launch']['launches']}): both checkpoints' "
+          f"{a['leaves_compared']} leaves bit-equal to the uninterrupted "
+          f"run's (meta step {a['meta_step']}); planted faults: resume "
+          f"without the RNG state ({a['planted_rng_leaves_differing']} "
+          f"leaves differ, caught), another --lr refused "
+          f"({a['planted_lr_refused']!r}); subprocesses "
+          f"{a['subprocess_wall_s']:.1f} s wall", flush=True)
+    for s in a["sims"]:
+        print(f"[8b] --simulate {s['run']}: {len(s['lines'])} round lines "
+              f"equal to build_sim's in-process run ({s['lines'][-1]}; "
+              f"{s['done']}); launches in-process "
+              f"{s['launched']['launches']}", flush=True)
+    print(f"[8c] {c['config']}: init {c['init_s']:.1f} s; "
+          f"{c['median_ms']:.1f} ms/step (median of steps 1-"
+          f"{len(c['ms_per_step']) - 1}; each {[round(x, 1) for x in c['ms_per_step']]}), "
+          f"{c['tokens_per_s']:.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in c['losses']]}; peak memory "
+          f"{c['peak_memory_bytes'] / 2**30:.2f} GiB; launches per step "
+          f"{c['predicted_per_step']} as predicted, lora_matmul "
+          f"{c['lora_matmul_variants']}, flash {c['flash_attention_variants']}"
+          f" over {STEPS_8C} steps (the last profiled)", flush=True)
+    pr = c["profile"]
+    print(f"[8c] a profiled step: wall {pr['wall_ms']:.1f} ms, device "
+          f"{pr['device_ms']:.1f} ms (busy {pr['busy_share']:.3f}); port "
+          f"kernels: " + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                                   for k, t in pr["port_kernels"].items())
+          + "; top: " + "; ".join(f"{t['kernel'][:60]} {t['ms']:.2f} ms "
+                                  f"x{t['count']}" for t in pr["top"]),
+          flush=True)
+    print(f"[8d] {d['config']}: loss card {d['loss_card']:.6f}, CPU "
+          f"{d['loss_cpu']:.6f} (|diff| {d['loss_err']:.3g}, tol "
+          f"{LOSS_TOL_8D}); first step's mu max rel {d['mu_rel_err']:.3g} "
+          f"(tol {MU_TOL_8D}); card {d['card_s']:.1f} s, CPU "
+          f"{d['cpu_s']:.1f} s; launches {d['launches']}", flush=True)
+    for r in p8["rows"]:
+        extra = (f", kernel alone {r['kernel_ms']:.4f} ms "
+                 f"({r['kernel_tflops']:.1f} TFLOP/s)"
+                 if r["name"] == "lora_matmul" else
+                 f", per row vs f32 {r['row_rel_err']:.3g} (tol "
+                 f"{r['row_tol']}; keys {r['planted_keys']} lost: "
+                 f"{r['planted_row_rel_err']:.3g}, max abs "
+                 f"{r['planted_abs_err']:.3g}), {r['tflops']:.1f} TFLOP/s, "
+                 f"{r['vs_library']:.2f}x SDPA")
+        print(f"[8e] {r['name']} {r.get('linear', '')} {r['variant']} "
+              f"{r['dtype']} {r['shape']}: err {r['max_abs_err']:.3g} (tol "
+              f"{r['tol']}), ms {r['ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}){extra}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -4851,6 +5410,10 @@ def main() -> int:
         if r["name"] == "flash_attention":
             rel += (f", {r['variant']} block {r['block']}: "
                     f"{r['tflops']:.1f} TFLOP/s, {r['vs_library']:.2f}x SDPA")
+            if "row_rel_err" in r:
+                rel += (f", per row vs f32 {r['row_rel_err']:.3g} (keys "
+                        f"{r['planted_keys']} lost: "
+                        f"{r['planted_row_rel_err']:.3g})")
         if r["name"] == "wkv6":
             rel += f", logw {r['logw_dtype']}, {r['plan']}"
         if "train_ms" in r:
@@ -5107,6 +5670,13 @@ def main() -> int:
     p7b = phase_7b()
     print_7(p7a, p7b)
     took("7")
+    # the training entry point: each path driven with the counts set to
+    # 0 just before it and read just after (inside phase_8a, sim_in_process,
+    # phase_8c and phase_8d)
+    p8 = phase_8()
+    print_8(p8)
+    rows += p8["rows"]
+    took("8")
     serve6 = [("qwen2-0.5b paged and dense engines in lockstep, churn "
                "(6a)", {"launches": p6["a"]["lockstep_launches"],
                         "lora_matmul_variants":
@@ -5268,12 +5838,14 @@ def main() -> int:
         if name != "wkv6":
             by_path.update({p: c[name] for p, c in round_paths.items()})
             by_path.update({p: r["launches"][name] for p, r in serve6})
+            by_path.update({p: c[name] for p, c in p8["paths"].items()})
         by_path.update({p: c[name] for p, c in rwkv_paths.items()})
         extra = {}
         if name == "lora_matmul":
             extra["launches_by_variant"] = {
                 k: sum(run["lora_matmul_variants"][k]
-                       for run in runs + round_runs + [r for _, r in serve6])
+                       for run in runs + round_runs + [r for _, r in serve6]
+                       + p8["runs"])
                 for k in lm_ops.launches_by_variant}
             extra["kernel_ms"] = head["kernel_ms"]   # t = x·A given
         if name != "wkv6":
@@ -5284,7 +5856,8 @@ def main() -> int:
         if name == "flash_attention":
             extra["launches_by_variant"] = {
                 k: sum(run["flash_attention_variants"][k]
-                       for run in runs + round_runs + [r for _, r in serve6])
+                       for run in runs + round_runs + [r for _, r in serve6]
+                       + p8["runs"])
                 for k in fa_ops.launches_by_variant}
             extra["block"] = head["block"]
         if name == "wkv6":
@@ -5316,6 +5889,8 @@ def main() -> int:
                    "modes": p5e, "resume_and_presets": p5f,
                    "serving_rest": p6, "serving_archs": p6d,
                    "zamba2_served": p7a, "rwkv6_round": p7b,
+                   "training_entry_point": {k: v for k, v in p8.items()
+                                            if k != "runs"},
                    "phase_seconds": seconds}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

@@ -8,13 +8,16 @@ constants, :class:`MoEConfig`, :class:`MLAConfig`, :class:`SSMConfig`,
 :class:`EnergyAllocConfig`, :class:`MobilityConfig`) and scenario specs
 (:class:`TraceSpec`, :class:`OutageSpec`, :class:`RSUTierSpec`,
 :class:`ParticipationSpec`, :class:`ShardSpec`, :class:`CheckpointSpec`),
+the launch layer's :class:`InputShape` table and :class:`MeshConfig`,
 and the ``--arch`` registry. Each keeps the reference's names, defaults
 and validation for the fields it has. :class:`ModelConfig` has all of the
 reference's fields, so that a config's checkpoint fingerprint is the
 reference's.
 :class:`ServeSpec` leaves out the reference's ``donate`` (JAX buffer
 donation), which has no torch counterpart. The simulator refuses the
-shardings it does not run yet.
+shardings it does not run yet. The reference's ``HardwareConfig`` /
+``HW_V5E`` (TPU v5e roofline constants) have no copy here: the port
+states no TPU figure.
 """
 from __future__ import annotations
 
@@ -188,6 +191,26 @@ class ModelConfig:
         counts["total"] = total + counts["embed"]
         counts["active"] = active + counts["embed"]
         return counts
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -465,6 +488,33 @@ class ServeSpec:
 
 
 # ---------------------------------------------------------------------------
+# Mesh / launch
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    # single pod: (data=16, model=16) = 256 devices; multi-pod adds pod=2
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod else (
+            self.data, self.model)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_chips(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -488,3 +538,9 @@ def get_arch(arch_id: str) -> ModelConfig:
 def list_archs() -> List[str]:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def get_input_shape(name: str) -> InputShape:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown input shape {name!r}; have {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]

@@ -329,18 +329,47 @@ def _cache_len(kind, seg_cache) -> int:
 
 
 def _run_layers(params, adapters, x, cfg, scale, positions, window,
-                caches=None):
+                caches=None, remat=False):
     """Every segment's layers, then the final norm. Returns (x, aux
     summed over the layers).
 
     zamba2: in a mamba2 segment the shared block runs after each group
     of ``shared_attn_every`` layers, and not after the remainder layers
     (reference ``_scan_mamba_with_shared``); application j reads and
-    writes shared cache j."""
+    writes shared cache j.
+
+    remat: each block, and the shared block at each application, runs
+    under ``torch.utils.checkpoint`` (non-reentrant): nothing inside it
+    is kept for the backward pass, which recomputes it (the reference's
+    ``nothing_saveable`` policy); the kernels' Functions launch again
+    in the recompute."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     adapters = adapters or {}
     seg_ads = adapters.get("segments", [None] * len(params["segments"]))
     shared_c = None if caches is None else caches.get("shared_attn")
+    checkpointed = remat and caches is None and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if not checkpointed:
+            return fn(*args)
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)   # blocks draw nothing
+
+    def block(kind, p, ad, h, cache, cache_index):
+        h, _, aux = _block_apply(kind, p, ad, h, cfg, scale, positions,
+                                 cache=cache, cache_index=cache_index,
+                                 sliding_window=window)
+        return h, aux
+
+    def shared_block(h, sc):
+        return _shared_attn_apply(
+            params["shared_attn"], adapters.get("shared_attn"), h, cfg,
+            scale, positions, cache=sc,
+            cache_index=(None if sc is None else
+                         positions[:, 0] % sc["k"].shape[1]),
+            sliding_window=window)
+
     applied = 0
     for s, (kind, n) in enumerate(segments_of(cfg)):
         seg_p, seg_ad = params["segments"][s], seg_ads[s]
@@ -349,34 +378,32 @@ def _run_layers(params, adapters, x, cfg, scale, positions, window,
                        else positions[:, 0] % _cache_len(kind, seg_c))
         every = cfg.shared_attn_every if kind == BLOCK_MAMBA2 else 0
         for i in range(n):
-            x, _, aux = _block_apply(
-                kind, _layer(seg_p, i),
-                None if seg_ad is None else _layer(seg_ad, i),
-                x, cfg, scale, positions,
-                cache=None if seg_c is None else _layer(seg_c, i),
-                cache_index=cache_index, sliding_window=window)
+            x, aux = run(
+                block, kind, _layer(seg_p, i),
+                None if seg_ad is None else _layer(seg_ad, i), x,
+                None if seg_c is None else _layer(seg_c, i), cache_index)
             aux_total = aux_total + aux
             if every and (i + 1) % every == 0:
                 sc = None if shared_c is None else _layer(shared_c, applied)
-                x = _shared_attn_apply(
-                    params["shared_attn"], adapters.get("shared_attn"), x,
-                    cfg, scale, positions, cache=sc,
-                    cache_index=(None if sc is None else
-                                 positions[:, 0] % sc["k"].shape[1]),
-                    sliding_window=window)
+                x = run(shared_block, x, sc)
                 applied += 1
     return apply_norm(params["final_norm"], x, cfg.norm), aux_total
 
 
 def forward_hidden(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
-                   batch: Dict, *, sliding_window=None, scale=None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   batch: Dict, *, sliding_window=None, remat: bool = False,
+                   scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: final-norm hidden states (B, P + S, d) and the
     MoE aux loss summed over layers (0 without MoE).
 
     batch: tokens (B, S) [, prefix_embeds (B, P, d)]: the prefix (a VLM's
     patch embeddings, stubbed as in the reference) is prepended to the
     token embeddings, and positions run over P + S.
+    remat: checkpoint each block (recomputed in the backward pass).
+    The reference's ``constrain`` (a sharding constraint on the residual
+    stream) and ``scan_unroll`` are not taken: on one device the first
+    is the identity, and the layers run as a plain Python loop, so there
+    is nothing to unroll (ROADMAP Queue 1, item 12).
     scale: optional override of lora.scale — a scalar, or a
     ``(scale, rank_mask)`` pair (see :func:`core.lora.split_scale`)."""
     scale = lora.scale if scale is None else scale
@@ -387,7 +414,8 @@ def forward_hidden(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     window = sliding_window or cfg.sliding_window
-    return _run_layers(params, adapters, x, cfg, scale, positions, window)
+    return _run_layers(params, adapters, x, cfg, scale, positions, window,
+                       remat=remat)
 
 
 def forward(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
@@ -527,15 +555,17 @@ def _ce_of(params, cfg, h_blk, lab_blk, mask_blk):
 
 
 def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
-            batch: Dict, *, ce_chunk: int = 0, scale=None,
+            batch: Dict, *, remat: bool = False, ce_chunk: int = 0,
+            scale=None,
             lanes: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE, or classification CE when ``labels`` has rank 1.
 
-    batch: tokens (B, S) int64 [, prefix_embeds (B, P, d), whose P hidden
-    rows are dropped before the CE]; labels (B, S) shifted targets with
-    -100 = masked, or (B,) class labels (ViT-style classification on the
-    last position, the paper's tasks). ce_chunk > 0: the lm head and CE run
+    batch: tokens (B, S) int32 or int64 [, prefix_embeds (B, P, d), whose
+    P hidden rows are dropped before the CE]; labels (B, S) shifted targets
+    with -100 = masked, or (B,) class labels (ViT-style classification on
+    the last position, the paper's tasks). remat: as
+    :func:`forward_hidden`. ce_chunk > 0: the lm head and CE run
     over sequence chunks of that size, each recomputed in the backward
     pass (torch.utils.checkpoint), so at most B x chunk x V logits live at
     once. Returns (loss + aux, {"loss", "aux", "accuracy"}).
@@ -550,8 +580,8 @@ def loss_fn(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     not apply with lanes.
     """
     hidden, aux = forward_hidden(params, adapters, cfg, lora, batch,
-                                 scale=scale)
-    labels = batch["labels"]
+                                 remat=remat, scale=scale)
+    labels = batch["labels"].long()
     if lanes is not None:
         return _lane_loss(params, cfg, hidden, labels, aux, lanes)
     if labels.dim() == 1:

@@ -895,3 +895,71 @@ def _nontrivial_tree(ads, seed):
             return {k: fill(v) for k, v in node.items()}
         return [fill(v) for v in node]
     return fill(ads)
+
+
+def _train_batch(vocab, B, S, seed):
+    """The training CLI's synthetic task: tok_{t+1} = (7·tok_t + 1) mod V."""
+    rng = np.random.default_rng(seed)
+    seq = [rng.integers(0, vocab, size=(B, 1))]
+    for _ in range(S):
+        seq.append((seq[-1] * 7 + 1) % vocab)
+    toks = np.concatenate(seq, 1)
+    return {"tokens": torch.as_tensor(toks[:, :-1]),
+            "labels": torch.as_tensor(toks[:, 1:])}
+
+
+def test_bf16_train_step_launches_by_variant(cuda_device):
+    """make_train_step at qwen2-0.5b's width, 2 layers, bf16, seq 256:
+    remat, 2 microbatches. Per forward 4 lora_matmul a layer (q/k/v are
+    biased: plain route) on wgmma and one flash on mma; 2 microbatches,
+    each forward run twice (remat's recompute). Three steps on one batch
+    lower its loss."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adam import adam
+    cfg = qwen2_0_5b.qwen2_0_5b().with_overrides(num_layers=2)
+    lora = LoRAConfig(rank=8)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    ads = _to(_nontrivial_tree(T.init_adapters(cfg, lora, seed=1, rank=8,
+                                               device="cpu"), 3), "cuda")
+    opt = adam(1e-3).init(ads)
+    _, placed = train_mod.make_train_step(
+        cfg, lora, make_mesh((1, 1), ("data", "model"), "cuda"), lr=1e-3,
+        remat=True, ce_chunk=128, microbatch=2)
+    losses = []
+    batch = _to(_train_batch(cfg.vocab_size, 4, 256, 5), "cuda")
+    for step in range(3):
+        lm0, fa0 = dict(lm_ops.launches_by_variant), dict(
+            fa_ops.launches_by_variant)
+        ads, opt, m = placed(params, ads, opt, batch)
+        losses.append(float(m["loss"]))
+        lm = {k: v - lm0[k] for k, v in lm_ops.launches_by_variant.items()}
+        fa = {k: v - fa0[k] for k, v in fa_ops.launches_by_variant.items()}
+        assert lm == {"wgmma": 4 * 2 * 2 * 2, "splitk": 0, "simt": 0}
+        assert fa == {"mma": 2 * 2 * 2, "simt": 0}
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_f32_train_step_card_matches_cpu(cuda_device):
+    """The same step in f32 at qwen2-0.5b's width, 2 layers, seq 128: the
+    loss to 1e-4 and the first step's mu to 1e-3 of each leaf's largest
+    entry, card against CPU."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adam import adam
+    cfg = qwen2_0_5b.qwen2_0_5b().with_overrides(num_layers=2)
+    lora = LoRAConfig(rank=8)
+    params = T.init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    ads = _nontrivial_tree(T.init_adapters(cfg, lora, seed=2, rank=8,
+                                           device="cpu"), 2)
+    batch = _train_batch(cfg.vocab_size, 2, 128, 7)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        step, _ = train_mod.make_train_step(cfg, lora, lr=1e-3, remat=True,
+                                            ce_chunk=64, microbatch=2)
+        a = _to(ads, dev)
+        _, opt, m = step(_to(params, dev), a, adam(1e-3).init(a),
+                         _to(batch, dev))
+        out[dev] = (float(m["loss"]), _to(opt.mu, "cpu"))
+    assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-4
+    for x, y in zip(leaves(out["cuda"][1]), leaves(out["cpu"][1])):
+        assert float((x - y).abs().max()) < 1e-3 * float(y.abs().max())
