@@ -258,7 +258,30 @@ Phases (any failure raises; nothing is caught):
    library call and the bound. Every bf16 flash row, here and in phase
    2, is also held per query row against the plain version in f32
    (FLASH_ROW_TOL), and must catch a planted lost tile of 64 keys.
-9. Print the ``kernels`` JSON line, then the final ``{"ok": true, ...}``.
+9. The device-sharded fleet (``engine="fused_sharded"``), two or four
+   shards on the one card (``fleet_devices=["cuda:0"] * N``: both shards
+   share it, so no speed-up is claimed). (a) The reduced ViT at the
+   reference test's shape (6 vehicles, 2 tasks, 1 local step, 2 rounds)
+   at N 2 and 4, round-robin and block: the card's sharded run against
+   the CPU's sharded run and against the card's unsharded fused run
+   (active sets, ranks, departures, fallbacks, comm_params and UCB-DUAL
+   counts exact; energy, latency, merged deltas and UCB sums 1e-4); the
+   dense-rsu tier and rsu-outage under semi_sync at N 2 against their
+   unsharded fused runs (partials' and buffers' weights too, ages and
+   destinations exact); a sharded replay against the same rounds run
+   eagerly (1e-6); one capture per topology (N + 2 graphs a round); two
+   planted faults (a shard's partial merged delta dropped from the home
+   sum; the host mirror left in slot order) must fail their gates. (b)
+   vit-base-paper at full width and depth, the default SimConfig, over 2
+   shards for 2 rounds against phase 5c's fused rounds of the same seed
+   (ranks, active sets, departures, fallbacks and comm_params exact;
+   energy and latency 1e-5; round-0 merged deltas within 5b's
+   serial-spread limit); each shard's ``lora_matmul`` launches at
+   capture equal to its lanes' forwards, all ``simt``; the round's wall
+   time (the eager round and the capture, then a profiled replay),
+   device time, busy share and each shard's peak memory.
+10. Print the ``kernels`` JSON line, then the final ``{"ok": true,
+   ...}``.
 
 Phase 2 also holds the kernels at the round's shapes: f32
 ``lora_matmul`` (simt) for 768->768, 768->3072 and 3072->768 at a train
@@ -298,7 +321,7 @@ from repro_torch.checkpoint import (latest_checkpoint,  # noqa: E402
                                     save_checkpoint, save_pytree)
 from repro_torch.config import (CheckpointSpec, LoRAConfig,  # noqa: E402
                                 OutageSpec, ParticipationSpec, RSUTierSpec,
-                                ServeSpec)
+                                ServeSpec, ShardSpec)
 from repro_torch.config import BLOCK_ATTN, get_input_shape  # noqa: E402
 from repro_torch.configs import (deepseek_v2_236b, gemma_7b,  # noqa: E402
                                  grok1_314b, musicgen_medium, paligemma_3b,
@@ -5325,6 +5348,500 @@ def print_8(p8):
               f"({r['bound_by']}){extra}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the device-sharded fleet
+# ---------------------------------------------------------------------------
+
+# the reference test's _sim: 6 vehicles, 2 tasks, 1 local step, 2 rounds
+SHARD_KW_9A = dict(num_vehicles=6, num_tasks=2, local_steps=1, seed=3)
+ROUNDS_9 = 2
+TOPOLOGIES_9A = ((2, "roundrobin"), (2, "block"), (4, "roundrobin"),
+                 (4, "block"))
+# the presets at N 2 (seed 1, their own fleets; rsu-outage's max_delay 3)
+PRESETS_9A = (("dense-rsu", {}, ROUNDS_9),
+              ("rsu-outage", {"participation": ParticipationSpec(
+                  mode="semi_sync", max_delay=3)}, 6))
+SHARDS_9B = 2
+# 9b against 5c's fused rounds: the reduced-ViT tolerance of 5a is 1e-4
+# (card vs CPU); one card and one seed at full width, 1e-5 as 5c holds
+# fused to batched
+SHARD_TOL_9B = 1e-5
+
+
+def card_shards(n):
+    """n shards, all on the one card."""
+    return ["cuda:0"] * n
+
+
+def shard_sim(device, n=None, placement="roundrobin", preset=None,
+              capture=None, fault=None, arch=None, **modes):
+    """SHARD_KW_9A's SimConfig (or ``preset``, a (name, SimConfig fields,
+    rounds) of PRESETS_9A) on ``device``: unsharded fused without ``n``,
+    else over n shards on ``device`` repeated. ``capture=False`` runs the
+    program eagerly; ``fault(engine)`` plants a fault."""
+    kw = {}
+    if n is not None:
+        devs = ["cpu"] * n if device == "cpu" else card_shards(n)
+        kw = {"engine": "fused_sharded", "fleet_devices": devs,
+              "shard": ShardSpec(num_shards=n, placement=placement)}
+    if preset is not None:
+        name, fields, rounds = preset
+        sim = scenarios.build_sim(name, rounds=rounds, seed=1,
+                                  device=device,
+                                  **{"engine": "fused", **fields, **kw})
+    else:
+        sim_kw = {"fleet_devices": kw.pop("fleet_devices")} if kw else {}
+        if arch is not None:
+            modes["train_arch"] = arch
+        sim = IoVSimulator(SimConfig(**{"engine": "fused", **SHARD_KW_9A,
+                                        **modes, **kw}),
+                           device=device, **sim_kw)
+    if capture is False:
+        sim.fused = FusedRoundEngine(sim, capture=False,
+                                     devices=sim.fleet_devices)
+    if fault is not None:
+        fault(sim.fused)
+    sim.plans_9 = []
+    recording(sim, sim.plans_9)
+    sim.state_9 = {"recs": [], "plans": [], "merged": [], "ucb": [],
+                   "modes": []}
+    return sim
+
+
+def shard_round(sim):
+    """One round of a phase-9 simulator and its readings: the record, the
+    plans, the merged deltas and UCB-DUAL states (on the CPU), the
+    tier's partials and semi_sync's buffer."""
+    st, nt = sim.state_9, sim.cfg.num_tasks
+    st["recs"].append(sim.run_round())
+    st["plans"].append(sim.plans_9[-nt:])
+    st["merged"].append([None if s.merged is None else
+                         tree_map(lambda t: t.cpu(), s.merged)
+                         for s in sim.servers])
+    st["ucb"].append([tuple(x.cpu().clone() for x in u)
+                      for u in sim.ucb_states])
+    st["modes"].append(None if (sim.cfg.rsu_tier.trivial
+                                and sim.cfg.participation.trivial)
+                       else mode_states(sim))
+    return st
+
+
+def shard_alone(sim, rounds=ROUNDS_9):
+    for _ in range(rounds):
+        shard_round(sim)
+    return sim.state_9
+
+
+def shard_lockstep(base, others, rounds=ROUNDS_9):
+    """``base`` and each of ``others`` round by round; each other's round
+    r >= 1 starts from base's state after round r - 1
+    (:func:`adopt_mode_state`) and trains from base's SVD redistribution
+    (:func:`share_distribution`), so that each round is compared from one
+    state (5e's method). Returns base's readings."""
+    for rnd in range(rounds):
+        if rnd:
+            for o in others:
+                adopt_mode_state(o, base)
+                if rnd == 1:
+                    share_distribution(o, base)
+        shard_round(base)
+        for o in others:
+            shard_round(o)
+    return base.state_9
+
+
+def shard_gates(got, want, tol, label, fro=None, check=True):
+    """``got`` (a sharded run's readings) against ``want``'s, round by
+    round: plans (active sets, ranks, departures), active, departing,
+    handoffs, fallbacks, comm_params, mean_rank, deferred, released,
+    which tasks have merged deltas, and UCB-DUAL counts exact; energy and
+    latency relative, UCB-DUAL sums and the merged deltas relative to
+    each leaf's largest entry, each within ``tol``; from round 1 on, with
+    ``fro``, the merged deltas as a Frobenius spread within ``fro``
+    instead (the largest entry recorded); a tier's partials and
+    semi_sync's buffer: weights within ``tol``, ages, destinations and
+    vehicles exact, deltas as a spread within ``fro`` (else ``tol``).
+    Fails (when ``check``) on any gate; returns the largest
+    differences."""
+    err = {"energy": 0.0, "latency": 0.0, "merged_round0": 0.0,
+           "merged": 0.0, "merged_fro": 0.0, "ucb_sums": 0.0,
+           "weights": 0.0, "modes_fro": 0.0}
+    exact = []
+    for rnd, (g, w) in enumerate(zip(got["recs"], want["recs"])):
+        if got["plans"][rnd] != want["plans"][rnd]:
+            exact.append(f"round {rnd} plans")
+        for gt, wt in zip(g["tasks"], w["tasks"]):
+            for key in ("active", "departing", "handoffs", "fallbacks",
+                        "comm_params", "mean_rank", "deferred",
+                        "released"):
+                if gt.get(key) != wt.get(key):
+                    exact.append(f"round {rnd} {gt['task']} {key} "
+                                 f"{gt.get(key)} vs {wt.get(key)}")
+            for key in ("energy", "latency"):
+                err[key] = max(err[key], abs(gt[key] - wt[key])
+                               / max(abs(wt[key]), 1e-12))
+        pairs = list(zip(got["merged"][rnd], want["merged"][rnd]))
+        if any((a is None) != (b is None) for a, b in pairs):
+            exact.append(f"round {rnd} which tasks have merged deltas")
+        key = "merged" if rnd else "merged_round0"
+        for a, b in pairs:
+            if a is not None and b is not None:
+                e, f = _tree_rel(a, b)
+                err[key] = max(err[key], e)
+                if rnd:
+                    err["merged_fro"] = max(err["merged_fro"], f)
+        for gs, ws in zip(got["ucb"][rnd], want["ucb"][rnd]):
+            if not torch.equal(gs[0], ws[0]):
+                exact.append(f"round {rnd} UCB-DUAL counts")
+            for a, b in zip(gs[1:3], ws[1:3]):
+                err["ucb_sums"] = max(err["ucb_sums"], maxabs(a, b) / max(
+                    float(b.abs().max()), 1e-30))
+        if want["modes"][rnd] is not None:
+            d = mode_state_diff(got["modes"][rnd], want["modes"][rnd])
+            if d.pop("exact"):
+                exact.append(f"round {rnd} live partials, ages or the "
+                             f"buffer's vehicles")
+            err["weights"] = max(err["weights"], d["partial_w"],
+                                 d["buffer_w"])
+            err["modes_fro"] = max(err["modes_fro"], d["partials_fro"],
+                                   d["buffer_fro"])
+    held = {"energy": tol, "latency": tol, "merged_round0": tol,
+            "ucb_sums": tol, "weights": tol, "modes_fro": fro or tol}
+    held["merged_fro" if fro else "merged"] = fro or tol
+    bad = exact + [f"{k} {err[k]:.3g} > {v}" for k, v in held.items()
+                   if not err[k] <= v]
+    if check and bad:
+        fail(f"{label}: {bad[:6]}")
+    return {**err, "held": held, "failed": bad}
+
+
+def phase_9a():
+    """Phase 9a: the reduced ViT sharded on the card, per topology,
+    against the CPU's sharded run and the card's unsharded fused run, the
+    three from the CPU's state each round; the presets against the
+    card's fused runs; a replay against eager; two planted faults."""
+    t0 = time.perf_counter()
+    out = {"topologies": [], "presets": {}}
+    reset_counts()
+    for n, placement in TOPOLOGIES_9A:
+        cpu = shard_sim("cpu", n, placement)
+        card = shard_sim("cuda", n, placement)
+        fused = shard_sim("cuda")
+        shard_lockstep(cpu, [card, fused])
+        eng = card.fused
+        # round 0 from one seed; round 1 from the CPU's state and SVD,
+        # its merged deltas held as a Frobenius spread with the largest
+        # entry recorded: Adam's first step moves an entry of a near-zero
+        # gradient by up to 2·lr whichever way the rounding falls, so the
+        # card parts them from the CPU's by 1.1e-4 to 5.4e-4 of their
+        # largest entry (share_distribution; within 5e's MODE_FRO_LIMIT
+        # as a spread), and on the card 2-lane shards part them from the
+        # 6-lane fleet by 1.6e-4 (H100 80GB HBM3, 700.00 W: round 0
+        # 1.0e-6 apart, the lane count moves the rounding), 1.1e-5 as a
+        # spread, held within ROUND_TOL
+        vs_cpu = shard_gates(card.state_9, cpu.state_9, ROUND_TOL,
+                             f"sharded {n} {placement} card vs CPU",
+                             fro=MODE_FRO_LIMIT)
+        vs_fused = shard_gates(card.state_9, fused.state_9, ROUND_TOL,
+                               f"sharded {n} {placement} vs fused",
+                               fro=ROUND_TOL)
+        if not (eng.captures == 1 and eng.segments == n + 2):
+            fail(f"sharded {n} {placement}: {eng.captures} captures, "
+                 f"{eng.segments} graphs a round")
+        out["topologies"].append({
+            "shards": n, "placement": placement, "Vp": eng.Vp,
+            "slot": eng.slot.tolist(), "captures": eng.captures,
+            "segments": eng.segments,
+            "devices": [str(d) for d in eng.mesh.devices],
+            "vs_cpu": vs_cpu, "vs_fused": vs_fused})
+        del cpu, card, fused, eng
+        release()
+    for preset in PRESETS_9A:
+        name = preset[0]
+        want = shard_sim("cuda", preset=preset)
+        got = shard_sim("cuda", 2, preset=preset)
+        shard_lockstep(want, [got], preset[2])
+        recs = got.state_9["recs"]
+        out["presets"][name] = {
+            "rounds": preset[2], "vehicles": got.cfg.num_vehicles,
+            "deferred": sum(t.get("deferred", 0) for r in recs
+                            for t in r["tasks"]),
+            "released": sum(t.get("released", 0) for r in recs
+                            for t in r["tasks"]),
+            "handoffs": sum(t["handoffs"] for r in recs
+                            for t in r["tasks"]),
+            "captures": got.fused.captures,
+            **shard_gates(got.state_9, want.state_9, ROUND_TOL,
+                          f"sharded 2 {name} vs fused")}
+        del want, got
+        release()
+    # a replay against the same rounds run eagerly, one seed
+    replay = shard_alone(shard_sim("cuda", 2))
+    eager = shard_alone(shard_sim("cuda", 2, capture=False))
+    out["replay_vs_eager"] = fused_state_diff(replay, eager, ROUNDS_9)
+    if not out["replay_vs_eager"] <= REPLAY_TOL:
+        fail(f"sharded replay vs eager: {out['replay_vs_eager']} > "
+             f"{REPLAY_TOL}")
+    out["launches"] = counts()
+    out["lora_matmul_variants"] = variant_counts()
+    out["flash_attention_variants"] = flash_variant_counts()
+    # planted faults: each must fail its gate
+    planted = {}
+
+    def drop_shard(eng):
+        gather = eng._gather
+
+        def dropped():
+            gather()
+            for d in leaves(eng.stage[-1]["raw"]):
+                d.zero_()
+        eng._gather = dropped
+
+    def slot_order(eng):
+        eng._vehicle_order = lambda a, axis: a.narrow(axis, 0, eng.V)
+    for name, n, fault in (("dropped_shard_partial", 2, drop_shard),
+                           ("mirror_in_slot_order", 4, slot_order)):
+        want = shard_sim("cuda")
+        got = shard_sim("cuda", n, fault=fault)
+        shard_lockstep(want, [got])
+        gates = shard_gates(got.state_9, want.state_9, ROUND_TOL, name,
+                            check=False)
+        if not gates["failed"]:
+            fail(f"planted fault {name} passes the sharded gates")
+        planted[name] = gates
+        del want, got
+    out["planted"] = planted
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def shard_capture_spy(eng):
+    """During the capture: each shard's ``lora_matmul`` / flash launches
+    and the home segments'; during the eager first round: each shard's
+    peak memory above what its lane segment found allocated."""
+    spy = {"capturing": False, "shard_launches": [], "shard_peak_bytes":
+           [], "peak_bytes": 0}
+    lane, capture = eng._shard_main, eng._capture
+
+    def shard_main(sh):
+        before = counts()
+        if not spy["capturing"]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out = lane(sh)
+        if spy["capturing"]:
+            spy["shard_launches"].append({k: v - before[k]
+                                          for k, v in counts().items()})
+        else:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            spy["shard_peak_bytes"].append(peak - base)
+            spy["peak_bytes"] = max(spy["peak_bytes"], peak)
+        return out
+
+    def captured():
+        spy["capturing"] = True
+        before = counts()
+        capture()
+        spy["capturing"] = False
+        spy["capture_launches"] = {k: v - before[k]
+                                   for k, v in counts().items()}
+    eng._shard_main, eng._capture = shard_main, captured
+    return spy
+
+
+def phase_9b(base=None, limit=None):
+    """Phase 9b: vit-base-paper at full width and depth, the default
+    SimConfig, over SHARDS_9B shards on the card for ROUNDS_9 rounds,
+    against ``base``: phase 5c's fused rounds of the same seed (its
+    plans, records and round-0 merged deltas), else those rounds run
+    here (and counted in this phase's time). ``limit``: 5b's
+    serial-spread limit for the round-0 merged deltas."""
+    t0 = time.perf_counter()
+    cfg = vit_base_paper.vit_base_paper()
+    if base is None:
+        st = shard_alone(shard_sim("cuda", arch=cfg, **{
+            k: getattr(SimConfig(), k) for k in SHARD_KW_9A}))
+        base = {"plans": st["plans"], "recs": st["recs"],
+                "merged0": st["merged"][0]}
+        release()
+    sim = IoVSimulator(SimConfig(engine="fused_sharded", train_arch=cfg),
+                       device="cuda", fleet_devices=card_shards(SHARDS_9B))
+    eng, nt = sim.fused, sim.cfg.num_tasks
+    per_fwd = {k: n for k, n in round_per_fwd(cfg, sim.cfg.lora).items()
+               if k != "wkv6"}
+    steps = sim.cfg.local_steps
+    # a shard's lane segment: each task's training steps and local eval
+    # over its lanes; the home segment: each task's global eval
+    want_shard = {k: n * nt * (steps + 1) for k, n in per_fwd.items()}
+    want_home = {k: n * nt for k, n in per_fwd.items()}
+    want_round = {k: want_shard[k] * SHARDS_9B + want_home[k]
+                  for k in per_fwd}
+    plans = []
+    recording(sim, plans)
+    spy = shard_capture_spy(eng)
+    reset_counts()
+    state = {"plans": [], "recs": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    state["recs"].append(sim.run_round())
+    torch.cuda.synchronize()
+    round0_ms = (time.perf_counter() - t1) * 1e3
+    state["plans"].append(plans[-nt:])
+    merged0 = [s.merged for s in sim.servers]
+    # the lane segments reset the peak: the round's is the larger
+    peak0 = max(spy["peak_bytes"], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    prof = device_profile(lambda: recs.append(sim.run_round()), top=6)
+    state["recs"].append(recs[0])
+    state["plans"].append(plans[-nt:])
+    launched = counts()
+    lora_v, flash_v = variant_counts(), flash_variant_counts()
+    for rec in state["recs"]:
+        if not (np.isfinite(rec["energy"]) and np.isfinite(rec["accuracy"])):
+            fail("full-width sharded round: energy or accuracy not finite")
+    if eng.captures != 1:
+        fail(f"full-width sharded: {eng.captures} captures")
+    for i, got in enumerate(spy["shard_launches"]):
+        if {k: got[k] for k in want_shard} != want_shard:
+            fail(f"full-width sharded: shard {i} launched {got} at capture,"
+                 f" {want_shard} predicted")
+    caught = {k: spy.get("capture_launches", {}).get(k, 0)
+              for k in want_round}
+    if caught != want_round:
+        fail(f"full-width sharded: {caught} launches at capture, "
+             f"{want_round} predicted")
+    ours = prof["port_kernels"]
+    replayed = {"lora_matmul": ours.get("lora_mm_kernel", {}).get("count",
+                                                                  0),
+                "flash_attention": ours.get("fa_kernel", {}).get("count", 0)}
+    if replayed != want_round or set(ours) != {"lora_mm_kernel",
+                                               "fa_kernel"}:
+        fail(f"full-width sharded replay: the profiler saw {ours}, "
+             f"{want_round} predicted, all simt")
+    if lora_v["simt"] != launched["lora_matmul"] or \
+            flash_v["simt"] != launched["flash_attention"]:
+        fail(f"full-width sharded: launches off the simt kernels {lora_v} "
+             f"{flash_v}")
+    # against 5c's fused rounds of the same seed
+    rel = {"energy": 0.0, "latency": 0.0}
+    for rnd, (g, w) in enumerate(zip(state["recs"], base["recs"])):
+        if state["plans"][rnd] != base["plans"][rnd]:
+            fail(f"full-width sharded round {rnd}: active sets, ranks or "
+                 f"departures differ from the fused run's")
+        for gt, wt in zip(g["tasks"], w["tasks"]):
+            for key in ("active", "departing", "fallbacks", "comm_params",
+                        "mean_rank"):
+                if gt[key] != wt[key]:
+                    fail(f"full-width sharded round {rnd} {gt['task']}: "
+                         f"{key} {gt[key]} vs {wt[key]}")
+            for key in rel:
+                rel[key] = max(rel[key], abs(gt[key] - wt[key])
+                               / max(abs(wt[key]), 1e-12))
+    merged0 = [tree_map(lambda t: t.cpu(), m) for m in merged0]
+    spread = merged_spread(base["merged0"], merged0)
+    largest = merged_rel_err(base["merged0"], merged0)
+    if not max(rel.values()) <= SHARD_TOL_9B:
+        fail(f"full-width sharded vs fused: energy/latency {rel}")
+    if limit is not None and not spread <= limit:
+        fail(f"full-width sharded vs fused: round-0 merged deltas spread "
+             f"{spread} > {limit}")
+    return {"config": f"{cfg.name}, {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, f32; SimConfig(engine='fused_sharded') "
+            f"otherwise default, fleet_devices {card_shards(SHARDS_9B)}",
+            "shards": SHARDS_9B, "Vp": eng.Vp, "slot": eng.slot.tolist(),
+            "round0_wall_ms": round0_ms,
+            "warm_up_and_capture": "round 0 runs eagerly, then captures",
+            "round0_peak_memory_bytes": peak0,
+            "replay_wall_ms": prof["wall_ms"],
+            "replay_device_ms": prof["device_ms"],
+            "replay_busy_share": prof["busy_share"],
+            "replay_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "shard_peak_bytes": spy["shard_peak_bytes"],
+            "port_kernels": ours, "top": prof["top"],
+            "shard_launches_at_capture": spy["shard_launches"],
+            "launches_at_capture": caught, "predicted_per_shard": want_shard,
+            "predicted_per_round": want_round, "launches": launched,
+            "lora_matmul_variants": lora_v,
+            "flash_attention_variants": flash_v,
+            "energy_rel_err": rel["energy"],
+            "latency_rel_err": rel["latency"],
+            "merged_delta_spread_round0": spread, "limit": limit,
+            "merged_delta_rel_err_round0": largest,
+            "captures": eng.captures, "segments": eng.segments,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_9(base=None, limit=None):
+    out = {"a": phase_9a()}
+    release()
+    out["b"] = phase_9b(base, limit)
+    release()
+    return out
+
+
+def print_9(p9):
+    a, b = p9["a"], p9["b"]
+
+    def gates(g):
+        return ", ".join(f"{k} {g[k]:.3g}" for k in (
+            "energy", "latency", "merged_round0", "merged", "merged_fro",
+            "ucb_sums", "weights", "modes_fro") if k in g) + (
+            f" (held {g['held']}; counts exact)")
+    print(f"[9a] every shard on the one card ({card_shards(2)} / "
+          f"{card_shards(4)}): the shards share it; no speed-up is "
+          f"claimed", flush=True)
+    for t in a["topologies"]:
+        print(f"[9a] reduced ViT {SHARD_KW_9A}, {ROUNDS_9} rounds, "
+              f"{t['shards']} shards {t['placement']} (Vp {t['Vp']}, slots "
+              f"{t['slot']}): card vs CPU {gates(t['vs_cpu'])}; card vs "
+              f"unsharded fused {gates(t['vs_fused'])}; captures "
+              f"{t['captures']}, {t['segments']} graphs a round",
+              flush=True)
+    for name, p in a["presets"].items():
+        print(f"[9a] {name} ({p['vehicles']} vehicles, {p['rounds']} "
+              f"rounds, {p['deferred']} deferred, {p['released']} "
+              f"released, {p['handoffs']} handoffs) over 2 shards vs "
+              f"fused: {gates(p)}; captures {p['captures']}", flush=True)
+    print(f"[9a] sharded replay vs eager over {ROUNDS_9} rounds: "
+          f"{a['replay_vs_eager']:.3g} (tol {REPLAY_TOL}); planted faults: "
+          + "; ".join(f"{k} fails {v['failed'][:2]}"
+                      for k, v in a["planted"].items())
+          + f"; launches {a['launches']} (lora_matmul "
+          f"{a['lora_matmul_variants']}); {a['seconds']:.1f} s",
+          flush=True)
+    gib = 2 ** 30
+    print(f"[9b] {b['config']}: round 0 (eager, then the capture of "
+          f"{b['segments']} graphs) {b['round0_wall_ms']:.1f} ms, peak "
+          f"{b['round0_peak_memory_bytes'] / gib:.2f} GiB, each shard's "
+          f"lane segment peak "
+          + ", ".join(f"{x / gib:.2f}" for x in b["shard_peak_bytes"])
+          + f" GiB above its start; round 1 (a replay, profiled) wall "
+          f"{b['replay_wall_ms']:.1f} ms, device {b['replay_device_ms']:.1f}"
+          f" ms, busy {b['replay_busy_share']:.3f}, peak "
+          f"{b['replay_peak_memory_bytes'] / gib:.2f} GiB; launches at "
+          f"capture per shard {b['shard_launches_at_capture']} (predicted "
+          f"{b['predicted_per_shard']}), per round "
+          f"{b['launches_at_capture']}, all simt; captures "
+          f"{b['captures']}; port kernels: "
+          + "; ".join(f"{k} {t['ms']:.2f} ms x{t['count']}"
+                      for k, t in b["port_kernels"].items())
+          + "; top: " + "; ".join(f"{t['kernel'][:40]} {t['ms']:.2f} ms "
+                                  f"x{t['count']}" for t in b["top"][:4]),
+          flush=True)
+    print(f"[9b] sharded vs 5c's fused rounds: ranks, active sets, "
+          f"departures, fallbacks, comm_params equal; energy rel "
+          f"{b['energy_rel_err']:.3g}, latency rel "
+          f"{b['latency_rel_err']:.3g} (tol {SHARD_TOL_9B}); round-0 "
+          f"merged deltas spread {b['merged_delta_spread_round0']:.3g} "
+          f"(limit {b['limit']}), largest entry rel "
+          f"{b['merged_delta_rel_err_round0']:.3g} (recorded); "
+          f"{b['seconds']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -5541,6 +6058,14 @@ def main() -> int:
     for run in fulls.values():
         run.pop("_state")
     torch.cuda.empty_cache()
+    # phase 9b's baseline: 5c's first two rounds (their plans, records
+    # and round-0 merged deltas, on the host)
+    f5c = fused["_state"]
+    base9 = {"plans": f5c["plans"][:ROUNDS_9],
+             "recs": f5c["recs"][:ROUNDS_9],
+             "merged0": [tree_map(lambda t: t.cpu(), m)
+                         for m in f5c["merged"][0]]}
+    del f5c
     replay = replay_gates(fused.pop("_state"), 2)
     for full in fulls.values():
         for rd in full["rounds"]:
@@ -5677,6 +6202,12 @@ def main() -> int:
     print_8(p8)
     rows += p8["rows"]
     took("8")
+    # the device-sharded fleet: each path driven with the counts set to 0
+    # just before it and read just after (inside phase_9a, phase_9b)
+    p9 = phase_9(base9, limit)
+    del base9
+    print_9(p9)
+    took("9")
     serve6 = [("qwen2-0.5b paged and dense engines in lockstep, churn "
                "(6a)", {"launches": p6["a"]["lockstep_launches"],
                         "lora_matmul_variants":
@@ -5774,6 +6305,12 @@ def main() -> int:
     for name, p in p5f["presets"].items():
         round_paths[f"vit-base-paper {name} batched rounds 0-"
                     f"{p['rounds'] - 1} (5f)"] = p["launches"]
+    round_paths["vit-tiny-paper sharded fleet rounds, 2 and 4 shards "
+                "on the card, presets, replay and planted faults (9a)"] = \
+        p9["a"]["launches"]
+    round_paths[f"vit-base-paper {SHARDS_9B} shards on the card, "
+                f"{ROUNDS_9} fused_sharded rounds (9b)"] = \
+        p9["b"]["launches"]
     # each phase-2 row's launches in each round: vit-base-paper's in the
     # profiled rounds of 5b, vit-tiny-paper's in 5a's one round (its
     # round 0), by engine
@@ -5811,7 +6348,8 @@ def main() -> int:
                   + list(p5e["batched"].values())
                   + list(p5e["fused"].values())
                   + list(p7b["parity"].values()) + [p7b["batched"]]
-                  + list(p7b["fused_launches"].values()))
+                  + list(p7b["fused_launches"].values())
+                  + [p9["a"], p9["b"]])
     # phase 7b's round paths, the only ones with wkv6 in them
     rwkv_paths = {f"rwkv6-7b-reduced {e} round (7b)": p["launches"]
                   for e, p in p7b["parity"].items()}
@@ -5891,6 +6429,7 @@ def main() -> int:
                    "zamba2_served": p7a, "rwkv6_round": p7b,
                    "training_entry_point": {k: v for k, v in p8.items()
                                             if k != "runs"},
+                   "sharded_fleet": p9,
                    "phase_seconds": seconds}, fh, indent=1)
     print(smi())
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

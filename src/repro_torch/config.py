@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 # Block kinds understood by models/transformer.py
 BLOCK_ATTN = "attn"          # full (GQA/MQA) attention + MLP
@@ -356,7 +356,10 @@ class ParticipationSpec:
 @dataclass(frozen=True)
 class ShardSpec:
     """Fleet-axis device sharding of the fused round engine;
-    ``num_shards=1`` is the trivial spec, 0 means every visible card."""
+    ``num_shards=1`` is the trivial spec, 0 means every device the engine
+    can use. ``placement`` maps real lanes to shards: ``"roundrobin"``
+    deals lane v to shard v % N, ``"block"`` keeps lanes in order (all
+    padding on the last shard)."""
     num_shards: int = 1
     axis_name: str = "fleet"
     placement: str = "roundrobin"   # "roundrobin" | "block"
@@ -365,11 +368,15 @@ class ShardSpec:
     def trivial(self) -> bool:
         return self.num_shards == 1
 
-    def resolve(self) -> int:
-        """Concrete shard count (0 ⇒ every visible card)."""
+    def resolve(self, devices: Optional[Sequence[Any]] = None) -> int:
+        """Concrete shard count. 0 ⇒ every device the engine will use:
+        the explicit ``devices`` list if given, else the visible cards,
+        else one CPU (as JAX's unforced CPU backend shows one device)."""
         if self.num_shards == 0:
+            if devices is not None:
+                return len(devices)
             import torch
-            return torch.cuda.device_count()
+            return max(torch.cuda.device_count(), 1)
         return self.num_shards
 
     def __post_init__(self):

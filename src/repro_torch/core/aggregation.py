@@ -388,7 +388,7 @@ def aggregate_merged_padded(stacked: Any, weights: torch.Tensor,
     the tree's device, 0 for a lane that does not contribute, which makes
     it an exact no-op. Normalised in f32 as :func:`aggregate_merged`
     does, which this equals over the per-client list up to summation
-    order."""
+    order (a sharded fleet adds :func:`merged_padded_sums` instead)."""
     w = weights.to(torch.float32)
     wn = (w / torch.clamp(torch.sum(w), min=1e-12)).reshape(-1, 1, 1)
     out = _skeleton(stacked)
@@ -540,6 +540,13 @@ def merge_partials(partials_stacked: Any, data_w, ages, decay: float
     return merged, torch.sum(wn) > 0
 
 
+def _seg_onehot(assoc, w: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(V, K) raw per-segment weights: w_v where lane v is in segment k."""
+    assoc = torch.as_tensor(assoc).to(w.device)
+    return w.reshape(-1, 1) * (assoc.reshape(-1, 1) == torch.arange(
+        num_segments, device=w.device)).to(torch.float32)
+
+
 def segment_weight_matrix(assoc, weights, num_segments: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(V, K) per-segment normalised weights and the (K,) raw sums.
@@ -548,24 +555,26 @@ def segment_weight_matrix(assoc, weights, num_segments: int
     row is zero, an exact no-op); weights: (V,) data sizes (0 for a lane
     that does not contribute). Column k sums to 1 where segment k has
     weight."""
-    w = _f32(weights)
-    assoc = torch.as_tensor(assoc).to(w.device)
-    onehot = (assoc.reshape(-1, 1) == torch.arange(
-        num_segments, device=w.device)).to(torch.float32)
-    w_vk = w.reshape(-1, 1) * onehot
+    w_vk = _seg_onehot(assoc, _f32(weights), num_segments)
     seg_w = torch.sum(w_vk, dim=0)
     return w_vk / torch.clamp(seg_w, min=1e-12), seg_w
 
 
 def aggregate_merged_padded_segmented(stacked: Any, weights, assoc,
-                                      num_segments: int, scale: float
+                                      num_segments: int, scale: float, *,
+                                      constrain: Optional[Callable] = None
                                       ) -> Tuple[Any, torch.Tensor]:
     """Per-RSU merged-delta partials of a stacked adapter tree (a rank
     group, or the fused engine's rank-padded fleet; lanes third from the
     end). Returns (partials, seg_w): each leaf (..., K, d_in, d_out), slot
     k equal to :func:`aggregate_merged` over segment k's lanes, and the
     (K,) raw weight sums (0: the slot is zero and the caller keeps its
-    previous partial)."""
+    previous partial). constrain: see :func:`split_fleet`."""
+    parts = split_fleet(constrain, stacked, weights, assoc)
+    if parts is not None:
+        raw, seg_w = add_partials([merged_segment_sums(
+            s, w, a, num_segments, scale) for s, w, a in parts])
+        return normalise(raw, seg_w), seg_w
     wn_vk, seg_w = segment_weight_matrix(assoc, weights, num_segments)
     out = _skeleton(stacked)
     for path in tree_paths(out):
@@ -580,12 +589,19 @@ def aggregate_merged_padded_segmented(stacked: Any, weights, assoc,
 
 
 def aggregate_hetlora_segmented(stacked: Any, weights, assoc,
-                                num_segments: int, max_rank: int
+                                num_segments: int, max_rank: int, *,
+                                constrain: Optional[Callable] = None
                                 ) -> Tuple[Any, torch.Tensor]:
     """Per-RSU HetLoRA partials: factors zero-padded to max_rank and
     averaged per segment. Returns a factor tree with the segment axis
     third from the end (slot k equal to :func:`aggregate_hetlora` over
-    segment k's lanes) and the (K,) raw weight sums."""
+    segment k's lanes) and the (K,) raw weight sums. constrain: see
+    :func:`split_fleet`."""
+    parts = split_fleet(constrain, stacked, weights, assoc)
+    if parts is not None:
+        raw, seg_w = add_partials([hetlora_segment_sums(
+            s, w, a, num_segments, max_rank) for s, w, a in parts])
+        return normalise(raw, seg_w), seg_w
     wn_vk, seg_w = segment_weight_matrix(assoc, weights, num_segments)
     out = _skeleton(stacked)
     for path in tree_paths(out):
@@ -652,10 +668,7 @@ def segment_buffer_release(buf_stacked: Any, rel_w, dest,
     (V,) destination segment per lane (-1: a no-op row). Returns the raw
     sums with the segment axis third from the end and the (K,) weight
     sums."""
-    w = _f32(rel_w)
-    dest = torch.as_tensor(dest).to(w.device)
-    w_vk = w.reshape(-1, 1) * (dest.reshape(-1, 1) == torch.arange(
-        num_segments, device=w.device)).to(torch.float32)
+    w_vk = _seg_onehot(dest, _f32(rel_w), num_segments)
     raw = tree_map(lambda x: _lane_sum(w_vk.t(), x), buf_stacked)
     return raw, torch.sum(w_vk, dim=0)
 
@@ -672,3 +685,91 @@ def combine_with_released(merged: Any, live_w, released_raw: Any,
         return ((m.float() * _seg_w(lw, m) + r.float())
                 / _seg_w(tot, m))
     return tree_map(one, merged, released_raw)
+
+
+# ---------------------------------------------------------------------------
+# The fleet split over devices (the sharded fused engine, and the
+# primitives above given a ``constrain``): each shard reduces its own
+# lanes to raw weighted sums, and the sums are added on the first
+# shard's (home) device in shard order, so a run repeats bit for bit; the
+# normalisation follows the sum. Equal to the one-device result up to
+# summation order.
+# ---------------------------------------------------------------------------
+
+def split_fleet(constrain: Optional[Callable], *args) -> Optional[List]:
+    """``args`` split by a fleet constraint
+    (``launch.sharding.fleet_constrainer``): None without one, or where
+    it is the identity (one device holds every lane); else one tuple of
+    ``args`` per shard, each holding that shard's lanes on its device."""
+    if constrain is None:
+        return None
+    args = tuple(torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                 for a in args)
+    out = constrain(args)
+    return None if out is args else list(out)
+
+
+def add_partials(parts: Sequence[Any]) -> Any:
+    """Σ of per-shard trees (tuples of trees alike), added leaf by leaf on
+    the first part's devices in the order given."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = tree_map(lambda a, b: a + b.to(a.device), out, p)
+    return out
+
+
+def normalise(raw: Any, w) -> Any:
+    """A raw weighted sum over its weights: a scalar total, or (K,)
+    totals per segment (third from the end), clamped as the one-device
+    functions clamp."""
+    def one(x):
+        tot = torch.clamp(_f32(w, x), min=1e-12)
+        return x / _seg_w(tot, x)
+    return tree_map(one, raw)
+
+
+def merged_padded_sums(stacked: Any, weights, scale: float
+                       ) -> Tuple[Any, torch.Tensor]:
+    """One shard's part of :func:`aggregate_merged_padded`: (Σ_v w_v ·
+    scale·A_v·B_v, Σ_v w_v), unnormalised."""
+    w = _f32(weights)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        a = ad["a"].float() * w.to(ad["a"].device).reshape(-1, 1, 1)
+        out = tree_set(out, path, {"delta": scale * torch.einsum(
+            "...vir,...vro->...io", a, ad["b"].float())})
+    return out, torch.sum(w)
+
+
+def merged_segment_sums(stacked: Any, weights, assoc, num_segments: int,
+                        scale: float) -> Tuple[Any, torch.Tensor]:
+    """One shard's part of :func:`aggregate_merged_padded_segmented`:
+    per-segment raw sums (segment axis third from the end) and the (K,)
+    weight sums."""
+    w_vk = _seg_onehot(assoc, _f32(weights), num_segments)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        ad = tree_get(stacked, path)
+        a, b = ad["a"].float(), ad["b"].float()
+        wk = w_vk.to(a.device)
+        out = tree_set(out, path, {"delta": torch.stack([
+            scale * torch.einsum("...vir,...vro->...io",
+                                 a * wk[:, k].reshape(-1, 1, 1), b)
+            for k in range(num_segments)], dim=-3)})
+    return out, torch.sum(w_vk, dim=0)
+
+
+def hetlora_segment_sums(stacked: Any, weights, assoc, num_segments: int,
+                         max_rank: int) -> Tuple[Any, torch.Tensor]:
+    """One shard's part of :func:`aggregate_hetlora_segmented`: raw
+    per-segment factor sums and the (K,) weight sums."""
+    w_vk = _seg_onehot(assoc, _f32(weights), num_segments)
+    out = _skeleton(stacked)
+    for path in tree_paths(out):
+        a, b = _pad_rank(tree_get(stacked, path), max_rank)
+        wk = w_vk.to(a.device)
+        out = tree_set(out, path, {
+            "a": torch.einsum("vk,...vir->...kir", wk, a),
+            "b": torch.einsum("vk,...vro->...kro", wk, b)})
+    return out, torch.sum(w_vk, dim=0)

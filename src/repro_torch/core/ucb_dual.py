@@ -66,6 +66,32 @@ def select_ranks(state: UCBDualState, cfg: UCBDualConfig,
                        torch.full_like(arms, -1))
 
 
+def record(state: UCBDualState, arms, rewards, energies
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-vehicle half of :func:`update`: (counts, reward_sum,
+    energy_sum) after recording each active vehicle's reward and energy
+    on its arm. Each row reads only its own vehicle, so a fleet split
+    into lane shards records shard by shard."""
+    K = state.counts.shape[-1]
+    arms = torch.as_tensor(arms, dtype=torch.int64)
+    rewards, energies = _f32(rewards), _f32(energies)
+    act = arms >= 0
+    arms_c = torch.where(act, arms, torch.zeros_like(arms))
+    onehot = (torch.nn.functional.one_hot(arms_c, K).to(F32)
+              * act[:, None].to(F32))
+    return (state.counts + onehot,
+            state.reward_sum + onehot * rewards[:, None],
+            state.energy_sum + onehot * energies[:, None])
+
+
+def dual_step(cfg: UCBDualConfig, lam, total_energy, budget
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dual half of :func:`update`: (λ^{m+1}, the violation
+    Σ_v E_v − Ē_t) from the fleet's total energy."""
+    violation = total_energy - _f32(budget)
+    return torch.clamp(lam + cfg.omega * violation, min=0.0), violation
+
+
 def update(state: UCBDualState, cfg: UCBDualConfig, arms, rewards,
            energies, budget) -> Tuple[UCBDualState, Dict[str, torch.Tensor]]:
     """Record per-vehicle observations and take the dual subgradient step.
@@ -73,19 +99,12 @@ def update(state: UCBDualState, cfg: UCBDualConfig, arms, rewards,
     arms: (V,) selected arm, -1 = inactive this round; rewards/energies:
     (V,) realized R_v^m / E_v^m (ignored where arm == -1); budget: the
     task's Ē_t^m."""
-    V, K = state.counts.shape
     arms = torch.as_tensor(arms, dtype=torch.int64)
-    rewards, energies, budget = _f32(rewards), _f32(energies), _f32(budget)
-    act = arms >= 0
-    arms_c = torch.where(act, arms, torch.zeros_like(arms))
-    onehot = (torch.nn.functional.one_hot(arms_c, K).to(F32)
-              * act[:, None].to(F32))
-    counts = state.counts + onehot
-    reward_sum = state.reward_sum + onehot * rewards[:, None]
-    energy_sum = state.energy_sum + onehot * energies[:, None]
-    total_e = torch.sum(torch.where(act, energies, torch.zeros_like(energies)))
-    violation = total_e - budget
-    lam = torch.clamp(state.lam + cfg.omega * violation, min=0.0)
+    energies = _f32(energies)
+    counts, reward_sum, energy_sum = record(state, arms, rewards, energies)
+    total_e = torch.sum(torch.where(arms >= 0, energies,
+                                    torch.zeros_like(energies)))
+    lam, violation = dual_step(cfg, state.lam, total_e, budget)
     new = UCBDualState(counts=counts, reward_sum=reward_sum,
                        energy_sum=energy_sum, lam=lam,
                        round=state.round + 1.0)

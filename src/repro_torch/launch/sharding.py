@@ -21,14 +21,17 @@ tuple is None (:func:`spec`). A path is a tuple of dict keys and list
 indices. The ``*_shardings`` functions return a tree of specs shaped
 like their input. A mesh is anything with ``axis_names`` and a ``shape``
 mapping of axis sizes (:class:`repro_torch.launch.mesh.Mesh`); the rules
-read nothing else. Applying them over more than one device (the
-constraint functions below) is ROADMAP Queue 1, item 12: on such a mesh
-they raise ``NotImplementedError``, and nothing silently replicates.
+read nothing else. The fleet rules also apply over more than one
+device: on a fleet mesh (:func:`repro_torch.launch.mesh.make_fleet_mesh`)
+:func:`fleet_constrainer` splits fleet-stacked trees into the lanes each
+shard holds, on its device. The other constraint functions over more
+than one device are ROADMAP Queue 1, item 12b: there they raise
+``NotImplementedError``, and nothing silently replicates.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 from repro_torch.launch.mesh import MULTI_DEVICE
 
@@ -226,14 +229,50 @@ def fleet_shardings(mesh, tree: Any, *, axis_pos: int = 0,
     return map_with_path(f, tree)
 
 
+def fleet_lanes(mesh, fleet_size: int, *,
+                axis_name: str = "fleet") -> List[range]:
+    """The lanes each shard of a fleet mesh holds: N contiguous blocks of
+    ``fleet_size / N`` (the reference's mesh splits the slot axis so)."""
+    n = mesh.shape[axis_name]
+    if fleet_size % n:
+        raise ValueError(f"a fleet of {fleet_size} lanes does not split "
+                         f"evenly over {n} shards")
+    per = fleet_size // n
+    return [range(i * per, (i + 1) * per) for i in range(n)]
+
+
 def fleet_constrainer(mesh, fleet_size: int, *,
                       axis_name: str = "fleet") -> Callable[[Any], Any]:
-    """Constraint fn pinning fleet-stacked intermediates to the fleet
-    mesh: the identity with ``mesh=None`` or on one device (one device
-    holds every lane); a mesh over more than one device raises."""
+    """Constraint fn placing fleet-stacked trees on the fleet mesh: the
+    identity with ``mesh=None`` or on one device (one device holds every
+    lane). On a fleet mesh over N > 1 devices it splits a tree into a
+    list of N trees, shard i's holding its lanes (:func:`fleet_lanes`) of
+    every leaf whose lane axis has ``fleet_size`` entries, on
+    ``mesh.devices[i]``, and a copy of every other leaf there. A leaf's
+    lane axis is its first for vectors and (V, K) tables, and third from
+    the end for stacked trees (where the port stacks adapters' lanes).
+    Any other mesh over more than one device raises."""
     if _one_device(mesh):
         return lambda tree: tree
-    raise NotImplementedError(MULTI_DEVICE)
+    if (tuple(mesh.axis_names) != (axis_name,)
+            or getattr(mesh, "devices", None) is None):
+        raise NotImplementedError(MULTI_DEVICE)
+    blocks = fleet_lanes(mesh, fleet_size, axis_name=axis_name)
+
+    def constrain(tree):
+        def shard(i):
+            lanes, dev = blocks[i], mesh.devices[i]
+
+            def leaf(_, x):
+                if not hasattr(x, "narrow"):
+                    return x
+                ax = 0 if x.dim() < 3 else -3
+                if x.dim() and x.shape[ax] == fleet_size:
+                    x = x.narrow(ax, lanes.start, len(lanes))
+                return x.to(dev)
+            return map_with_path(leaf, tree)
+        return [shard(i) for i in range(len(blocks))]
+    return constrain
 
 
 # ---------------------------------------------------------------------------

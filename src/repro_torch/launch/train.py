@@ -8,7 +8,7 @@ are differentiated; the optimizer is the reference's Adam
 on a production mesh; here a mesh is one device (or ``mesh=None``), and
 the sharding rules of :mod:`repro_torch.launch.sharding` are checked
 against where the step's arguments sit. More than one device is ROADMAP
-Queue 1, item 12.
+Queue 1, item 12b.
 
 Also the CLI of the end-to-end example, on the card unless asked for
 the CPU:
@@ -79,10 +79,10 @@ def make_train_step(cfg: ModelConfig, lora: LoRAConfig, mesh=None, *,
     and Adam tensors, a few MB at rank 8, and the caller drops the old
     ones); seq_shard and scan_unroll (a one-device mesh has no sequence
     to shard, and the layers run as a plain Python loop). A mesh over
-    more than one device raises ``NotImplementedError`` (item 12)."""
+    more than one device raises ``NotImplementedError`` (item 12b)."""
     opt = adam(lr)
     # the residual-stream constraint is the identity on one device, so the
-    # loss does not take it; beyond one device this raises (item 12)
+    # loss does not take it; beyond one device this raises (item 12b)
     sh.make_constrain(mesh, seq_shard)
 
     def value_and_grad(params, adapters, batch):

@@ -403,7 +403,7 @@ def forward_hidden(params, adapters, cfg: ModelConfig, lora: LoRAConfig,
     The reference's ``constrain`` (a sharding constraint on the residual
     stream) and ``scan_unroll`` are not taken: on one device the first
     is the identity, and the layers run as a plain Python loop, so there
-    is nothing to unroll (ROADMAP Queue 1, item 12).
+    is nothing to unroll (ROADMAP Queue 1, item 12b).
     scale: optional override of lora.scale — a scalar, or a
     ``(scale, rank_mask)`` pair (see :func:`core.lora.split_scale`)."""
     scale = lora.scale if scale is None else scale

@@ -82,14 +82,16 @@ def build_config(name: str, method: str = "ours",
 
 
 # IoVSimulator's keyword arguments, which build_sim passes through
-_SIM_KWARGS = ("params", "server_draws", "draw_omega", "mask_draws")
+_SIM_KWARGS = ("params", "server_draws", "draw_omega", "mask_draws",
+               "fleet_devices")
 
 
 def build_sim(name: str, method: str = "ours",
               rounds: Optional[int] = None, seed: int = 0,
               device="cuda", **overrides):
     """The preset's simulator on ``device`` (``cuda`` unless asked).
-    ``params``, ``server_draws``, ``draw_omega`` and ``mask_draws`` go to
+    ``params``, ``server_draws``, ``draw_omega``, ``mask_draws`` and
+    ``fleet_devices`` go to
     :class:`~repro_torch.sim.simulator.IoVSimulator`; every other keyword
     overrides a SimConfig field."""
     from repro_torch.sim.simulator import IoVSimulator

@@ -53,8 +53,10 @@ An enabled ``SimConfig.checkpoint`` writes the complete state every
 resumes from it bit for bit, under any engine and on either device
 (``checkpoint/carry.py``). A ``MobilitySimConfig.trace`` replays staged
 trajectories (``sim/trajectories.py``; the presets of
-``sim/scenarios.py``). The sharded fused engine raises (ROADMAP Queue 1,
-item 12).
+``sim/scenarios.py``). ``"fused_sharded"`` (or a non-trivial
+``SimConfig.shard`` under ``"fused"``) splits the fused round's lanes
+over a fleet of devices from this one process (``fleet_devices``:
+default the first N visible cards; ``["cpu"] * N`` runs it on the CPU).
 """
 from __future__ import annotations
 
@@ -124,10 +126,9 @@ class SimConfig:
     scenario: Optional[str] = None
 
 
-ENGINES = ("serial", "batched", "batched_check", "fused", "fused_check")
-FUSED_ENGINES = ("fused", "fused_check")
-# the reference's other engine, which the port does not run yet
-UNPORTED_ENGINES = ("fused_sharded",)
+ENGINES = ("serial", "batched", "batched_check", "fused", "fused_check",
+           "fused_sharded")
+FUSED_ENGINES = ("fused", "fused_check", "fused_sharded")
 
 
 class IoVSimulator:
@@ -135,15 +136,20 @@ class IoVSimulator:
                  params: Optional[Dict] = None,
                  server_draws: Optional[Sequence[Callable[[], Any]]] = None,
                  draw_omega: Optional[Callable] = None,
-                 mask_draws: Optional[Sequence[Callable[[], Any]]] = None):
+                 mask_draws: Optional[Sequence[Callable[[], Any]]] = None,
+                 fleet_devices: Optional[Sequence[Any]] = None):
         """device: where the model trains (``cuda`` unless asked; no card
         raises). params: the frozen base (any device; default: seeded
         random weights drawn on the CPU). server_draws: per task, the
         fresh-adapter draw of its RSUServer; mask_draws: per task, its
         FedRA layer-mask draw; draw_omega: the SVD sketch of every server
-        (see :class:`RSUServer`)."""
+        (see :class:`RSUServer`). fleet_devices: the sharded fused
+        engine's devices, shard i on the i-th (repeats allowed; default:
+        the first N visible devices of ``device``'s type)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.fleet_devices = (None if fleet_devices is None
+                              else [resolve_device(d) for d in fleet_devices])
         self._check_ported(cfg)
         self.spec = METHODS[cfg.method]
         self.engine = self._resolve_engine(cfg)
@@ -252,26 +258,36 @@ class IoVSimulator:
         self.fused = None
         if self.engine in FUSED_ENGINES:
             self.fused = FusedRoundEngine(
-                self, check=(self.engine == "fused_check"))
+                self, check=(self.engine == "fused_check"),
+                sharded=(self.engine == "fused_sharded"),
+                devices=self.fleet_devices)
 
     # ------------------------------------------------------------------
     @staticmethod
     def _resolve_engine(cfg: SimConfig) -> str:
-        engine = (cfg.engine or os.environ.get("REPRO_SIM_ENGINE")
-                  or "batched")
-        if engine in UNPORTED_ENGINES:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet; the port runs "
-                f"{ENGINES} (ROADMAP Queue 1, item 12)")
+        env = os.environ.get("REPRO_SIM_ENGINE")
+        engine = cfg.engine or env or "batched"
         if engine not in ENGINES:
-            raise ValueError(f"unknown engine {engine!r}; have "
-                             f"{ENGINES + UNPORTED_ENGINES}")
+            raise ValueError(f"unknown engine {engine!r}; have {ENGINES}")
         if engine in FUSED_ENGINES and not supports_method(cfg.method):
             if cfg.engine is None:   # chosen by the environment: fall back
                 return "batched"
             raise ValueError(
                 f"engine={engine!r} does not support method "
                 f"{cfg.method!r}; use engine='batched' or 'serial'")
+        if not cfg.shard.trivial and engine not in ("fused",
+                                                    "fused_sharded"):
+            if cfg.engine is not None:
+                # an explicit engine that cannot shard would drop an
+                # explicit shard spec: refuse
+                raise ValueError(
+                    f"engine={engine!r} cannot shard the fleet axis; "
+                    f"SimConfig.shard={cfg.shard} needs engine='fused' or "
+                    "'fused_sharded' (or the trivial ShardSpec)")
+            if env is None and supports_method(cfg.method):
+                # nothing chose an engine: the shard spec routes to fused
+                return "fused"
+            # an engine from the environment leaves the spec inert
         return engine
 
     @staticmethod
@@ -279,10 +295,6 @@ class IoVSimulator:
         if cfg.method not in METHODS:
             raise KeyError(f"unknown method {cfg.method!r}; have "
                            f"{sorted(METHODS)}")
-        if not cfg.shard.trivial:
-            raise NotImplementedError(
-                f"SimConfig.shard={cfg.shard} needs the sharded fused "
-                "engine (ROADMAP Queue 1, item 12)")
 
     # ------------------------------------------------------------------
     def _select_ranks(self, ti: int, active: np.ndarray):

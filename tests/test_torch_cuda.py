@@ -253,6 +253,53 @@ def test_flash_mma_other_head_dims_and_windows(cuda_device, S, D, window):
     assert float((got.float() - want.float()).abs().max()) < 2e-2
 
 
+def _sharded_sim(n, placement, capture=None):
+    """FUSED_KW over n shards, all on the one card."""
+    from repro_torch.config import ShardSpec
+    from repro_torch.federated.fused_engine import FusedRoundEngine
+    sim = IoVSimulator(SimConfig(**dict(FUSED_KW, engine="fused_sharded"),
+                                 shard=ShardSpec(num_shards=n,
+                                                 placement=placement)),
+                       device="cuda", fleet_devices=["cuda:0"] * n)
+    if capture is False:
+        sim.fused = FusedRoundEngine(sim, capture=False,
+                                     devices=sim.fleet_devices)
+    return sim
+
+
+@pytest.mark.parametrize("n,placement", [(2, "roundrobin"), (4, "block")],
+                         ids=["2-roundrobin", "4-block"])
+def test_sharded_round_captures_once_per_topology_and_replays_as_eager(
+        cuda_device, n, placement):
+    """Three sharded rounds of the reduced ViT with every shard on the
+    one card: one capture (a lane graph per shard and the home device's
+    two), and the replayed rounds equal to the same rounds run eagerly
+    (records, merged deltas, UCB-DUAL states in vehicle order)."""
+    graph, eager = _sharded_sim(n, placement), _sharded_sim(n, placement,
+                                                            False)
+    assert graph.fused.capture and not eager.fused.capture
+    g_recs, g_merged = _fused_state(graph, 3)
+    e_recs, e_merged = _fused_state(eager, 3)
+    assert graph.fused.captures == 1 and graph.fused.segments == n + 2
+    assert eager.fused.captures == 0
+    assert g_recs == e_recs
+    for gs, es in zip(g_merged, e_merged):
+        for g, e in zip(gs, es):
+            assert torch.equal(g, e)
+    arms = len(graph.cfg.lora.candidate_ranks)
+    for gu, eu in zip(graph.ucb_states, eager.ucb_states):
+        assert gu.counts.shape == (6, arms)
+        for g, e in zip(gu, eu):
+            assert torch.equal(g, e)
+
+
+def test_sharded_run_scanned_on_card_equals_run_round(cuda_device):
+    """A sharded run_scanned on the card gives the per-round records."""
+    a, b = _sharded_sim(2, "roundrobin"), _sharded_sim(2, "roundrobin")
+    assert a.run(2) == b.run_scanned(2)
+    assert b.fused.captures == 1
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])

@@ -370,8 +370,9 @@ def test_mirrored_state_readopts_exactly(per_round):
 ], ids=["fused_sharded", "two_rsus", "two_shards"])
 def test_unported_fused_options_raise(change):
     """The fused engine runs tiers, semi_sync and checkpoints; with them,
-    as without, the sharded fleet (item 12) raises."""
-    with pytest.raises(NotImplementedError, match="item 12"):
+    as without, a sharded fleet on the one device the CPU shows raises
+    (``fleet_devices`` runs it: ``tests/test_torch_sharded_engine.py``)."""
+    with pytest.raises(ValueError, match="visible"):
         _sim(**change)
 
 
@@ -386,18 +387,23 @@ def test_fused_engine_takes_semi_sync_with_checkpoints(tmp_path):
 
 
 def test_engine_rejects_a_tier_and_the_sharded_fleet_itself():
-    """The engine takes a tier (its partials in the carry) and rejects
-    the sharded fleet itself, with a tier or without."""
+    """The engine takes a tier (its partials in the carry); a sharded
+    fleet builds the sharded engine over the devices given, and without
+    them, on the one device the CPU shows, raises, with a tier or
+    without."""
     sim = _sim()
     sim.cfg = dataclasses.replace(sim.cfg, rsu_tier=RSUTierSpec(
         num_rsus_per_task=2))
     eng = fused.FusedRoundEngine(sim)
     assert eng.K == 2 and tuple(eng.carry["partial_w"].shape) == (2, 2)
     sim.cfg = dataclasses.replace(sim.cfg, shard=ShardSpec(num_shards=2))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="visible"):
         fused.FusedRoundEngine(sim)
+    eng = fused.FusedRoundEngine(sim, devices=["cpu", "cpu"])
+    assert isinstance(eng, fused.ShardedRoundEngine) and eng.n_shards == 2
+    assert tuple(eng.carry["partial_w"].shape) == (2, 2)
     sim.cfg = dataclasses.replace(sim.cfg, rsu_tier=RSUTierSpec())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="visible"):
         fused.FusedRoundEngine(sim)
     sim.cfg = dataclasses.replace(sim.cfg, shard=ShardSpec())
     with pytest.raises(ValueError, match="CUDA"):

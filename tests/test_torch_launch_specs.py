@@ -9,8 +9,8 @@ axis sizes, so both packages are held on the same stand-in meshes of
 at full width: every param and adapter leaf's spec at ``model_size=16``
 and the abstract state's shapes and dtypes; per arch and input shape:
 ``input_specs`` (shapes and dtypes) and every batch and cache leaf's
-spec. A mesh over more than one device raises, citing ROADMAP Queue 1
-item 12.
+spec. A model-parallel mesh over more than one device raises, citing
+ROADMAP Queue 1 item 12b; the fleet mesh builds.
 """
 import dataclasses
 import functools
@@ -248,15 +248,17 @@ def test_more_devices_than_visible_raise_as_the_reference():
 
 
 def test_multi_device_mesh_raises_citing_item_12(monkeypatch):
-    """A mesh over more than one device: building one, constraining on
-    one, or a train step on one raises NotImplementedError (item 12);
-    nothing silently replicates."""
+    """A model-parallel mesh over more than one device: building one,
+    constraining on one, or a train step on one raises
+    NotImplementedError (item 12b); nothing silently replicates. The
+    fleet mesh builds over every visible device (the sharded fleet)."""
     monkeypatch.setattr(pmesh, "visible_devices", lambda device: 4)
-    for build in (lambda: pmesh.make_fleet_mesh(2, device="cpu"),
-                  lambda: pmesh.make_fleet_mesh(device="cpu"),
-                  lambda: pmesh.make_mesh((2, 2), ("data", "model"), "cpu")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build()
+    for n, build in ((2, lambda: pmesh.make_fleet_mesh(2, device="cpu")),
+                     (4, lambda: pmesh.make_fleet_mesh(device="cpu"))):
+        m = build()
+        assert m.sizes == (n,) and m.devices == (torch.device("cpu"),) * n
+    with pytest.raises(NotImplementedError, match="item 12"):
+        pmesh.make_mesh((2, 2), ("data", "model"), "cpu")
     for mesh in MESHES.values():
         with pytest.raises(NotImplementedError, match="item 12"):
             sh.make_constrain(mesh, True)

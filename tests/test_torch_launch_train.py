@@ -13,8 +13,8 @@ the reference's init handed in, against the reference CLI: the loss
 lines to 1e-4, the same fingerprint, checkpoints the other package's
 ``restore_round`` reads with the same keys and RNG state, the last 3
 kept by both; kill-and-resume bit for bit; another ``--lr`` refused; a
-scenario preset through ``--simulate``; ``fused_sharded`` refused with
-item 12. And the reference notes of ROADMAP Queue 3 this slice copies.
+scenario preset through ``--simulate``; ``fused_sharded`` refused on
+the one device the CPU shows. And the reference notes of ROADMAP Queue 3 this slice copies.
 """
 import contextlib
 import io
@@ -476,6 +476,9 @@ def test_cli_simulate_runs(monkeypatch):
 
 
 def test_cli_fused_sharded_raises_item_12(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """``--engine fused_sharded`` on the CPU, which shows one device,
+    raises naming the visible devices, as the reference's CLI refuses it
+    on a host without forced devices."""
+    with pytest.raises(ValueError, match="visible device"):
         _port_cli(["--simulate", "sparse-rural", "--rounds", "1",
                    "--engine", "fused_sharded"], monkeypatch)

@@ -32,6 +32,7 @@ from repro.core import aggregation as jagg
 from repro.models import transformer as JT
 from repro.sim.simulator import IoVSimulator as JSimulator
 from repro.sim.simulator import SimConfig as JSimConfig
+from repro.config import ShardSpec as JShardSpec
 from repro_torch import interop
 from repro_torch.config import (CheckpointSpec, ParticipationSpec,
                                 RSUTierSpec, ShardSpec, TraceSpec)
@@ -272,7 +273,7 @@ def test_summary_and_history_shape(runs):
 
 
 # ---------------------------------------------------------------------------
-# What the port does not run yet raises
+# A sharded fleet on one visible device raises
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("change", [
@@ -280,9 +281,19 @@ def test_summary_and_history_shape(runs):
     {"shard": ShardSpec(num_shards=2)},
 ], ids=["fused_sharded", "two_shards"])
 def test_unported_options_raise(change):
+    """The sharded fleet runs (``tests/test_torch_sharded_engine.py``),
+    but the CPU shows one device: ``fused_sharded`` without
+    ``fleet_devices`` raises, as the reference does on a host without
+    forced devices; a shard spec under KW's explicit serial engine is
+    refused, as the reference refuses it."""
     cfg = dataclasses.replace(SimConfig(**KW), **change)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="visible|cannot shard"):
         IoVSimulator(cfg, device="cpu")
+    with pytest.raises(ValueError, match="visible|cannot shard"):
+        JSimulator(JSimConfig(**dict(
+            KW, engine=change.get("engine", KW["engine"]),
+            shard=JShardSpec(num_shards=getattr(change.get("shard"),
+                                                "num_shards", 1)))))
 
 
 @pytest.mark.parametrize("option", ["checkpoint", "trace"])
@@ -329,9 +340,10 @@ def test_engine_none_resolves_to_batched(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["fused_sharded"])
 def test_unported_engine_from_the_environment_raises(monkeypatch, engine):
-    """fused_sharded is not ported (item 12)."""
+    """fused_sharded from the environment on a host that shows one device
+    raises, naming the visible devices, rather than run one shard."""
     monkeypatch.setenv("REPRO_SIM_ENGINE", engine)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="visible device"):
         IoVSimulator(SimConfig(**dict(KW, engine=None)), device="cpu")
 
 
